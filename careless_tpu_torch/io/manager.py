@@ -1,0 +1,141 @@
+"""DataManager: from formatted inputs and the parsed flags to a model.
+
+Counterpart of careless_tpu/io/manager.py:42-203 for the mono merge: table
+sizes, the Wilson prior, and build_model's mono branch (TruncatedNormal
+surrogate initialised from the prior's moments with centric low = 0 and
+acentric low = 1e-32, Normal likelihood, HybridImageScaler over an MLP with
+the exp or softplus bijector). Options outside the ported slice raise
+NotImplementedError naming the flag. Output writing (get_results,
+get_predictions) is not ported yet.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..device import DeviceLike, resolve_device
+from ..models.base import Inputs
+from ..models.likelihoods.mono import NormalLikelihood
+from ..models.merging.surrogate import TruncatedNormalPosterior
+from ..models.merging.variational import Trainer, VariationalMergingModel
+from ..models.priors.wilson import WilsonPrior
+from ..models.scaling.image import HybridImageScaler, ImageScaler
+from ..models.scaling.nn import MLPScaler
+
+# (flag, attribute, value that selects the unported option)
+_UNPORTED = (
+    ("--double-wilson-parents", "parents", lambda v: v is not None),
+    ("--studentt-likelihood-dof", "studentt_likelihood_dof",
+     lambda v: v is not None),
+    ("--refine-uncertainties", "refine_uncertainties", bool),
+    ("--image-layers", "image_layers", lambda v: bool(v)),
+    ("--mc-samples", "mc_samples", lambda v: v not in (None, 1)),
+    ("--fused-kernel on", "fused_kernel", lambda v: v == "on"),
+    ("--analytic-kl", "analytic_kl", bool),
+    ("--mlp-dtype bfloat16", "mlp_dtype", lambda v: v == "bfloat16"),
+)
+
+
+class DataManager:
+    """asu_collection exposes per-reflection `centric`, `multiplicity` and
+    `dHKL` arrays; parser is the CLI namespace (careless_tpu/args)."""
+
+    def __init__(self, inputs: Inputs, asu_collection, parser=None,
+                 device: DeviceLike = None):
+        self.device = resolve_device(device)
+        self.inputs = inputs.to(self.device)
+        self.asu_collection = asu_collection
+        self.parser = parser
+
+    @property
+    def n_refl(self) -> int:
+        """Global posterior-table size (= ASU-collection length)."""
+        return len(np.asarray(self.asu_collection.centric))
+
+    @property
+    def n_images(self) -> int:
+        """Global image-table size: plans for any subset must use it."""
+        return int(self.inputs.image_id.max()) + 1
+
+    @property
+    def mlp_width(self) -> int:
+        width = getattr(self.parser, "mlp_width", None)
+        return int(width) if width is not None \
+            else int(self.inputs.metadata.shape[-1])
+
+    @staticmethod
+    def wilson_sigma(b: float, dHKL: np.ndarray) -> np.ndarray:
+        return np.exp(-0.25 * b / (dHKL * dHKL))
+
+    def get_wilson_sigma(self, b: Optional[float] = None):
+        if b is None:
+            return 1.0
+        return self.wilson_sigma(b, np.asarray(self.asu_collection.dHKL))
+
+    def get_wilson_prior(self, b: Optional[float] = None, k: float = 1.0
+                         ) -> WilsonPrior:
+        sigma = self.get_wilson_sigma(b) * k
+        dev = self.device
+        return WilsonPrior(
+            torch.as_tensor(np.asarray(self.asu_collection.centric, bool),
+                            device=dev),
+            torch.as_tensor(np.asarray(self.asu_collection.multiplicity,
+                                       np.float32), device=dev),
+            float(sigma) if np.isscalar(sigma) else torch.as_tensor(
+                np.asarray(sigma, np.float32), device=dev))
+
+    def build_model(self, parser=None
+                    ) -> Tuple[VariationalMergingModel, dict, Trainer]:
+        """(model, initial params, trainer) from the parsed flags, on this
+        manager's device."""
+        parser = parser or self.parser
+        if parser is None:
+            raise ValueError("No parser supplied, but self.parser is unset")
+        for flag, attr, selects in _UNPORTED:
+            if selects(getattr(parser, attr, None)):
+                raise NotImplementedError(f"{flag} is not ported yet")
+        dev = self.device
+
+        prior = self.get_wilson_prior(parser.wilson_prior_b)
+        loc = prior.mean().cpu().numpy()
+        scale = (prior.stddev().cpu().numpy()
+                 * parser.structure_factor_init_scale)
+        low = (1e-32 * ~np.asarray(self.asu_collection.centric, bool)
+               ).astype(np.float32)
+        posterior = TruncatedNormalPosterior(
+            low=torch.as_tensor(low, device=dev), high=1e10,
+            scale_shift=parser.epsilon)
+
+        width = self.mlp_width
+        bijector = parser.scale_bijector.lower()
+        if bijector == "softplus":
+            istd = float(np.std(self.inputs.intensities.cpu().numpy()))
+        elif bijector == "exp":
+            istd = None
+        else:
+            raise ValueError(
+                f"Unsupported scale bijector type, {parser.scale_bijector}")
+        mlp = MLPScaler(parser.mlp_layers, width, epsilon=parser.epsilon,
+                        scale_bijector=bijector, scale_multiplier=istd)
+        scaler = (HybridImageScaler(mlp, ImageScaler(self.n_images))
+                  if parser.use_image_scales else mlp)
+
+        model = VariationalMergingModel(
+            posterior=posterior, prior=prior, likelihood=NormalLikelihood(),
+            scaler=scaler, mc_samples=1, kl_weight=parser.kl_weight)
+        params = {"posterior": posterior.init(loc, scale, dev),
+                  "scaler": scaler.init(self.inputs.metadata.shape[-1], dev)}
+
+        freeze = []
+        if getattr(parser, "freeze_scales", False):
+            freeze.append("scaler")
+        if getattr(parser, "freeze_structure_factors", False):
+            freeze.append("posterior")
+        trainer = Trainer(
+            model, learning_rate=parser.learning_rate, beta_1=parser.beta_1,
+            beta_2=parser.beta_2, clipnorm=parser.clipnorm,
+            clipvalue=parser.clipvalue,
+            global_clipnorm=parser.global_clipnorm, freeze=tuple(freeze))
+        return model, params, trainer

@@ -1,0 +1,460 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (careless_tpu_torch) on one NVIDIA card.
+
+    python3 chip_smoke.py [--seed 0]
+
+Phases, each printed on its own lines:
+  1. card: the card's name and power limit, torch/CUDA versions, and the
+     time to build the kernels from csrc/ (nvcc, one process per source);
+  2. kernels: every kernel of the main path (K1-fwd, K1-bwd, K2, K3) at the
+     main path's shapes, held against its plain PyTorch version on the same
+     inputs and timed by CUDA events (median of 30 launches after warm-up)
+     beside its plain version, the one PyTorch call computing the same
+     function where there is one, and its bound on this card; K3 also
+     passes a statistical gate at n = 2^22;
+  3. check: the port's loss and every parameter gradient at a small size on
+     the card against the same computation on the CPU (plain versions);
+  4. slice: the default mono merge (`careless-tpu mono dHKL,image_id ...`
+     defaults) at 1,000,000 observations, 50,000 reflections, 2,000 images,
+     10 metadata columns and a 20-layer MLP of width 10, trained full-batch
+     with Adam; every loss finite, the loss falling, and each kernel's
+     launch count above zero over that run.
+The second-to-last line is the card's name and power limit; the last line is
+{"ok": true, "device": {...}}. Any failed check raises (exit code != 0), and
+without a CUDA device the script exits non-zero before printing a result.
+"""
+import argparse
+import json
+import math
+import statistics
+import subprocess
+import sys
+import time
+import types
+
+import numpy as np
+
+N_OBS, N_REFL, N_IMAGES, D_META, N_LAYERS = 1_000_000, 50_000, 2_000, 10, 20
+STEPS, CHUNK = 300, 50   # training steps of the slice phase, steps per chunk
+
+# the mono defaults of the CLI, copied from careless_tpu/args/*.py
+MONO_DEFAULTS = dict(
+    mc_samples=1, structure_factor_init_scale=1.0, epsilon=1e-7,  # common.py
+    freeze_structure_factors=False,                               # common.py
+    studentt_likelihood_dof=None, refine_uncertainties=False,     # likelihood.py
+    learning_rate=1e-3, beta_1=0.9, beta_2=0.99, clipnorm=None,   # optimizer.py
+    clipvalue=None, global_clipnorm=None,                         # optimizer.py
+    kl_weight=None, wilson_prior_b=None, parents=None,            # prior.py
+    analytic_kl=False,                                            # prior.py
+    freeze_scales=False, mlp_layers=20, mlp_width=None,           # scaling.py
+    image_layers=0, use_image_scales=True, scale_bijector="exp",  # scaling.py
+    fused_kernel="auto", mlp_dtype="float32",                     # device_options.py
+)
+
+# TPU kernels each CUDA kernel replaces (the pallas_call sites)
+REPLACES = {
+    "trunk_fwd": "careless_tpu/ops/fused_mlp.py:175",
+    "trunk_bwd": "careless_tpu/ops/fused_mlp.py:190",
+    "gather": "careless_tpu/ops/table_gather.py:125",
+    "philox_normal": "careless_tpu/ops/fused_elbo.py:66",
+}
+SOURCES = {
+    "trunk_fwd": "careless_tpu_torch/csrc/trunk.cu",
+    "trunk_bwd": "careless_tpu_torch/csrc/trunk.cu",
+    "gather": "careless_tpu_torch/csrc/gather.cu",
+    "philox_normal": "careless_tpu_torch/csrc/philox.cu",
+}
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def peaks(name: str):
+    """(f32 FLOP/s without tensor cores, bytes/s) from NVIDIA's data
+    sheets: H100 SXM 67 TFLOP/s and 3.35 TB/s, PCIe 51 and 2.0."""
+    if "PCIe" in name:
+        return 51e12, 2.0e12
+    return 67e12, 3.35e12
+
+
+def time_ms(torch, fn, reps=30, warmup=5) -> float:
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    events = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        events.append((start, end))
+    torch.cuda.synchronize()
+    return statistics.median(s.elapsed_time(e) for s, e in events)
+
+
+def bound(flops: float, nbytes: float, peak_flops: float, peak_bw: float):
+    t_ops, t_bytes = flops / peak_flops, nbytes / peak_bw
+    return (1e3 * max(t_ops, t_bytes),
+            "operations" if t_ops > t_bytes else "bytes")
+
+
+def check(ok: bool, what: str):
+    if not ok:
+        raise AssertionError(what)
+
+
+def kernel_phase(torch, dev, gen, peak_flops, peak_bw):
+    """Hold each kernel against its plain version and time it."""
+    from careless_tpu_torch import kernels
+    from careless_tpu_torch.ops.fused_elbo import plain_prng_normal
+    from careless_tpu_torch.ops.fused_mlp import (fused_mlp_trunk_head,
+                                                   pack_params,
+                                                   plain_trunk_head)
+    from careless_tpu_torch.ops.table_gather import plain_gather, table_gather
+
+    rows = {}
+    n, d, w, L = N_OBS, D_META, D_META, N_LAYERS
+    x = torch.randn(n, d, generator=gen, device=dev)
+    layers = []
+    for i in range(L):
+        d_in = d if i == 0 else w
+        layers.append({
+            "w": (torch.eye(d_in, w, device=dev) + 0.1 / math.sqrt(w)
+                  * torch.randn(d_in, w, generator=gen, device=dev)
+                  ).requires_grad_(True),
+            "b": (0.05 * torch.randn(w, generator=gen, device=dev)
+                  ).requires_grad_(True)})
+    out = {"w": (torch.randn(w, 2, generator=gen, device=dev) / math.sqrt(w)
+                 ).requires_grad_(True),
+           "b": torch.zeros(2, device=dev).requires_grad_(True)}
+    leaves = [t for layer in layers for t in (layer["w"], layer["b"])] + \
+        [out["w"], out["b"]]
+    F = d * w + (L - 1) * w * w + 2 * w
+
+    # K1-fwd
+    with torch.no_grad():
+        loc_k, raw_k = fused_mlp_trunk_head(x, layers, out, 0.01)
+        loc_p, raw_p = plain_trunk_head(x, layers, out, 0.01)
+    scale = max(loc_p.abs().max().item(), raw_p.abs().max().item(), 1.0)
+    err = max((loc_k - loc_p).abs().max().item(),
+              (raw_k - raw_p).abs().max().item())
+    tol = 1e-4 * scale   # f32, 20 layers summed in another order than cuBLAS
+    check(err <= tol, f"trunk_fwd differs from plain: {err} > {tol}")
+    kw = kernels.trunk_width(w)
+    wflat, bflat = (t.detach() for t in pack_params(layers, out, kw))
+    with torch.no_grad():
+        ms = time_ms(torch, lambda: kernels.trunk_fwd(x, wflat, bflat, kw, L,
+                                                      0.01))
+        plain_ms = time_ms(torch, lambda: plain_trunk_head(x, layers, out,
+                                                           0.01))
+    b_ms, b_by = bound(2.0 * n * F, 4.0 * (n * d + 2 * n + F + L * w + 2),
+                       peak_flops, peak_bw)
+    rows["trunk_fwd"] = dict(max_abs_err=err, tolerance=tol, ms=ms,
+                             plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                             library_ms=None)
+
+    # K1-bwd through autograd, against autograd of the plain version
+    gl = torch.randn(n, generator=gen, device=dev)
+    gr = torch.randn(n, generator=gen, device=dev)
+
+    def grads(fn):
+        loc, raw = fn(x, layers, out, 0.01)
+        return torch.autograd.grad((loc * gl).sum() + (raw * gr).sum(),
+                                   leaves)
+    g_k = grads(fused_mlp_trunk_head)
+    g_k2 = grads(fused_mlp_trunk_head)
+    g_p = grads(plain_trunk_head)
+    check(all(torch.equal(a, b) for a, b in zip(g_k, g_k2)),
+          "trunk_bwd is not bitwise repeatable")
+    err = max((a - b).abs().max().item() for a, b in zip(g_k, g_p))
+    gscale = max(b.abs().max().item() for b in g_p)
+    tol = 1e-4 * gscale  # sums over 1M observations in another order
+    check(err <= tol, f"trunk_bwd differs from plain: {err} > {tol}")
+    ms = time_ms(torch, lambda: kernels.trunk_bwd(x, wflat, bflat, gl, gr,
+                                                  kw, L, 0.01, False))
+    loc, raw = plain_trunk_head(x, layers, out, 0.01)
+    obj = (loc * gl).sum() + (raw * gr).sum()
+    plain_ms = time_ms(torch, lambda: torch.autograd.grad(
+        obj, leaves, retain_graph=True))
+    del obj, loc, raw
+    b_ms, b_by = bound(2.0 * n * (3 * F - d * w),
+                       4.0 * (n * d + 2 * n + 2 * (F + L * w + 2)),
+                       peak_flops, peak_bw)
+    rows["trunk_bwd"] = dict(max_abs_err=err, tolerance=tol, ms=ms,
+                             plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                             library_ms=None, bitwise_repeatable=True)
+
+    # K2: the z_f gather (sorted refl ids) and the image-scale gather
+    cases = {}
+    for label, size, sort in (("z_f", N_REFL, True),
+                              ("image", N_IMAGES, False)):
+        table = torch.randn(size, generator=gen, device=dev)
+        ids = torch.randint(0, size, (n,), generator=gen, device=dev)
+        if sort:
+            ids = torch.sort(ids).values
+        ids = ids.to(torch.int32)
+        err = (table_gather(table, ids) - plain_gather(table, ids)
+               ).abs().max().item()
+        check(err == 0.0, f"gather ({label}) differs from plain: {err}")
+        b_ms, b_by = bound(0.0, 4.0 * (2 * n + size), peak_flops, peak_bw)
+        cases[label] = dict(
+            max_abs_err=err, tolerance=0.0,
+            ms=time_ms(torch, lambda: kernels.gather(table, ids)),
+            plain_ms=time_ms(torch, lambda: plain_gather(table, ids)),
+            library_ms=time_ms(torch, lambda: torch.index_select(table, 0,
+                                                                 ids)),
+            bound_ms=b_ms, bound_by=b_by)
+    rows["gather"] = cases["z_f"]
+    print("gather at the image table (2,000 entries, unsorted ids): "
+          + json.dumps(cases["image"]))
+
+    # K3: raw words bitwise, normals within a few ulp, then statistics
+    seed, offset = 0x1234567890ABCDEF, 3 * n
+    e_k, bits_k = kernels.philox_normal(n, seed, offset, dev, with_bits=True)
+    e_p, bits_p = plain_prng_normal(n, seed, offset, dev, with_bits=True)
+    check(torch.equal(bits_k, bits_p), "philox words differ from plain")
+    err = (e_k - e_p).abs().max().item()
+    tol = 2e-5  # log/sqrt/cos may round differently; |x| <= 5.8
+    check(err <= tol, f"philox normals differ from plain: {err} > {tol}")
+    b_ms, b_by = bound(0.0, 4.0 * n, peak_flops, peak_bw)
+    rows["philox_normal"] = dict(
+        max_abs_err=err, tolerance=tol,
+        ms=time_ms(torch, lambda: kernels.philox_normal(n, seed, 0, dev)),
+        plain_ms=time_ms(torch, lambda: plain_prng_normal(n, seed, 0, dev),
+                         reps=20),
+        library_ms=time_ms(torch, lambda: torch.randn(n, generator=gen,
+                                                      device=dev)),
+        bound_ms=b_ms, bound_by=b_by)
+    rows["philox_normal"]["stats"] = prng_gate(torch, kernels, dev)
+    return rows
+
+
+def prng_gate(torch, kernels, dev):
+    """Moments, 3/4/5-sigma tail mass and a chi-square over 100
+    equal-probability bins for 2^22 normals from K3; every bound is ~5
+    sigma of its statistic (binomial for the tails)."""
+    n = 1 << 22
+    x = kernels.philox_normal(n, 20241016, 0, dev).double()
+    mean, var = x.mean().item(), x.var().item()
+    check(abs(mean) < 5 / math.sqrt(n), f"prng mean {mean}")
+    check(abs(var - 1) < 5 * math.sqrt(2 / n), f"prng variance {var}")
+    tails = {}
+    for k in (3, 4, 5):
+        p = math.erfc(k / math.sqrt(2))
+        count = int((x.abs() > k).sum())
+        sd = math.sqrt(n * p * (1 - p))
+        check(abs(count - n * p) <= 5 * sd + 1,
+              f"prng {k}-sigma tail count {count}, expected {n * p:.1f}")
+        tails[f"{k}sigma"] = [count, n * p]
+    edges = torch.special.ndtri(
+        torch.arange(1, 100, dtype=torch.float64, device=dev) / 100)
+    counts = torch.bincount(torch.bucketize(x, edges), minlength=100)
+    expect = n / 100
+    chi2 = float(((counts.double() - expect) ** 2 / expect).sum())
+    check(chi2 < 99 + 5 * math.sqrt(2 * 99), f"prng chi-square {chi2}")
+    max_abs = x.abs().max().item()
+    check(max_abs <= 5.8, f"prng max |x| {max_abs}")
+    out = dict(n=n, mean=mean, var=var, chi2_99dof=chi2, max_abs=max_abs,
+               **tails)
+    print("prng gate: " + json.dumps(out))
+    return out
+
+
+def build_problem(seed, n_obs, n_refl, n_images, d_meta):
+    """The synthetic mono problem of bench.py (build_problem, mono branch),
+    made with numpy from the seed."""
+    rng = np.random.default_rng(seed)
+    refl_id = rng.integers(0, n_refl, n_obs)
+    image_id = rng.integers(0, n_images, n_obs)
+    metadata = rng.normal(size=(n_obs, d_meta)).astype(np.float32)
+    f_true = np.abs(rng.normal(1.0, 0.5, n_refl)) + 0.05
+    scale_true = np.exp(0.2 * metadata[:, 0])
+    iobs = scale_true * f_true[refl_id] ** 2
+    iobs = iobs + 0.1 * np.sqrt(np.abs(iobs)) * rng.normal(size=n_obs)
+    sig = np.full(n_obs, 0.1, np.float32)
+    centric = rng.random(n_refl) < 0.2
+    asu = types.SimpleNamespace(centric=centric,
+                                multiplicity=np.ones(n_refl, np.float32),
+                                dHKL=np.ones(n_refl, np.float32))
+    return (refl_id, image_id, np.zeros(n_obs), metadata, iobs, sig), asu, \
+        f_true
+
+
+def model_on(device, seed, n_obs, n_refl, n_images, d_meta, n_layers):
+    from careless_tpu_torch.io.manager import DataManager
+    from careless_tpu_torch.models.base import Inputs
+
+    arrays, asu, f_true = build_problem(seed, n_obs, n_refl, n_images,
+                                        d_meta)
+    parser = types.SimpleNamespace(**{**MONO_DEFAULTS,
+                                      "mlp_layers": n_layers})
+    dm = DataManager(Inputs.from_arrays(*arrays, device=device), asu, parser,
+                     device=device)
+    model, params, trainer = dm.build_model()
+    inputs = dm.inputs.sorted_by_refl().with_plans(dm.n_refl, dm.n_images)
+    return model, params, trainer, inputs, f_true
+
+
+def check_phase(torch, dev, seed):
+    """Loss and every parameter gradient of the port at a small size on
+    the card (kernels) against the same computation on the CPU (plain
+    versions), at the same parameters, uniforms and noise."""
+    from careless_tpu_torch.models.merging.variational import (
+        flatten_params, map_params)
+    from careless_tpu_torch.utils.params import (params_from_jax,
+                                                 params_to_numpy)
+
+    sizes = (20_000, 2_000, 50, D_META, N_LAYERS)
+    rng = np.random.default_rng(seed + 1)
+    u_f = rng.random(sizes[1]).astype(np.float32)
+    eps = rng.standard_normal(sizes[0]).astype(np.float32)
+    results = []
+    for device in ("cpu", dev):
+        model, params, _, inputs, _ = model_on(device, seed, *sizes)
+        if not results:
+            # perturb the identity-initialised MLP so every layer matters
+            start = map_params(lambda a: a + 0.05 * rng.standard_normal(
+                a.shape).astype(np.float32), params_to_numpy(params))
+            start["posterior"] = params_to_numpy(params["posterior"])
+        p = params_from_jax(start, device)
+        leaves = [t.requires_grad_(True) for _, t in flatten_params(p)]
+        loss, _ = model.elbo(p, inputs,
+                             u_f=torch.as_tensor(u_f, device=device),
+                             eps=torch.as_tensor(eps, device=device))
+        grads = torch.autograd.grad(loss, leaves)
+        results.append((loss.item(), [g.cpu() for g in grads]))
+    (l_cpu, g_cpu), (l_dev, g_dev) = results
+    rel = abs(l_dev - l_cpu) / abs(l_cpu)
+    # f32 sums over 20k observations taken in another order
+    check(rel < 1e-4, f"loss on the card {l_dev} vs CPU {l_cpu}")
+    g_err = max(((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
+                for a, b in zip(g_dev, g_cpu))
+    check(g_err < 1e-3, f"gradients on the card vs CPU: rel err {g_err}")
+    print(f"check: loss {l_dev:.6f} vs CPU {l_cpu:.6f} (rel {rel:.2e}); "
+          f"max per-tensor grad rel err {g_err:.2e} over {len(g_dev)} "
+          "tensors", flush=True)
+
+
+def slice_phase(torch, dev, seed, steps, chunk):
+    from careless_tpu_torch import kernels
+    from careless_tpu_torch.device import seeded_generator
+
+    t0 = time.perf_counter()
+    model, params, trainer, inputs, f_true = model_on(
+        None, seed, N_OBS, N_REFL, N_IMAGES, D_META, N_LAYERS)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    # warm-up (first launches, cuBLAS handles), then the measured run
+    trainer.train(params, seeded_generator(seed + 100, dev), inputs, 5,
+                  chunk_size=5)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    trained, history = trainer.train(params, seeded_generator(seed, dev),
+                                     inputs, steps, chunk_size=chunk)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+
+    loss = np.asarray(history["loss"])
+    check(len(loss) == steps, f"training stopped at {len(loss)} steps")
+    check(bool(np.all(np.isfinite(loss))), "non-finite loss")
+    first, last = loss[:chunk].mean(), loss[-chunk:].mean()
+    check(last < first, f"loss did not fall: {first} -> {last}")
+    for name, count in launches.items():
+        check(count > 0, f"kernel {name} was not launched by the main path")
+    q = model.posterior.distribution(trained["posterior"])
+    corr = float(np.corrcoef(q.mean().detach().cpu().numpy(), f_true)[0, 1])
+    out = dict(steps=steps, chunk=chunk, steps_per_s=steps / wall,
+               ms_per_step=1e3 * wall / steps, setup_s=setup_s,
+               loss_first_chunk=float(first), loss_last_chunk=float(last),
+               posterior_mean_corr_f_true=corr,
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+               launches_per_step={k: v / steps for k, v in launches.items()})
+    print("slice: " + json.dumps(out), flush=True)
+    profile_steps(torch, trainer, trained, inputs, seed, out["ms_per_step"])
+    return launches
+
+
+def profile_steps(torch, trainer, params, inputs, seed, ms_per_step,
+                  steps=20):
+    """Device time per step by kernel (torch.profiler, CUPTI) over a short
+    window; the busy share is that device time over the unprofiled step
+    time measured above (one stream, so kernels do not overlap)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from careless_tpu_torch.device import seeded_generator
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        trainer.train(params, seeded_generator(seed + 1, inputs.device),
+                      inputs, steps, chunk_size=steps)
+        torch.cuda.synchronize()
+    rows = []
+    for e in prof.key_averages():
+        # device-side events only (kernels, copies); host ranges and their
+        # device-side annotations would count the same time twice
+        if (e.device_type == DeviceType.CUDA and e.self_device_time_total
+                and not getattr(e, "is_user_annotation", False)):
+            rows.append((e.self_device_time_total / 1e3 / steps,
+                         e.count / steps, e.key))
+    rows.sort(reverse=True)
+    device_ms = sum(r[0] for r in rows)
+    out = dict(device_ms_per_step=device_ms,
+               busy_share=device_ms / ms_per_step if device_ms else None,
+               top=[dict(ms_per_step=ms, calls_per_step=c, name=k[:80])
+                    for ms, c, k in rows[:15]])
+    print("profile: " + json.dumps(out), flush=True)
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args()
+
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    from careless_tpu_torch.kernels._build import library
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    card = card_line()
+    name = torch.cuda.get_device_name(0)
+    peak_flops, peak_bw = peaks(name)
+    print(f"card: {card}; torch {torch.__version__}, CUDA "
+          f"{torch.version.cuda}; peaks used {peak_flops / 1e12:g} TFLOP/s "
+          f"f32, {peak_bw / 1e12:g} TB/s", flush=True)
+    t0 = time.perf_counter()
+    library()
+    print(f"build: kernels built and loaded in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(args.seed)
+    rows = kernel_phase(torch, dev, gen, peak_flops, peak_bw)
+    check_phase(torch, dev, args.seed)
+    launches = slice_phase(torch, dev, args.seed, STEPS, CHUNK)
+
+    table = [dict(name=k, route="cuda", source=SOURCES[k],
+                  replaces=REPLACES[k], launches=launches[k], **v)
+             for k, v in rows.items()]
+    print(json.dumps({"kernels": table}))
+    print(card_line())
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name,
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

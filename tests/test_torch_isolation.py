@@ -1,0 +1,66 @@
+"""careless_tpu_torch and chip_smoke.py import neither JAX, optax nor the
+JAX package (careless_tpu itself or any careless_tpu.* module). Checked
+twice: statically over every import statement, and by importing every
+module in a fresh interpreter and inspecting sys.modules.
+
+Note "careless_tpu_torch".startswith("careless_tpu"): the JAX package is
+matched as the exact name or the prefix "careless_tpu.", never as a bare
+string prefix.
+"""
+import ast
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent.parent
+PORT_FILES = sorted((ROOT / "careless_tpu_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"]
+
+
+def forbidden(module: str) -> bool:
+    for name in ("jax", "jaxlib", "optax", "careless_tpu"):
+        if module == name or module.startswith(name + "."):
+            return True
+    return False
+
+
+def test_forbidden_matches_modules_not_prefixes():
+    assert forbidden("careless_tpu") and forbidden("careless_tpu.ops.x")
+    assert forbidden("jax.numpy") and forbidden("optax")
+    assert not forbidden("careless_tpu_torch")
+    assert not forbidden("careless_tpu_torch.ops") and not forbidden("jaxy")
+
+
+def test_no_forbidden_import_statements():
+    assert len(PORT_FILES) > 15
+    bad = []
+    for path in PORT_FILES:
+        for node in ast.walk(ast.parse(path.read_text(), str(path))):
+            if isinstance(node, ast.Import):
+                names = [alias.name for alias in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module]
+            else:
+                continue
+            bad += [f"{path.relative_to(ROOT)}: {n}" for n in names
+                    if forbidden(n)]
+    assert not bad, bad
+
+
+def test_importing_the_port_loads_no_jax():
+    code = """
+import importlib, json, pkgutil, sys
+import careless_tpu_torch
+for mod in pkgutil.walk_packages(careless_tpu_torch.__path__,
+                                 "careless_tpu_torch."):
+    importlib.import_module(mod.name)
+import chip_smoke
+print(json.dumps(sorted(sys.modules)))
+"""
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, check=True)
+    loaded = json.loads(out.stdout.strip().splitlines()[-1])
+    assert "careless_tpu_torch.io.manager" in loaded
+    assert "careless_tpu_torch.kernels._build" in loaded
+    assert [m for m in loaded if forbidden(m)] == []
