@@ -3,10 +3,12 @@
 Counterpart of careless_tpu/io/manager.py:42-203 for the mono merge: table
 sizes, the Wilson prior, and build_model's mono branch (TruncatedNormal
 surrogate initialised from the prior's moments with centric low = 0 and
-acentric low = 1e-32, Normal likelihood, HybridImageScaler over an MLP with
-the exp or softplus bijector). Options outside the ported slice raise
-NotImplementedError naming the flag. Output writing (get_results,
-get_predictions) is not ported yet.
+acentric low = 1e-32; the Normal, StudentT, Normal-Ev11 or StudentT-Ev11
+likelihood of --studentt-likelihood-dof and --refine-uncertainties;
+HybridImageScaler over an MLP with the exp or softplus bijector;
+--mc-samples and the --fused-kernel auto/on/off policy). Options outside
+the ported slice raise NotImplementedError naming the flag. Output writing
+(get_results, get_predictions) is not ported yet.
 """
 from __future__ import annotations
 
@@ -17,7 +19,10 @@ import torch
 
 from ..device import DeviceLike, resolve_device
 from ..models.base import Inputs
-from ..models.likelihoods.mono import NormalLikelihood
+from ..models.likelihoods.mono import (NormalEv11Likelihood,
+                                       NormalLikelihood,
+                                       StudentTEv11Likelihood,
+                                       StudentTLikelihood)
 from ..models.merging.surrogate import TruncatedNormalPosterior
 from ..models.merging.variational import Trainer, VariationalMergingModel
 from ..models.priors.wilson import WilsonPrior
@@ -27,12 +32,7 @@ from ..models.scaling.nn import MLPScaler
 # (flag, attribute, value that selects the unported option)
 _UNPORTED = (
     ("--double-wilson-parents", "parents", lambda v: v is not None),
-    ("--studentt-likelihood-dof", "studentt_likelihood_dof",
-     lambda v: v is not None),
-    ("--refine-uncertainties", "refine_uncertainties", bool),
     ("--image-layers", "image_layers", lambda v: bool(v)),
-    ("--mc-samples", "mc_samples", lambda v: v not in (None, 1)),
-    ("--fused-kernel on", "fused_kernel", lambda v: v == "on"),
     ("--analytic-kl", "analytic_kl", bool),
     ("--mlp-dtype bfloat16", "mlp_dtype", lambda v: v == "bfloat16"),
 )
@@ -122,11 +122,32 @@ class DataManager:
         scaler = (HybridImageScaler(mlp, ImageScaler(self.n_images))
                   if parser.use_image_scales else mlp)
 
+        dof = getattr(parser, "studentt_likelihood_dof", None)
+        if getattr(parser, "refine_uncertainties", False):
+            likelihood = (StudentTEv11Likelihood(dof) if dof is not None
+                          else NormalEv11Likelihood())
+        else:
+            likelihood = (StudentTLikelihood(dof) if dof is not None
+                          else NormalLikelihood())
+
+        # dispatch policy of careless_tpu/io/manager.py:170-175: 'auto'
+        # takes K4 at mc > 1 from 500k observations; 'on'/'off' force it
+        mc = getattr(parser, "mc_samples", None) or 1
+        fused_flag = getattr(parser, "fused_kernel", None) or "auto"
+        if fused_flag == "auto":
+            fused = mc > 1 and self.inputs.n_obs >= 500_000
+        else:
+            fused = fused_flag == "on"
+
         model = VariationalMergingModel(
-            posterior=posterior, prior=prior, likelihood=NormalLikelihood(),
-            scaler=scaler, mc_samples=1, kl_weight=parser.kl_weight)
+            posterior=posterior, prior=prior, likelihood=likelihood,
+            scaler=scaler, mc_samples=mc, kl_weight=parser.kl_weight,
+            fused_kernel=fused)
         params = {"posterior": posterior.init(loc, scale, dev),
                   "scaler": scaler.init(self.inputs.metadata.shape[-1], dev)}
+        lik_init = likelihood.init(dev)
+        if lik_init:
+            params["likelihood"] = lik_init
 
         freeze = []
         if getattr(parser, "freeze_scales", False):

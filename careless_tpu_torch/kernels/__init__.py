@@ -15,7 +15,12 @@ import torch
 
 from ._build import library
 
-LAUNCHES = {"trunk_fwd": 0, "trunk_bwd": 0, "gather": 0, "philox_normal": 0}
+LAUNCHES = {"trunk_fwd": 0, "trunk_bwd": 0, "gather": 0, "philox_normal": 0,
+            "fused_ll_fwd": 0, "fused_ll_bwd": 0}
+
+# csrc/fused_ll.cu's kinds, in the order of its Kind enum
+FUSED_KINDS = ("normal", "studentt", "laplace", "normal_ev11",
+               "studentt_ev11")
 
 # widths with an instantiated trunk kernel (csrc/trunk.cu CT_TRUNK_WIDTHS)
 TRUNK_WIDTHS = tuple(range(1, 17)) + (20, 24, 28, 32)
@@ -163,3 +168,88 @@ def philox_normal(n: int, seed: int, offset: int, device: torch.device,
     _check(err, "philox normal")
     LAUNCHES["philox_normal"] += 1
     return (out, bits) if with_bits else out
+
+
+def _fused_ll_inputs(loc, scale, a, f, iobs, sig, mask, noise, ev, kind):
+    """Checks K4's inputs; returns (n, kind index, the optional pointers)."""
+    dev = loc.device
+    n = loc.shape[0]
+    named = [(loc, "loc"), (scale, "scale"), (a, "a"), (f, "f"),
+             (iobs, "iobs"), (sig, "sig")]
+    named += [(t, name) for t, name in ((mask, "mask"), (noise, "noise"))
+              if t is not None]
+    for t, name in named:
+        _require(t, name, torch.float32, dev)
+        if t.shape != (n,):
+            raise ValueError(f"{name} must have shape ({n},); got "
+                             f"{tuple(t.shape)}")
+    _require(ev, "ev", torch.float32, dev)
+    if ev.shape != (3,):
+        raise ValueError(f"ev must have shape (3,); got {tuple(ev.shape)}")
+    if kind not in FUSED_KINDS:
+        raise ValueError(f"unsupported fused likelihood kind: {kind}")
+    return (n, FUSED_KINDS.index(kind),
+            None if mask is None else mask.data_ptr(),
+            None if noise is None else noise.data_ptr())
+
+
+def fused_ll_fwd(loc, scale, a, f, iobs, sig, mask, noise, ev, *, kind: str,
+                 dof: float, t_const: float, seed: int, offset: int
+                 ) -> torch.Tensor:
+    """K4-fwd: the 0-d sum over observations of mask * ll(kind) at
+    ipred = (a loc + |a| scale eps) f^2, with eps = noise or, when noise is
+    None, the Philox normals of K3 at counters offset .. offset + n - 1
+    under the 64-bit key `seed`. mask may be None (ones); ev holds the
+    three Ev11 scalars (read by the Ev11 kinds only); t_const is the
+    Student-t log normaliser of `dof`."""
+    dev = loc.device
+    n, k, mask_p, noise_p = _fused_ll_inputs(loc, scale, a, f, iobs, sig,
+                                             mask, noise, ev, kind)
+    part = torch.empty(max(1, library().ct_fused_ll_parts(n)),
+                       dtype=torch.float32, device=dev)
+    out = torch.empty((), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        err = library().ct_fused_ll_fwd(
+            loc.data_ptr(), scale.data_ptr(), a.data_ptr(), f.data_ptr(),
+            iobs.data_ptr(), sig.data_ptr(), mask_p, noise_p, ev.data_ptr(),
+            part.data_ptr(), out.data_ptr(), n, k, dof, t_const,
+            seed & 0xFFFFFFFF, (seed >> 32) & 0xFFFFFFFF, offset,
+            _stream(dev))
+    _check(err, "fused likelihood forward")
+    LAUNCHES["fused_ll_fwd"] += 1
+    return out
+
+
+def fused_ll_bwd(loc, scale, a, f, iobs, sig, mask, noise, ev,
+                 ct: torch.Tensor, *, kind: str, dof: float, t_const: float,
+                 seed: int, offset: int):
+    """K4-bwd: ct * (dloc, dscale, da, df), each (n,), and for the Ev11
+    kinds ct * the (3,) gradient of the sum in the Ev11 scalars (else
+    None), for the inputs of fused_ll_fwd. ct is the 0-d cotangent on the
+    card; nothing crosses to the host."""
+    dev = loc.device
+    n, k, mask_p, noise_p = _fused_ll_inputs(loc, scale, a, f, iobs, sig,
+                                             mask, noise, ev, kind)
+    _require(ct, "ct", torch.float32, dev)
+    if ct.numel() != 1:
+        raise ValueError(f"ct must hold one value; got {tuple(ct.shape)}")
+    grads = torch.empty((4, n), dtype=torch.float32, device=dev)
+    dev_grad = part = None
+    if kind.endswith("_ev11"):
+        part = torch.empty((max(1, library().ct_fused_ll_parts(n)), 3),
+                           dtype=torch.float32, device=dev)
+        dev_grad = torch.empty(3, dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        err = library().ct_fused_ll_bwd(
+            loc.data_ptr(), scale.data_ptr(), a.data_ptr(), f.data_ptr(),
+            iobs.data_ptr(), sig.data_ptr(), mask_p, noise_p, ev.data_ptr(),
+            ct.data_ptr(), grads[0].data_ptr(), grads[1].data_ptr(),
+            grads[2].data_ptr(), grads[3].data_ptr(),
+            None if part is None else part.data_ptr(),
+            None if dev_grad is None else dev_grad.data_ptr(), n, k, dof,
+            t_const, seed & 0xFFFFFFFF, (seed >> 32) & 0xFFFFFFFF, offset,
+            _stream(dev))
+    _check(err, "fused likelihood backward")
+    LAUNCHES["fused_ll_bwd"] += 1
+    dloc, dscale, da, df = grads.unbind(0)
+    return dloc, dscale, da, df, dev_grad

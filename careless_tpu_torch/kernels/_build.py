@@ -1,10 +1,11 @@
 """Build and load the port's CUDA kernels (nvcc by hand, bound with ctypes).
 
 Every `csrc/*.cu` is compiled for `sm_90a` by its own `nvcc` process, all
-started together, and the objects are linked into one shared library with a
-plain C interface. The library lands in `build/careless_tpu_torch/<hash>/`
-at the root of the checkout, where `<hash>` covers the sources, the headers
-and the flags, so an edit to any of them rebuilds at the next first use.
+started together (the headers `csrc/*.cuh` are included, not compiled), and
+the objects are linked into one shared library with a plain C interface.
+The library lands in `build/careless_tpu_torch/<hash>/` at the root of the
+checkout, where `<hash>` covers the sources, the headers and the flags, so
+an edit to any of them rebuilds at the next first use.
 Only sources in the repository are compiled. A failed build raises: there is
 no path on which a CUDA tensor falls back to a plain version.
 """
@@ -114,6 +115,15 @@ def library() -> "ctypes.CDLL":
         "ct_gather": [P, P, P, I, P],
         # out, bits, n, seed_lo, seed_hi, offset, stream
         "ct_philox_normal": [P, P, I, U32, U32, U64, P],
+        # loc, scale, a, f, iobs, sig, mask, noise, ev, part, out, n, kind,
+        # dof, t_const, seed_lo, seed_hi, offset, stream
+        "ct_fused_ll_fwd": [P] * 11 + [I, I, F, F, U32, U32, U64, P],
+        # loc, scale, a, f, iobs, sig, mask, noise, ev, ct, dloc, dscale,
+        # da, df, part, dev, n, kind, dof, t_const, seed_lo, seed_hi,
+        # offset, stream
+        "ct_fused_ll_bwd": [P] * 16 + [I, I, F, F, U32, U32, U64, P],
+        # n
+        "ct_fused_ll_parts": [I],
     }
     for name, argtypes in signatures.items():
         fn = getattr(lib, name)

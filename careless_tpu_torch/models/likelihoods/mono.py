@@ -1,20 +1,112 @@
 """Likelihoods for monochromatic data.
 
-Counterpart of careless_tpu/models/likelihoods/mono.py:28-35 (the Normal
-likelihood). StudentT, Laplace and the Ev11 variants are not ported yet.
+Counterpart of careless_tpu/models/likelihoods/mono.py:27-111: Normal,
+Laplace (scale sig / sqrt 2) and StudentT(dof) on the observed intensities,
+and the Ev11 (SCALA/Aimless error model) variants, whose trainable Sdfac,
+Sdadd and SdB pass through softplus and widen sigma to
+Sdfac sqrt(sig^2 + SdB softplus(I) + Sdadd softplus(I)^2). Each likelihood
+is a static dataclass; the Ev11 parameters are 0-d tensors in
+params["likelihood"]. NeuralNormalLikelihood (:114-147, not wired to the
+CLI) is not ported yet.
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
+from typing import Optional
 
-from ...ops.distributions import Normal
+import numpy as np
+import torch
+
+from ...ops.distributions import Laplace, Normal, StudentT, softplus
 from ..base import Inputs
+
+SOFTPLUS_INV_1 = float(np.log(np.expm1(1.0)))  # softplus(x) = 1
 
 
 @dataclass(frozen=True)
 class NormalLikelihood:
-    def init(self) -> dict:
+    def init(self, device=None) -> dict:
         return {}
 
     def build(self, params: dict, inputs: Inputs) -> Normal:
         return Normal(inputs.intensities, inputs.uncertainties)
+
+
+@dataclass(frozen=True)
+class LaplaceLikelihood:
+    def init(self, device=None) -> dict:
+        return {}
+
+    def build(self, params: dict, inputs: Inputs) -> Laplace:
+        return Laplace(inputs.intensities,
+                       inputs.uncertainties / math.sqrt(2.0))
+
+
+@dataclass(frozen=True)
+class StudentTLikelihood:
+    dof: float
+
+    def init(self, device=None) -> dict:
+        return {}
+
+    def build(self, params: dict, inputs: Inputs) -> StudentT:
+        return StudentT(self.dof, inputs.intensities, inputs.uncertainties)
+
+
+class _Ev11Dist:
+    """Distribution-like object whose scale depends on the prediction."""
+
+    def __init__(self, loc, scale, sdfac, sdadd, sdb,
+                 dof: Optional[float] = None):
+        self.loc, self.scale = loc, scale
+        self.sdfac, self.sdadd, self.sdb = sdfac, sdadd, sdb
+        self.dof = dof
+
+    def corrected_sigiobs(self, ipred):
+        ip = softplus(ipred)
+        return self.sdfac * torch.sqrt(
+            torch.square(self.scale) + self.sdb * ip
+            + self.sdadd * torch.square(ip))
+
+    def log_prob(self, ipred):
+        scale = self.corrected_sigiobs(ipred)
+        if self.dof is None:
+            return Normal(self.loc, scale).log_prob(ipred)
+        return StudentT(self.dof, self.loc, scale).log_prob(ipred)
+
+    def mean(self):
+        return self.loc
+
+    def stddev(self):
+        return self.scale
+
+
+def ev11_scalars(params: dict):
+    """(sdfac, sdadd, sdb) after softplus, from params["likelihood"]."""
+    return (softplus(params["sdfac_raw"]), softplus(params["sdadd_raw"]),
+            softplus(params["sdb_raw"]))
+
+
+@dataclass(frozen=True)
+class NormalEv11Likelihood:
+    def init(self, device=None) -> dict:
+        return {k: torch.tensor(SOFTPLUS_INV_1, dtype=torch.float32,
+                                device=device)
+                for k in ("sdfac_raw", "sdadd_raw", "sdb_raw")}
+
+    def build(self, params: dict, inputs: Inputs) -> _Ev11Dist:
+        return _Ev11Dist(inputs.intensities, inputs.uncertainties,
+                         *ev11_scalars(params))
+
+
+@dataclass(frozen=True)
+class StudentTEv11Likelihood:
+    dof: float
+
+    def init(self, device=None) -> dict:
+        return NormalEv11Likelihood().init(device)
+
+    def build(self, params: dict, inputs: Inputs) -> _Ev11Dist:
+        return _Ev11Dist(inputs.intensities, inputs.uncertainties,
+                         *ev11_scalars(params), dof=self.dof)

@@ -1,17 +1,21 @@
 """Variational merging model: the ELBO and the training loop.
 
 Counterpart of careless_tpu/models/merging/variational.py for the mono
-chain at one Monte Carlo sample (elbo, :179-234, with the MC KL of
-_kl_terms, :570-585) and of its Trainer (:636-849):
+chain with S = mc_samples Monte Carlo samples (elbo, :179-234; _elbo_fused,
+:236-300; the MC KL of _kl_terms, :570-585) and of its Trainer (:636-849):
 
-    z_F   ~ q(F)                         (n_refl,)  truncated normal
-    eps   ~ N(0, 1)                      (N,)       K3, Philox
-    Sigma = loc + scale * eps            (N,)       scaler through K1 and K2
-    Ipred = Sigma * z_F[refl_id]^2       (N,)       K2, planned gather
-    loss  = -sum log p(Iobs | Ipred) + sum [log q(z_F) - log p(z_F)]
+    z_F   ~ q(F)                         (S, n_refl)  truncated normal
+    eps   ~ N(0, 1)                      (S, N)       Philox (K3, or in K4)
+    Sigma = loc + scale * eps            (S, N)       scaler through K1, K2
+    Ipred = Sigma * z_F[refl_id]^2       (S, N)       K2, planned gather
+    loss  = -sum log p(Iobs | Ipred) / S + sum [log q(z_F) - log p(z_F)] / S
 
-Parameters are a nested dict of tensors in the JAX package's layout
-(utils/params.py converts between the two).
+With fused_kernel (and a fused-supported likelihood and scaler) the (N,)
+chain from eps to the likelihood sum runs in K4 once per sample
+(ops/fused_elbo.py); otherwise it runs as tensor ops with eps from one K3
+launch. The MLP runs once per step either way. Parameters are a nested dict
+of tensors in the JAX package's layout (utils/params.py converts between
+the two).
 """
 from __future__ import annotations
 
@@ -22,9 +26,12 @@ import torch
 
 from ...device import DeviceLike, resolve_device, same_device
 from ...ops.distributions import Normal
-from ...ops.fused_elbo import prng_normal
+from ...ops.fused_elbo import fused_likelihood_sum, prng_normal
 from ...ops.plan_gather import plan_gather
 from ..base import Inputs
+from ..likelihoods import mono
+from ..scaling.image import HybridImageScaler
+from ..scaling.nn import MLPScaler
 
 
 @dataclass(frozen=True, eq=False)
@@ -35,59 +42,147 @@ class VariationalMergingModel:
     scaler: Any
     mc_samples: int = 1
     kl_weight: Optional[float] = None
+    # run the likelihood chain through K4 when the configuration allows
+    # (a fused-supported likelihood and an MLP or hybrid scaler)
+    fused_kernel: bool = False
 
     def __post_init__(self):
-        if self.mc_samples != 1:
-            raise NotImplementedError("--mc-samples other than 1")
+        if self.mc_samples < 1:
+            raise ValueError(f"mc_samples must be >= 1, got {self.mc_samples}")
 
     @property
     def metric_names(self) -> Tuple[str, ...]:
         return ("loss", "NLL", "F KLDiv")
+
+    def _fused_likelihood_kind(self) -> Optional[Tuple[str, float]]:
+        """(kind, dof) of K4's pointwise chain, or None when the likelihood
+        has none (variational.py:109-124)."""
+        lik = self.likelihood
+        if isinstance(lik, mono.NormalLikelihood):
+            return ("normal", 0.0)
+        if isinstance(lik, mono.LaplaceLikelihood):
+            return ("laplace", 0.0)
+        if isinstance(lik, mono.StudentTEv11Likelihood):
+            return ("studentt_ev11", float(lik.dof))
+        if isinstance(lik, mono.StudentTLikelihood):
+            return ("studentt", float(lik.dof))
+        if isinstance(lik, mono.NormalEv11Likelihood):
+            return ("normal_ev11", 0.0)
+        return None
+
+    @staticmethod
+    def _fused_ev11_scalars(kind: str, lik_params: dict):
+        """The Ev11 scalars after softplus for K4 (their gradients flow
+        back through this softplus), or None for the plain kinds."""
+        if not kind.endswith("_ev11"):
+            return None
+        return mono.ev11_scalars(lik_params)
+
+    def _fused_eligible(self, inputs: Inputs) -> bool:
+        return (self.fused_kernel
+                and inputs.plans is not None
+                and self._fused_likelihood_kind() is not None
+                and isinstance(self.scaler, (MLPScaler, HybridImageScaler)))
 
     def elbo(self, params: dict, inputs: Inputs,
              generator: Optional[torch.Generator] = None, seed: int = 0,
              u_f: Optional[torch.Tensor] = None,
              eps: Optional[torch.Tensor] = None
              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        """Negative ELBO (the loss) and its metrics, one MC estimate.
+        """Negative ELBO (the loss) and its metrics, an S-sample MC estimate.
 
-        The reflection sample comes from standard uniforms u_f (drawn from
-        `generator` when not given); the scale noise eps (when not given)
-        from K3 with key `seed` and offset 0 (sample 0), whenever the scale
-        distribution is a Normal."""
-        if inputs.plans is None:
-            raise ValueError("the ELBO needs gather plans (Inputs.with_plans)")
-        q = self.posterior.distribution(params["posterior"])
-        if u_f is None:
-            if generator is None:
-                raise ValueError("pass a torch.Generator or the uniforms u_f")
-            u_f = torch.rand(q.loc.shape, generator=generator,
-                             device=q.loc.device, dtype=torch.float32)
-        z_f = q.sample_from_uniform(u_f)                     # (n_refl,)
-
+        The reflection samples come from standard uniforms u_f (S, n_refl)
+        (drawn from `generator` when not given); the scale noise eps (S, N)
+        (when not given) from Philox with key `seed`, sample s at counters
+        [s N, (s + 1) N). At S = 1 u_f may be (n_refl,) and eps (N,). A
+        fused-eligible model runs _elbo_fused, the same estimate through
+        K4 (variational.py:179-234)."""
+        if self._fused_eligible(inputs):
+            return self._elbo_fused(params, inputs, generator, seed, u_f, eps)
+        q, z_f, eps = self._samples(params, inputs, generator, u_f, eps)
+        S, n = z_f.shape[0], inputs.n_obs
         scale_dist = self.scaler.apply(params["scaler"], inputs)
         if not isinstance(scale_dist, Normal):
             raise TypeError("the mono chain expects a Normal scale "
                             f"distribution, got {type(scale_dist).__name__}")
         if eps is None:
-            eps = prng_normal(inputs.n_obs, seed, 0, inputs.device)
-        z_scale = scale_dist.loc + scale_dist.scale * eps
-        z_obs = plan_gather(z_f, inputs.refl_id, inputs.plans.refl)
-        ipred = z_scale * torch.square(z_obs)
+            eps = prng_normal(S * n, seed, 0, inputs.device).view(S, n)
+        likelihood = self.likelihood.build(params.get("likelihood", {}),
+                                           inputs)
+        ll_total = 0.0
+        for s in range(S):
+            z_scale = scale_dist.loc + scale_dist.scale * eps[s]
+            z_obs = plan_gather(z_f[s], inputs.refl_id, inputs.plans.refl)
+            ll_total = ll_total + torch.sum(
+                likelihood.log_prob(z_scale * torch.square(z_obs)))
+        return self._loss(q, z_f, ll_total, n)
 
-        ll_total = torch.sum(self.likelihood.build(
-            params.get("likelihood", {}), inputs).log_prob(ipred))
+    def _elbo_fused(self, params: dict, inputs: Inputs,
+                    generator: Optional[torch.Generator] = None,
+                    seed: int = 0, u_f: Optional[torch.Tensor] = None,
+                    eps: Optional[torch.Tensor] = None
+                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """elbo with the (N,) chain from eps to the likelihood sum in K4,
+        once per sample; the MLP runs once (variational.py:236-300)."""
+        q, z_f, eps = self._samples(params, inputs, generator, u_f, eps)
+        n, plans = inputs.n_obs, inputs.plans
+        if isinstance(self.scaler, HybridImageScaler):
+            mlp_dist = self.scaler.mlp.apply(params["scaler"]["mlp"], inputs)
+            image_scales = self.scaler.image.scales(params["scaler"]["image"])
+            image_id = inputs.image_id
+        else:
+            mlp_dist = self.scaler.apply(params["scaler"], inputs)
+            image_scales = torch.ones(1, device=inputs.device)
+            image_id = torch.zeros_like(inputs.refl_id)
+        image_plan = plans.image if image_scales.shape[0] > 1 else None
+        kind, dof = self._fused_likelihood_kind()
+        ev11 = self._fused_ev11_scalars(kind, params.get("likelihood", {}))
+        ll_total = 0.0
+        for s in range(z_f.shape[0]):
+            ll_total = ll_total + fused_likelihood_sum(
+                mlp_dist.loc, mlp_dist.scale, image_scales, z_f[s],
+                inputs.refl_id, image_id, inputs.intensities,
+                inputs.uncertainties, seed=seed, offset=s * n,
+                noise=None if eps is None else eps[s],
+                refl_plan=plans.refl, image_plan=image_plan, kind=kind,
+                dof=dof, ev11=ev11)
+        return self._loss(q, z_f, ll_total, n)
 
-        kl_term = q.log_prob(z_f) - self.prior.log_prob(z_f)
+    def _samples(self, params, inputs, generator, u_f, eps):
+        """(q, z_f (S, n_refl), eps as (S, N) or None)."""
+        if inputs.plans is None:
+            raise ValueError("the ELBO needs gather plans (Inputs.with_plans)")
+        S = self.mc_samples
+        q = self.posterior.distribution(params["posterior"])
+        if u_f is None:
+            if generator is None:
+                raise ValueError("pass a torch.Generator or the uniforms u_f")
+            u_f = torch.rand((S,) + tuple(q.loc.shape), generator=generator,
+                             device=q.loc.device, dtype=torch.float32)
+        z_f = q.sample_from_uniform(u_f.reshape(S, -1))
+        return q, z_f, None if eps is None else eps.reshape(S, inputs.n_obs)
+
+    def _loss(self, q, z_f, ll_total, n_obs):
+        """(loss, metrics) from the likelihood summed over samples and
+        observations (variational.py:220-234)."""
+        S = z_f.shape[0]
+        kl_sum, kl_mean = self._kl_terms(q, z_f)
         if self.kl_weight is None:
-            nll = -ll_total
-            kl = torch.sum(kl_term)
+            nll = -ll_total / S
+            kl = kl_sum
             loss = nll + kl
         else:
-            nll = -ll_total / inputs.n_obs
-            kl = torch.mean(kl_term)
+            nll = -ll_total / (S * n_obs)
+            kl = kl_mean
             loss = nll + self.kl_weight * kl
         return loss, {"loss": loss, "NLL": nll, "F KLDiv": kl}
+
+    def _kl_terms(self, q, z_f) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(sum over reflections of the MC KL averaged over samples, mean
+        over all entries) of log q(z_F) - log p(z_F)
+        (variational.py:583-585)."""
+        kl_term = q.log_prob(z_f) - self.prior.log_prob(z_f)
+        return torch.sum(kl_term) / kl_term.shape[0], torch.mean(kl_term)
 
 
 def flatten_params(params) -> List[Tuple[str, torch.Tensor]]:

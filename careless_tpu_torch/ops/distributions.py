@@ -1,8 +1,8 @@
 """Probability distributions on tensors: the pieces the mono merge uses.
 
-Counterpart of careless_tpu/ops/distributions.py (Normal, TruncatedNormal,
-HalfNormal, Weibull), with the same formulas, so that at equal inputs the
-two packages agree to f32 rounding. Sampling takes an explicit
+Counterpart of careless_tpu/ops/distributions.py (Normal, Laplace, StudentT,
+TruncatedNormal, HalfNormal, Weibull), with the same formulas, so that at
+equal inputs the two packages agree to f32 rounding. Sampling takes an explicit
 torch.Generator; TruncatedNormal can also be sampled from given standard
 uniforms, which is how the tests hold it against JAX. Only what the mono
 merge's ELBO and DataManager use is here.
@@ -44,6 +44,44 @@ class Normal(NamedTuple):
 
     def stddev(self):
         return torch.as_tensor(self.scale)
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """log(1 + exp(x)) as jax.nn.softplus computes it (logaddexp(0, x)):
+    max(x, 0) + log1p(exp(-|x|)), with no threshold."""
+    return torch.clamp(x, min=0) + torch.log1p(torch.exp(-torch.abs(x)))
+
+
+class Laplace(NamedTuple):
+    loc: Numeric
+    scale: Numeric
+
+    def log_prob(self, x):
+        return (-torch.abs(x - self.loc) / self.scale
+                - torch.log(2.0 * torch.as_tensor(self.scale)))
+
+    def mean(self):
+        return torch.as_tensor(self.loc)
+
+    def stddev(self):
+        return _SQRT2_F32 * torch.as_tensor(self.scale)
+
+
+class StudentT(NamedTuple):
+    df: Numeric
+    loc: Numeric
+    scale: Numeric
+
+    def log_prob(self, x):
+        df = torch.as_tensor(self.df, dtype=torch.float32)
+        z = (x - self.loc) / self.scale
+        lognorm = (torch.lgamma(0.5 * (df + 1.0)) - torch.lgamma(0.5 * df)
+                   - 0.5 * torch.log(df * math.pi)
+                   - torch.log(torch.as_tensor(self.scale)))
+        return lognorm - 0.5 * (df + 1.0) * torch.log1p(z * z / df)
+
+    def mean(self):
+        return torch.as_tensor(self.loc)
 
 
 class HalfNormal(NamedTuple):

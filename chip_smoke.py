@@ -6,19 +6,26 @@
 Phases, each printed on its own lines:
   1. card: the card's name and power limit, torch/CUDA versions, and the
      time to build the kernels from csrc/ (nvcc, one process per source);
-  2. kernels: every kernel of the main path (K1-fwd, K1-bwd, K2, K3) at the
-     main path's shapes, held against its plain PyTorch version on the same
-     inputs and timed by CUDA events (median of 30 launches after warm-up)
-     beside its plain version, the one PyTorch call computing the same
-     function where there is one, and its bound on this card; K3 also
-     passes a statistical gate at n = 2^22;
+  2. kernels: every kernel of the ported paths (K1-fwd, K1-bwd, K2, K3,
+     K4-fwd, K4-bwd) at the main path's shapes, held against its plain
+     PyTorch version on the same inputs and timed by CUDA events (median of
+     30 launches after warm-up) beside its plain version, the one PyTorch
+     call computing the same function where there is one, and its bound on
+     this card; K3 also passes a statistical gate at n = 2^22; K4 is held
+     for all five likelihood kinds, with and without supplied noise, and
+     its in-kernel normals bitwise against K3's;
   3. check: the port's loss and every parameter gradient at a small size on
-     the card against the same computation on the CPU (plain versions);
-  4. slice: the default mono merge (`careless-tpu mono dHKL,image_id ...`
-     defaults) at 1,000,000 observations, 50,000 reflections, 2,000 images,
+     the card against the same computation on the CPU (plain versions), at
+     mc = 1 and at mc = 2 through K4 for the flag sets of slices (a) and
+     (b); then the card's fused ELBO against its unfused ELBO;
+  4. slices at 1,000,000 observations, 50,000 reflections, 2,000 images,
      10 metadata columns and a 20-layer MLP of width 10, trained full-batch
-     with Adam; every loss finite, the loss falling, and each kernel's
-     launch count above zero over that run.
+     with Adam, from the CLI's mono defaults (`careless-tpu mono
+     dHKL,image_id ...`): the default merge (mc = 1, 300 steps); (a)
+     --mc-samples=2, where --fused-kernel=auto takes K4 (300 steps); (b)
+     (a) with --studentt-likelihood-dof=4 --refine-uncertainties (100
+     steps). Every loss finite, the loss falling, and each kernel of the
+     slice launched by that run (the counts are set to 0 just before it).
 The second-to-last line is the card's name and power limit; the last line is
 {"ok": true, "device": {...}}. Any failed check raises (exit code != 0), and
 without a CUDA device the script exits non-zero before printing a result.
@@ -57,13 +64,25 @@ REPLACES = {
     "trunk_bwd": "careless_tpu/ops/fused_mlp.py:190",
     "gather": "careless_tpu/ops/table_gather.py:125",
     "philox_normal": "careless_tpu/ops/fused_elbo.py:66",
+    "fused_ll_fwd": "careless_tpu/ops/fused_elbo.py:291",
+    "fused_ll_bwd": "careless_tpu/ops/fused_elbo.py:311",
 }
 SOURCES = {
     "trunk_fwd": "careless_tpu_torch/csrc/trunk.cu",
     "trunk_bwd": "careless_tpu_torch/csrc/trunk.cu",
     "gather": "careless_tpu_torch/csrc/gather.cu",
     "philox_normal": "careless_tpu_torch/csrc/philox.cu",
+    "fused_ll_fwd": "careless_tpu_torch/csrc/fused_ll.cu",
+    "fused_ll_bwd": "careless_tpu_torch/csrc/fused_ll.cu",
 }
+# the flag sets of slices (a) and (b) on top of MONO_DEFAULTS
+SLICE_A = dict(mc_samples=2)
+SLICE_B = dict(mc_samples=2, studentt_likelihood_dof=4.0,
+               refine_uncertainties=True)
+STEPS_B = 100
+# Philox and Box-Muller (~40 integer operations, log, sqrt, cos), the chain
+# and the likelihood: ~60 operations per observation in K4 (csrc/fused_ll.cu)
+K4_OPS_PER_OBS = 60
 
 
 def card_line() -> str:
@@ -95,6 +114,27 @@ def time_ms(torch, fn, reps=30, warmup=5) -> float:
         events.append((start, end))
     torch.cuda.synchronize()
     return statistics.median(s.elapsed_time(e) for s, e in events)
+
+
+def device_ms(torch, fn, reps=30) -> float:
+    """Device time per call of fn: the kernels' own time, summed over the
+    device-side events of torch.profiler (CUPTI), without the host's launch
+    time that CUDA events around one call also hold when the host is the
+    slower side."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.self_device_time_total for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA
+                and not getattr(e, "is_user_annotation", False))
+    return total / 1e3 / reps
 
 
 def bound(flops: float, nbytes: float, peak_flops: float, peak_bw: float):
@@ -152,11 +192,13 @@ def kernel_phase(torch, dev, gen, peak_flops, peak_bw):
                                                       0.01))
         plain_ms = time_ms(torch, lambda: plain_trunk_head(x, layers, out,
                                                            0.01))
+        d_ms = device_ms(torch, lambda: kernels.trunk_fwd(x, wflat, bflat,
+                                                          kw, L, 0.01))
     b_ms, b_by = bound(2.0 * n * F, 4.0 * (n * d + 2 * n + F + L * w + 2),
                        peak_flops, peak_bw)
     rows["trunk_fwd"] = dict(max_abs_err=err, tolerance=tol, ms=ms,
-                             plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                             library_ms=None)
+                             device_ms=d_ms, plain_ms=plain_ms,
+                             bound_ms=b_ms, bound_by=b_by, library_ms=None)
 
     # K1-bwd through autograd, against autograd of the plain version
     gl = torch.randn(n, generator=gen, device=dev)
@@ -185,9 +227,12 @@ def kernel_phase(torch, dev, gen, peak_flops, peak_bw):
     b_ms, b_by = bound(2.0 * n * (3 * F - d * w),
                        4.0 * (n * d + 2 * n + 2 * (F + L * w + 2)),
                        peak_flops, peak_bw)
+    d_ms = device_ms(torch, lambda: kernels.trunk_bwd(x, wflat, bflat, gl,
+                                                      gr, kw, L, 0.01, False))
     rows["trunk_bwd"] = dict(max_abs_err=err, tolerance=tol, ms=ms,
-                             plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                             library_ms=None, bitwise_repeatable=True)
+                             device_ms=d_ms, plain_ms=plain_ms,
+                             bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                             bitwise_repeatable=True)
 
     # K2: the z_f gather (sorted refl ids) and the image-scale gather
     cases = {}
@@ -205,6 +250,7 @@ def kernel_phase(torch, dev, gen, peak_flops, peak_bw):
         cases[label] = dict(
             max_abs_err=err, tolerance=0.0,
             ms=time_ms(torch, lambda: kernels.gather(table, ids)),
+            device_ms=device_ms(torch, lambda: kernels.gather(table, ids)),
             plain_ms=time_ms(torch, lambda: plain_gather(table, ids)),
             library_ms=time_ms(torch, lambda: torch.index_select(table, 0,
                                                                  ids)),
@@ -225,12 +271,145 @@ def kernel_phase(torch, dev, gen, peak_flops, peak_bw):
     rows["philox_normal"] = dict(
         max_abs_err=err, tolerance=tol,
         ms=time_ms(torch, lambda: kernels.philox_normal(n, seed, 0, dev)),
+        device_ms=device_ms(torch, lambda: kernels.philox_normal(n, seed, 0,
+                                                                 dev)),
         plain_ms=time_ms(torch, lambda: plain_prng_normal(n, seed, 0, dev),
                          reps=20),
         library_ms=time_ms(torch, lambda: torch.randn(n, generator=gen,
                                                       device=dev)),
         bound_ms=b_ms, bound_by=b_by)
     rows["philox_normal"]["stats"] = prng_gate(torch, kernels, dev)
+    rows.update(fused_ll_phase(torch, dev, gen, peak_flops, peak_bw))
+    return rows
+
+
+def fused_ll_phase(torch, dev, gen, peak_flops, peak_bw):
+    """K4-fwd and K4-bwd at N = 1M for all five kinds, with and without
+    supplied noise, against their plain versions; the in-kernel normals
+    against K3's (bitwise); times for the normal kind (slice (a)) and the
+    studentt_ev11 kind (slice (b)). Tolerances, with the reason: the sum
+    within 1e-5 of the sum of |mask ll| (f32 sums over 1M terms in another
+    order); each per-observation gradient within 1e-5 of its tensor's
+    largest entry (the kernel fuses multiply-adds where the plain version
+    rounds each step, and da = dz loc + sign(a) scale eps dz cancels),
+    except Laplace's where |iobs - ipred| is within 1e-5 of their size (its
+    gradient jumps there, and the two versions may land on either side);
+    the Ev11 sums within 1e-5 of the sum of their terms' magnitudes."""
+    from careless_tpu_torch import kernels
+    from careless_tpu_torch.ops.fused_elbo import (
+        plain_fused_likelihood_grads, plain_fused_likelihood_sum,
+        plain_prng_normal, pointwise_grads, pointwise_ll, studentt_log_norm)
+
+    n = N_OBS
+    seed, offset = 0x0FEDCBA987654321, n     # sample 1 of a step
+    f = 0.3 + 2.2 * torch.rand(n, generator=gen, device=dev)
+    args = [1.0 + 0.3 * torch.randn(n, generator=gen, device=dev),   # loc
+            0.05 + 0.25 * torch.rand(n, generator=gen, device=dev),  # scale
+            torch.where(torch.rand(n, generator=gen, device=dev) < 0.05,
+                        -1.0, 1.0)
+            * (1.0 + 0.1 * torch.randn(n, generator=gen, device=dev)),  # a
+            f,
+            f * f * (1.0 + 0.2 * torch.randn(n, generator=gen,
+                                             device=dev)),          # iobs
+            0.1 + 0.9 * torch.rand(n, generator=gen, device=dev)]    # sig
+    ev = torch.tensor([1.3, 0.2, 0.7], device=dev)
+    noise = torch.randn(n, generator=gen, device=dev)
+    eps_k3 = kernels.philox_normal(n, seed, offset, dev)
+    eps_plain = plain_prng_normal(n, seed, offset, dev)
+    ct = torch.tensor(0.75, device=dev)
+    kinds = (("normal", 0.0), ("studentt", 4.0), ("laplace", 0.0),
+             ("normal_ev11", 0.0), ("studentt_ev11", 4.0))
+    err_fwd = err_bwd = 0.0
+    jumps = 0
+    for kind, dof in kinds:
+        cfg = dict(kind=kind, dof=dof, seed=seed, offset=offset,
+                   t_const=studentt_log_norm(dof) if dof else 0.0)
+        for supplied in (noise, None):
+            eps = noise if supplied is not None else eps_plain
+            out = kernels.fused_ll_fwd(*args, None, supplied, ev, **cfg)
+            want = plain_fused_likelihood_sum(*args, None, ev, eps,
+                                              kind=kind, dof=dof)
+            ipred = (args[2] * args[0] + args[2].abs() * args[1] * eps) \
+                * args[3] * args[3]
+            l1 = pointwise_ll(kind, dof, ev, args[4], args[5],
+                              ipred).abs().sum().item()
+            e = abs(out.item() - want.item())
+            check(e <= 1e-5 * l1, f"fused_ll_fwd {kind} (noise "
+                  f"{supplied is not None}): {out.item()} vs plain "
+                  f"{want.item()}")
+            err_fwd = max(err_fwd, e)
+            got = kernels.fused_ll_bwd(*args, None, supplied, ev, ct, **cfg)
+            ref = plain_fused_likelihood_grads(*args, None, ev, eps, ct,
+                                               kind=kind, dof=dof)
+            # Laplace's d ll / d ipred jumps at iobs = ipred: where the two
+            # versions' ipred round to either side of iobs, both are right
+            at_jump = torch.zeros_like(ipred, dtype=torch.bool)
+            if kind == "laplace":
+                at_jump = (args[4] - ipred).abs() <= 1e-5 * (
+                    args[4].abs() + ipred.abs())
+                jumps = max(jumps, int(at_jump.sum()))
+            for name, g, r in zip(("dloc", "dscale", "da", "df"), got, ref):
+                e = torch.where(at_jump, 0.0, (g - r).abs()).max().item()
+                check(e <= 1e-5 * r.abs().max().item(),
+                      f"fused_ll_bwd {kind} {name}: max abs err {e}")
+                err_bwd = max(err_bwd, e)
+            if kind.endswith("_ev11"):
+                _, terms = pointwise_grads(kind, dof, ev, args[4], args[5],
+                                           ipred)
+                for k, t in enumerate(terms):
+                    e = abs(got[4][k].item() - ref[4][k].item())
+                    check(e <= 1e-5 * ct.item() * t.abs().sum().item(),
+                          f"fused_ll_bwd {kind} Ev11 grad {k}: "
+                          f"{got[4][k].item()} vs {ref[4][k].item()}")
+            else:
+                check(got[4] is None, "fused_ll_bwd returned Ev11 grads")
+        # in-kernel Philox against K3's normals fed in, and repeatability
+        own = kernels.fused_ll_fwd(*args, None, None, ev, **cfg)
+        check(torch.equal(own, kernels.fused_ll_fwd(*args, None, eps_k3, ev,
+                                                    **cfg)),
+              f"fused_ll_fwd {kind}: in-kernel eps differ from K3's")
+        check(torch.equal(own, kernels.fused_ll_fwd(*args, None, None, ev,
+                                                    **cfg)),
+              f"fused_ll_fwd {kind} is not bitwise repeatable")
+        g_own = kernels.fused_ll_bwd(*args, None, None, ev, ct, **cfg)
+        g_k3 = kernels.fused_ll_bwd(*args, None, eps_k3, ev, ct, **cfg)
+        check(all(a is b or torch.equal(a, b) for a, b in zip(g_own, g_k3)),
+              f"fused_ll_bwd {kind}: in-kernel eps differ from K3's")
+
+    times = {}
+    for kind, dof in (("normal", 0.0), ("studentt_ev11", 4.0)):
+        cfg = dict(kind=kind, dof=dof, seed=seed, offset=offset,
+                   t_const=studentt_log_norm(dof) if dof else 0.0)
+        fwd_b = bound(K4_OPS_PER_OBS * n, 4.0 * 6 * n, peak_flops, peak_bw)
+        bwd_b = bound(K4_OPS_PER_OBS * n, 4.0 * 10 * n, peak_flops, peak_bw)
+        # the plain versions draw their normals too, as the kernels do
+        times[kind] = {
+            "fused_ll_fwd": dict(
+                ms=time_ms(torch, lambda: kernels.fused_ll_fwd(
+                    *args, None, None, ev, **cfg)),
+                device_ms=device_ms(torch, lambda: kernels.fused_ll_fwd(
+                    *args, None, None, ev, **cfg)),
+                plain_ms=time_ms(torch, lambda: plain_fused_likelihood_sum(
+                    *args, None, ev, plain_prng_normal(n, seed, offset, dev),
+                    kind=kind, dof=dof), reps=20),
+                bound_ms=fwd_b[0], bound_by=fwd_b[1], library_ms=None),
+            "fused_ll_bwd": dict(
+                ms=time_ms(torch, lambda: kernels.fused_ll_bwd(
+                    *args, None, None, ev, ct, **cfg)),
+                device_ms=device_ms(torch, lambda: kernels.fused_ll_bwd(
+                    *args, None, None, ev, ct, **cfg)),
+                plain_ms=time_ms(torch, lambda: plain_fused_likelihood_grads(
+                    *args, None, ev, plain_prng_normal(n, seed, offset, dev),
+                    ct, kind=kind, dof=dof), reps=20),
+                bound_ms=bwd_b[0], bound_by=bwd_b[1], library_ms=None)}
+    print("fused_ll at kind studentt_ev11 (slice (b)): "
+          + json.dumps(times["studentt_ev11"]), flush=True)
+    rows = {}
+    for name, err in (("fused_ll_fwd", err_fwd), ("fused_ll_bwd", err_bwd)):
+        rows[name] = dict(max_abs_err=err, **times["normal"][name],
+                          kinds_checked=[k for k, _ in kinds],
+                          philox_bitwise_k3=True)
+    rows["fused_ll_bwd"]["laplace_obs_at_the_jump"] = jumps
     return rows
 
 
@@ -285,14 +464,17 @@ def build_problem(seed, n_obs, n_refl, n_images, d_meta):
         f_true
 
 
-def model_on(device, seed, n_obs, n_refl, n_images, d_meta, n_layers):
+def model_on(device, seed, n_obs, n_refl, n_images, d_meta, n_layers,
+             flags=None):
+    """The model of the CLI's mono defaults with `flags` on top, built by
+    DataManager.build_model on `device` (None: the card)."""
     from careless_tpu_torch.io.manager import DataManager
     from careless_tpu_torch.models.base import Inputs
 
     arrays, asu, f_true = build_problem(seed, n_obs, n_refl, n_images,
                                         d_meta)
     parser = types.SimpleNamespace(**{**MONO_DEFAULTS,
-                                      "mlp_layers": n_layers})
+                                      "mlp_layers": n_layers, **(flags or {})})
     dm = DataManager(Inputs.from_arrays(*arrays, device=device), asu, parser,
                      device=device)
     model, params, trainer = dm.build_model()
@@ -300,10 +482,16 @@ def model_on(device, seed, n_obs, n_refl, n_images, d_meta, n_layers):
     return model, params, trainer, inputs, f_true
 
 
+def grad_rel_err(g_a, g_b):
+    """The largest per-tensor error relative to the tensor's largest entry."""
+    return max(((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
+               for a, b in zip(g_a, g_b))
+
+
 def check_phase(torch, dev, seed):
     """Loss and every parameter gradient of the port at a small size on
     the card (kernels) against the same computation on the CPU (plain
-    versions), at the same parameters, uniforms and noise."""
+    versions), at the same parameters, uniforms and noise (mc = 1)."""
     from careless_tpu_torch.models.merging.variational import (
         flatten_params, map_params)
     from careless_tpu_torch.utils.params import (params_from_jax,
@@ -332,21 +520,87 @@ def check_phase(torch, dev, seed):
     rel = abs(l_dev - l_cpu) / abs(l_cpu)
     # f32 sums over 20k observations taken in another order
     check(rel < 1e-4, f"loss on the card {l_dev} vs CPU {l_cpu}")
-    g_err = max(((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
-                for a, b in zip(g_dev, g_cpu))
+    g_err = grad_rel_err(g_dev, g_cpu)
     check(g_err < 1e-3, f"gradients on the card vs CPU: rel err {g_err}")
     print(f"check: loss {l_dev:.6f} vs CPU {l_cpu:.6f} (rel {rel:.2e}); "
           f"max per-tensor grad rel err {g_err:.2e} over {len(g_dev)} "
           "tensors", flush=True)
 
 
-def slice_phase(torch, dev, seed, steps, chunk):
+def check_mc2_phase(torch, dev, seed):
+    """At 20k observations and mc = 2 with K4 forced on, for the flag sets
+    of slices (a) and (b): loss and every gradient (the likelihood's raw
+    Ev11 leaves included) on the card against the CPU at the same
+    parameters, uniforms and Philox key (the CPU draws the same words in its
+    plain version); then on the card the fused ELBO against the unfused one
+    (eps from one K3 launch) at the same key and uniforms. Tolerances: card
+    vs CPU as at mc = 1; fused vs unfused loss rel 1e-5 and gradients 1e-4
+    of each tensor's largest entry (the same normals, the chain rounded in
+    another order, sums over 40k terms in another order)."""
+    import dataclasses
+
+    from careless_tpu_torch.models.merging.variational import (
+        flatten_params, map_params)
+    from careless_tpu_torch.utils.params import (params_from_jax,
+                                                 params_to_numpy)
+
+    sizes = (20_000, 2_000, 50, D_META, N_LAYERS)
+    key = 12345 | (7 << 32)
+    for label, flags in (("a", SLICE_A), ("b", SLICE_B)):
+        flags = {**flags, "fused_kernel": "on"}
+        rng = np.random.default_rng(seed + 2)
+        u_f = rng.random((2, sizes[1])).astype(np.float32)
+        results, start = [], None
+        for device, paths in (("cpu", (True,)), (dev, (True, False))):
+            model, params, _, inputs, _ = model_on(device, seed, *sizes,
+                                                   flags=flags)
+            check(model.fused_kernel and model.mc_samples == 2,
+                  "mc = 2 with --fused-kernel on did not select K4")
+            if start is None:
+                start = map_params(lambda a: a + 0.05 * rng.standard_normal(
+                    a.shape).astype(np.float32), params_to_numpy(params))
+                start["posterior"] = params_to_numpy(params["posterior"])
+            for fused in paths:
+                m = dataclasses.replace(model, fused_kernel=fused)
+                p = params_from_jax(start, device)
+                named = flatten_params(p)
+                leaves = [t.requires_grad_(True) for _, t in named]
+                loss, _ = m.elbo(p, inputs, seed=key,
+                                 u_f=torch.as_tensor(u_f, device=device))
+                grads = torch.autograd.grad(loss, leaves)
+                results.append((loss.item(), [g.cpu() for g in grads]))
+        (l_cpu, g_cpu), (l_dev, g_dev), (l_unf, g_unf) = results
+        rel = abs(l_dev - l_cpu) / abs(l_cpu)
+        check(rel < 1e-4, f"mc2 ({label}): loss on the card {l_dev} vs CPU "
+              f"{l_cpu}")
+        g_err = grad_rel_err(g_dev, g_cpu)
+        check(g_err < 1e-3, f"mc2 ({label}): gradients on the card vs CPU: "
+              f"rel err {g_err}")
+        rel_unf = abs(l_dev - l_unf) / abs(l_unf)
+        check(rel_unf < 1e-5, f"mc2 ({label}): fused loss {l_dev} vs "
+              f"unfused {l_unf} on the card")
+        g_unf_err = grad_rel_err(g_dev, g_unf)
+        check(g_unf_err < 1e-4, f"mc2 ({label}): fused vs unfused gradients "
+              f"on the card: rel err {g_unf_err}")
+        paths = [k for k, _ in named]
+        print(f"check mc2 ({label}): loss {l_dev:.6f} vs CPU {l_cpu:.6f} "
+              f"(rel {rel:.2e}), grad rel err {g_err:.2e} over "
+              f"{len(paths)} tensors ({', '.join(paths[:3])}, ...); fused "
+              f"vs unfused on the card: loss {l_dev:.6f} vs {l_unf:.6f} "
+              f"(rel {rel_unf:.2e}), grad rel err {g_unf_err:.2e}",
+              flush=True)
+
+
+def slice_phase(torch, dev, seed, steps, chunk, label="default",
+                flags=None):
+    """Train one slice at full width; returns (launches over the measured
+    run, model, initial and trained params, history)."""
     from careless_tpu_torch import kernels
     from careless_tpu_torch.device import seeded_generator
 
     t0 = time.perf_counter()
     model, params, trainer, inputs, f_true = model_on(
-        None, seed, N_OBS, N_REFL, N_IMAGES, D_META, N_LAYERS)
+        None, seed, N_OBS, N_REFL, N_IMAGES, D_META, N_LAYERS, flags=flags)
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
     # warm-up (first launches, cuBLAS handles), then the measured run
@@ -367,11 +621,12 @@ def slice_phase(torch, dev, seed, steps, chunk):
     check(bool(np.all(np.isfinite(loss))), "non-finite loss")
     first, last = loss[:chunk].mean(), loss[-chunk:].mean()
     check(last < first, f"loss did not fall: {first} -> {last}")
-    for name, count in launches.items():
-        check(count > 0, f"kernel {name} was not launched by the main path")
     q = model.posterior.distribution(trained["posterior"])
     corr = float(np.corrcoef(q.mean().detach().cpu().numpy(), f_true)[0, 1])
-    out = dict(steps=steps, chunk=chunk, steps_per_s=steps / wall,
+    out = dict(slice=label, flags=flags or {}, mc_samples=model.mc_samples,
+               fused_kernel=model.fused_kernel,
+               likelihood=type(model.likelihood).__name__,
+               steps=steps, chunk=chunk, steps_per_s=steps / wall,
                ms_per_step=1e3 * wall / steps, setup_s=setup_s,
                loss_first_chunk=float(first), loss_last_chunk=float(last),
                posterior_mean_corr_f_true=corr,
@@ -379,7 +634,16 @@ def slice_phase(torch, dev, seed, steps, chunk):
                launches_per_step={k: v / steps for k, v in launches.items()})
     print("slice: " + json.dumps(out), flush=True)
     profile_steps(torch, trainer, trained, inputs, seed, out["ms_per_step"])
-    return launches
+    return launches, model, params, trained
+
+
+def check_launches(launches, label, want):
+    """Each kernel of the slice launched as often as its path says
+    (`want`: name -> count, or None for "at least once")."""
+    for name, count in want.items():
+        ok = launches[name] > 0 if count is None else launches[name] == count
+        check(ok, f"slice {label}: kernel {name} launched {launches[name]} "
+              f"times, expected {count if count is not None else '> 0'}")
 
 
 def profile_steps(torch, trainer, params, inputs, seed, ms_per_step,
@@ -443,10 +707,41 @@ def main():
     gen.manual_seed(args.seed)
     rows = kernel_phase(torch, dev, gen, peak_flops, peak_bw)
     check_phase(torch, dev, args.seed)
-    launches = slice_phase(torch, dev, args.seed, STEPS, CHUNK)
+    check_mc2_phase(torch, dev, args.seed)
 
+    launches, _, _, _ = slice_phase(torch, dev, args.seed, STEPS, CHUNK)
+    check_launches(launches, "default", {
+        "trunk_fwd": None, "trunk_bwd": None, "gather": None,
+        "philox_normal": None, "fused_ll_fwd": 0, "fused_ll_bwd": 0})
+
+    launches_a, model, _, _ = slice_phase(torch, dev, args.seed, STEPS,
+                                          CHUNK, "a", SLICE_A)
+    check(model.fused_kernel, "slice (a): --fused-kernel=auto did not "
+          "select K4 at mc = 2 and 1M observations")
+    check_launches(launches_a, "a", {
+        "trunk_fwd": STEPS, "trunk_bwd": STEPS, "gather": None,
+        "philox_normal": 0, "fused_ll_fwd": 2 * STEPS,
+        "fused_ll_bwd": 2 * STEPS})
+
+    launches_b, model, start, trained = slice_phase(
+        torch, dev, args.seed, STEPS_B, CHUNK, "b", SLICE_B)
+    check(model.fused_kernel, "slice (b) did not select K4")
+    check_launches(launches_b, "b", {
+        "trunk_fwd": STEPS_B, "trunk_bwd": STEPS_B, "gather": None,
+        "philox_normal": 0, "fused_ll_fwd": 2 * STEPS_B,
+        "fused_ll_bwd": 2 * STEPS_B})
+    ev11 = {k: (start["likelihood"][k].item(), v.item())
+            for k, v in trained["likelihood"].items()}
+    check(all(math.isfinite(b) and b != a for a, b in ev11.values()),
+          f"slice (b): the Ev11 parameters did not move finitely: {ev11}")
+    print("slice b Ev11 raw parameters (start, trained): " + json.dumps(ev11),
+          flush=True)
+
+    # launches: K1-K3 from the default slice, K4 from slice (a)
+    counts = {**launches, "fused_ll_fwd": launches_a["fused_ll_fwd"],
+              "fused_ll_bwd": launches_a["fused_ll_bwd"]}
     table = [dict(name=k, route="cuda", source=SOURCES[k],
-                  replaces=REPLACES[k], launches=launches[k], **v)
+                  replaces=REPLACES[k], launches=counts[k], **v)
              for k, v in rows.items()]
     print(json.dumps({"kernels": table}))
     print(card_line())

@@ -9,14 +9,21 @@ it also runs where only PyTorch is installed:
 Tolerances: gathers copy, so they are exact; the trunk sums in another
 order than cuBLAS (1e-5 of the output scale, and of each gradient
 tensor's largest entry); Philox words are exact and normals within 2e-5
-(log/cos may round differently, |x| <= 5.8).
+(log/cos may round differently, |x| <= 5.8). K4 against its plain
+versions on the same inputs: the sum at rtol 1e-5 (f32 sums over 200k
+observations in another order), per-observation gradients within 1e-5 of
+each tensor's largest entry (the kernel fuses multiply-adds), the Ev11
+sums at rtol 1e-4; K4 with its own Philox equals K4 fed K3's normals bit
+for bit, and repeats bit for bit.
 """
 import numpy as np
 import pytest
 import torch
 
 from careless_tpu_torch import kernels
-from careless_tpu_torch.ops.fused_elbo import plain_prng_normal
+from careless_tpu_torch.ops.fused_elbo import (
+    plain_fused_likelihood_grads, plain_fused_likelihood_sum,
+    plain_prng_normal, studentt_log_norm)
 from careless_tpu_torch.ops.fused_mlp import (fused_mlp_trunk_head,
                                               plain_trunk_head)
 from careless_tpu_torch.ops.plan_gather import make_gather_plan, plan_gather
@@ -127,4 +134,71 @@ def test_launch_counts_move_only_on_launch(cuda):
     plain_gather(table, ids)
     plain_prng_normal(8, 1, 0, cuda)
     assert kernels.LAUNCHES == {"trunk_fwd": 0, "trunk_bwd": 0, "gather": 1,
-                                "philox_normal": 0}
+                                "philox_normal": 0, "fused_ll_fwd": 0,
+                                "fused_ll_bwd": 0}
+
+
+K4_KINDS = [("normal", 0.0), ("studentt", 4.0), ("laplace", 0.0),
+            ("normal_ev11", 0.0), ("studentt_ev11", 4.0)]
+
+
+def _k4_inputs(n, device, seed):
+    rng = np.random.default_rng(seed)
+
+    def t(a):
+        return torch.tensor(np.asarray(a, np.float32), device=device)
+    ins = dict(loc=t(rng.normal(1.0, 0.3, n)),
+               scale=t(rng.uniform(0.05, 0.3, n)),
+               a=t(rng.uniform(-1.5, 1.5, n)), f=t(rng.uniform(0.2, 2.0, n)),
+               iobs=t(rng.gamma(2.0, 1.0, n)), sig=t(rng.uniform(0.1, 1, n)))
+    return (ins, t(rng.random(n) > 0.1), t([1.3, 0.2, 0.7]),
+            t(rng.normal(size=n)))
+
+
+@pytest.mark.parametrize("kind,dof", K4_KINDS)
+@pytest.mark.parametrize("with_noise", [True, False])
+def test_fused_ll_kernels_match_plain(cuda, kind, dof, with_noise):
+    n, seed, offset = 200_003, 0xABCDEF0123 | (3 << 32), 200_003
+    ins, mask, ev, noise = _k4_inputs(n, cuda, 7)
+    args = list(ins.values())
+    eps = noise if with_noise else plain_prng_normal(n, seed, offset, cuda)
+    cfg = dict(kind=kind, dof=dof, seed=seed, offset=offset,
+               t_const=studentt_log_norm(dof) if dof else 0.0)
+    ct = torch.tensor(0.5, device=cuda)
+    out = kernels.fused_ll_fwd(*args, mask, noise if with_noise else None,
+                               ev, **cfg)
+    want = plain_fused_likelihood_sum(*args, mask, ev, eps, kind=kind,
+                                      dof=dof)
+    torch.testing.assert_close(out, want, rtol=1e-5, atol=0)
+    got = kernels.fused_ll_bwd(*args, mask, noise if with_noise else None,
+                               ev, ct, **cfg)
+    ref = plain_fused_likelihood_grads(*args, mask, ev, eps, ct, kind=kind,
+                                       dof=dof)
+    for g, r in zip(got[:4], ref[:4]):
+        assert (g - r).abs().max().item() <= 1e-5 * r.abs().max().item()
+    if kind.endswith("_ev11"):
+        torch.testing.assert_close(got[4], ref[4], rtol=1e-4, atol=0)
+    else:
+        assert got[4] is None and ref[4] is None
+    again = kernels.fused_ll_bwd(*args, mask, noise if with_noise else None,
+                                 ev, ct, **cfg)
+    assert torch.equal(out, kernels.fused_ll_fwd(
+        *args, mask, noise if with_noise else None, ev, **cfg))
+    assert all(a is b or torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("kind,dof", [K4_KINDS[0], K4_KINDS[4]])
+def test_fused_ll_philox_is_k3(cuda, kind, dof):
+    """K4's in-kernel eps is bitwise K3's at the same (key, counter)."""
+    n, seed, offset = 100_000, 0x1234 | (9 << 32), 3 * 100_000
+    ins, _, ev, _ = _k4_inputs(n, cuda, 8)
+    args = list(ins.values())
+    cfg = dict(kind=kind, dof=dof, seed=seed, offset=offset,
+               t_const=studentt_log_norm(dof) if dof else 0.0)
+    k3 = kernels.philox_normal(n, seed, offset, cuda)
+    ct = torch.tensor(1.0, device=cuda)
+    assert torch.equal(kernels.fused_ll_fwd(*args, None, None, ev, **cfg),
+                       kernels.fused_ll_fwd(*args, None, k3, ev, **cfg))
+    own = kernels.fused_ll_bwd(*args, None, None, ev, ct, **cfg)
+    fed = kernels.fused_ll_bwd(*args, None, k3, ev, ct, **cfg)
+    assert all(a is b or torch.equal(a, b) for a, b in zip(own, fed))

@@ -35,6 +35,7 @@ from careless_tpu.ops.plan_gather import plan_gather as jax_plan_gather
 from careless_tpu_torch.device import seeded_generator
 from careless_tpu_torch.io.manager import DataManager
 from careless_tpu_torch.models.base import Inputs
+from careless_tpu_torch.models.likelihoods import mono
 from careless_tpu_torch.models.likelihoods.mono import NormalLikelihood
 from careless_tpu_torch.models.merging.surrogate import \
     TruncatedNormalPosterior
@@ -277,9 +278,8 @@ def test_entry_points_default_to_the_card():
 
 
 @pytest.mark.parametrize("flag,value", [
-    ("studentt_likelihood_dof", 4.0), ("refine_uncertainties", True),
-    ("image_layers", 2), ("mc_samples", 3), ("fused_kernel", "on"),
-    ("analytic_kl", True), ("mlp_dtype", "bfloat16"), ("parents", "None,0"),
+    ("image_layers", 2), ("analytic_kl", True), ("mlp_dtype", "bfloat16"),
+    ("parents", "None,0"),
 ])
 def test_unported_options_raise(flag, value):
     arrays, centric, _ = _problem(200, 20, 3, 3, seed=6)
@@ -318,3 +318,74 @@ def test_wilson_b_and_softplus_options_build():
                                np.exp(-5.0 / d_hkl ** 2), rtol=1e-6)
     assert model.scaler.mlp.scale_multiplier == pytest.approx(
         float(np.std(np.asarray(arrays[4], np.float32))))
+
+
+@pytest.mark.parametrize("flag,mc,n,fused", [
+    ("auto", 1, 500_000, False), ("auto", 2, 499_999, False),
+    ("auto", 2, 500_000, True), (None, 3, 600_000, True),
+    ("on", 1, 200, True), ("on", 2, 200, True), ("off", 2, 500_000, False),
+])
+def test_fused_kernel_policy(flag, mc, n, fused):
+    """careless_tpu/io/manager.py:170-175: 'auto' (the default) takes K4 at
+    mc > 1 from 500k observations; 'on' and 'off' force it."""
+    rng = np.random.default_rng(9)
+    arrays = (rng.integers(0, 20, n), rng.integers(0, 3, n), np.zeros(n),
+              np.zeros((n, 1), np.float32), np.ones(n), np.ones(n))
+    dm = DataManager(Inputs.from_arrays(*arrays, device="cpu"),
+                     _asu(np.zeros(20, bool)),
+                     _parser(mlp_layers=1, mc_samples=mc, fused_kernel=flag),
+                     device="cpu")
+    model, _, _ = dm.build_model()
+    assert model.mc_samples == mc and model.fused_kernel is fused
+
+
+@pytest.mark.parametrize("dof,refine,cls,kind", [
+    (None, False, mono.NormalLikelihood, "normal"),
+    (4.0, False, mono.StudentTLikelihood, "studentt"),
+    (None, True, mono.NormalEv11Likelihood, "normal_ev11"),
+    (6.0, True, mono.StudentTEv11Likelihood, "studentt_ev11"),
+])
+def test_likelihood_choice(dof, refine, cls, kind):
+    """careless_tpu/io/manager.py:130-137, with the Ev11 raw scalars at
+    softplus^-1(1) in params["likelihood"]."""
+    arrays, centric, _ = _problem(300, 20, 3, 3, seed=10)
+    dm = DataManager(Inputs.from_arrays(*arrays, device="cpu"),
+                     _asu(centric),
+                     _parser(mlp_layers=2, studentt_likelihood_dof=dof,
+                             refine_uncertainties=refine), device="cpu")
+    model, params, _ = dm.build_model()
+    assert type(model.likelihood) is cls
+    assert model._fused_likelihood_kind() == (kind, dof or 0.0)
+    if refine:
+        assert sorted(params["likelihood"]) == ["sdadd_raw", "sdb_raw",
+                                                "sdfac_raw"]
+        for v in params["likelihood"].values():
+            assert v.shape == () and v.item() == pytest.approx(
+                mono.SOFTPLUS_INV_1)
+    else:
+        assert "likelihood" not in params
+
+
+@pytest.mark.parametrize("fused", ["on", "off"])
+def test_short_mc2_ev11_training_run(fused):
+    """--mc-samples=2 --studentt-likelihood-dof=4 --refine-uncertainties,
+    fused and unfused: 60 steps with a finite, falling loss, and the Ev11
+    scalars move. Both paths draw the same noise, so they train alike."""
+    arrays, centric, _ = _problem(1500, 100, 6, 4, seed=12)
+    dm = DataManager(Inputs.from_arrays(*arrays, device="cpu"),
+                     _asu(centric),
+                     _parser(mlp_layers=3, mc_samples=2,
+                             studentt_likelihood_dof=4.0,
+                             refine_uncertainties=True, fused_kernel=fused),
+                     device="cpu")
+    model, params, trainer = dm.build_model()
+    assert model.fused_kernel is (fused == "on")
+    inputs = dm.inputs.sorted_by_refl().with_plans(dm.n_refl, dm.n_images)
+    trained, history = trainer.train(params, seeded_generator(3, "cpu"),
+                                     inputs, 60, chunk_size=30, device="cpu")
+    loss = np.asarray(history["loss"])
+    assert len(loss) == 60 and np.isfinite(loss).all()
+    assert loss[-10:].mean() < loss[:10].mean()
+    for k, v in trained["likelihood"].items():
+        assert np.isfinite(v.item())
+        assert v.item() != params["likelihood"][k].item()

@@ -61,6 +61,7 @@ print(json.dumps(sorted(sys.modules)))
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, check=True)
     loaded = json.loads(out.stdout.strip().splitlines()[-1])
-    assert "careless_tpu_torch.io.manager" in loaded
-    assert "careless_tpu_torch.kernels._build" in loaded
+    for mod in ("io.manager", "kernels._build", "ops.fused_elbo",
+                "models.likelihoods.mono", "models.merging.variational"):
+        assert "careless_tpu_torch." + mod in loaded
     assert [m for m in loaded if forbidden(m)] == []
