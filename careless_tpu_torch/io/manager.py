@@ -1,10 +1,11 @@
 """DataManager: from formatted inputs and the parsed flags to a model.
 
-Counterpart of careless_tpu/io/manager.py:42-203 for the mono merge: table
-sizes, the Wilson prior, and build_model's mono branch (TruncatedNormal
-surrogate initialised from the prior's moments with centric low = 0 and
-acentric low = 1e-32; the Normal, StudentT, Normal-Ev11 or StudentT-Ev11
-likelihood of --studentt-likelihood-dof and --refine-uncertainties;
+Counterpart of careless_tpu/io/manager.py:42-203: table sizes, the Wilson
+prior, and build_model (TruncatedNormal surrogate initialised from the
+prior's moments with centric low = 0 and acentric low = 1e-32; the Normal,
+StudentT, Normal-Ev11 or StudentT-Ev11 likelihood of
+--studentt-likelihood-dof and --refine-uncertainties, convolved over
+harmonic groups for Laue inputs;
 HybridImageScaler over an MLP with the exp or softplus bijector;
 --mc-samples and the --fused-kernel auto/on/off policy). Options outside
 the ported slice raise NotImplementedError naming the flag. Output writing
@@ -19,10 +20,7 @@ import torch
 
 from ..device import DeviceLike, resolve_device
 from ..models.base import Inputs
-from ..models.likelihoods.mono import (NormalEv11Likelihood,
-                                       NormalLikelihood,
-                                       StudentTEv11Likelihood,
-                                       StudentTLikelihood)
+from ..models.likelihoods import laue, mono
 from ..models.merging.surrogate import TruncatedNormalPosterior
 from ..models.merging.variational import Trainer, VariationalMergingModel
 from ..models.priors.wilson import WilsonPrior
@@ -122,13 +120,14 @@ class DataManager:
         scaler = (HybridImageScaler(mlp, ImageScaler(self.n_images))
                   if parser.use_image_scales else mlp)
 
+        lik = laue if self.inputs.is_laue else mono
         dof = getattr(parser, "studentt_likelihood_dof", None)
         if getattr(parser, "refine_uncertainties", False):
-            likelihood = (StudentTEv11Likelihood(dof) if dof is not None
-                          else NormalEv11Likelihood())
+            likelihood = (lik.StudentTEv11Likelihood(dof) if dof is not None
+                          else lik.NormalEv11Likelihood())
         else:
-            likelihood = (StudentTLikelihood(dof) if dof is not None
-                          else NormalLikelihood())
+            likelihood = (lik.StudentTLikelihood(dof) if dof is not None
+                          else lik.NormalLikelihood())
 
         # dispatch policy of careless_tpu/io/manager.py:170-175: 'auto'
         # takes K4 at mc > 1 from 500k observations; 'on'/'off' force it

@@ -16,7 +16,7 @@ import torch
 from ._build import library
 
 LAUNCHES = {"trunk_fwd": 0, "trunk_bwd": 0, "gather": 0, "philox_normal": 0,
-            "fused_ll_fwd": 0, "fused_ll_bwd": 0}
+            "fused_ll_fwd": 0, "fused_ll_bwd": 0, "gather_stream": 0}
 
 # csrc/fused_ll.cu's kinds, in the order of its Kind enum
 FUSED_KINDS = ("normal", "studentt", "laplace", "normal_ev11",
@@ -147,6 +147,39 @@ def gather(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
                                   out.data_ptr(), ids.numel(), _stream(dev))
     _check(err, "gather")
     LAUNCHES["gather"] += 1
+    return out
+
+
+def gather_stream(table: torch.Tensor, ids2d: torch.Tensor,
+                  bases: torch.Tensor, window: int, block_rows: int
+                  ) -> torch.Tensor:
+    """K5: (R * 128,) windowed gather of a flat f32 table by (R, 128) int32
+    id tiles, block_rows rows to a tile, tile i reading table rows
+    [bases[i], bases[i] + window) of 128 entries (ops/table_gather.py,
+    whose windowed_gather_stream checks the tile shapes)."""
+    dev = table.device
+    _require(table, "table", torch.float32, dev)
+    _require(ids2d, "ids2d", torch.int32, dev)
+    _require(bases, "bases", torch.int32, dev)
+    smem = window * 128 * 4
+    if smem > MAX_SMEM_PER_BLOCK:
+        raise ValueError(f"gather_stream: a window of {window} chunks needs "
+                         f"{smem} bytes of shared memory; the card allows "
+                         f"{MAX_SMEM_PER_BLOCK}")
+    # the kernel loads the table, ids and out 16 bytes at a time
+    if table.data_ptr() % 16:
+        table = table.clone()
+    if ids2d.data_ptr() % 16:
+        ids2d = ids2d.clone()
+    n_tiles = bases.shape[0]
+    out = torch.empty(ids2d.numel(), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        err = library().ct_gather_stream(
+            table.data_ptr(), table.shape[0], ids2d.data_ptr(),
+            bases.data_ptr(), out.data_ptr(), n_tiles, block_rows * 128,
+            window, _stream(dev))
+    _check(err, "gather_stream")
+    LAUNCHES["gather_stream"] += 1
     return out
 
 

@@ -104,7 +104,7 @@ def library() -> "ctypes.CDLL":
     path = build()
     lib = ctypes.CDLL(str(path))
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    U32, U64 = ctypes.c_uint32, ctypes.c_uint64
+    U32, U64, I64 = ctypes.c_uint32, ctypes.c_uint64, ctypes.c_longlong
     signatures = {
         # x, w, b, loc, raw, n, d_in, width, n_layers, leak, stream
         "ct_trunk_fwd": [P, P, P, P, P, I, I, I, I, F, P],
@@ -113,6 +113,8 @@ def library() -> "ctypes.CDLL":
         "ct_trunk_bwd": [P, P, P, P, P, P, P, P, I, I, I, I, I, F, P],
         # table, ids, out, n, stream
         "ct_gather": [P, P, P, I, P],
+        # table, t, ids, bases, out, n_tiles, tile, window, stream
+        "ct_gather_stream": [P, I64, P, P, P, I, I, I, P],
         # out, bits, n, seed_lo, seed_hi, offset, stream
         "ct_philox_normal": [P, P, I, U32, U32, U64, P],
         # loc, scale, a, f, iobs, sig, mask, noise, ev, part, out, n, kind,

@@ -1,8 +1,9 @@
 """Variational merging model: the ELBO and the training loop.
 
 Counterpart of careless_tpu/models/merging/variational.py for the mono
-chain with S = mc_samples Monte Carlo samples (elbo, :179-234; _elbo_fused,
-:236-300; the MC KL of _kl_terms, :570-585) and of its Trainer (:636-849):
+and Laue chains with S = mc_samples Monte Carlo samples (elbo, :179-234;
+_elbo_fused, :236-300; the MC KL of _kl_terms, :570-585) and of its Trainer
+(:636-849):
 
     z_F   ~ q(F)                         (S, n_refl)  truncated normal
     eps   ~ N(0, 1)                      (S, N)       Philox (K3, or in K4)
@@ -13,9 +14,10 @@ chain with S = mc_samples Monte Carlo samples (elbo, :179-234; _elbo_fused,
 With fused_kernel (and a fused-supported likelihood and scaler) the (N,)
 chain from eps to the likelihood sum runs in K4 once per sample
 (ops/fused_elbo.py); otherwise it runs as tensor ops with eps from one K3
-launch. The MLP runs once per step either way. Parameters are a nested dict
-of tensors in the JAX package's layout (utils/params.py converts between
-the two).
+launch. The MLP runs once per step either way. Laue sums the likelihood
+through its convolved form, once per sample, and never takes K4
+(_fused_eligible). Parameters are a nested dict of tensors in the JAX
+package's layout (utils/params.py converts between the two).
 """
 from __future__ import annotations
 
@@ -80,6 +82,7 @@ class VariationalMergingModel:
 
     def _fused_eligible(self, inputs: Inputs) -> bool:
         return (self.fused_kernel
+                and not inputs.is_laue
                 and inputs.plans is not None
                 and self._fused_likelihood_kind() is not None
                 and isinstance(self.scaler, (MLPScaler, HybridImageScaler)))
@@ -113,9 +116,19 @@ class VariationalMergingModel:
         for s in range(S):
             z_scale = scale_dist.loc + scale_dist.scale * eps[s]
             z_obs = plan_gather(z_f[s], inputs.refl_id, inputs.plans.refl)
-            ll_total = ll_total + torch.sum(
-                likelihood.log_prob(z_scale * torch.square(z_obs)))
+            ll_total = ll_total + self._masked_ll_sum(
+                likelihood, z_scale * torch.square(z_obs))
         return self._loss(q, z_f, ll_total, n)
+
+    @staticmethod
+    def _masked_ll_sum(likelihood, ipred: torch.Tensor) -> torch.Tensor:
+        """The log-likelihood summed over rows for one sample's (N,)
+        prediction; the convolved (Laue) likelihoods have their own
+        run-aligned form (models/likelihoods/laue.py masked_ll_sum). The
+        port has no shard-padding mask, so every row counts."""
+        if hasattr(likelihood, "masked_ll_sum"):
+            return likelihood.masked_ll_sum(ipred)
+        return torch.sum(likelihood.log_prob(ipred))
 
     def _elbo_fused(self, params: dict, inputs: Inputs,
                     generator: Optional[torch.Generator] = None,

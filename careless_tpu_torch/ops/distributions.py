@@ -47,9 +47,10 @@ class Normal(NamedTuple):
 
 
 def softplus(x: torch.Tensor) -> torch.Tensor:
-    """log(1 + exp(x)) as jax.nn.softplus computes it (logaddexp(0, x)):
-    max(x, 0) + log1p(exp(-|x|)), with no threshold."""
-    return torch.clamp(x, min=0) + torch.log1p(torch.exp(-torch.abs(x)))
+    """log(1 + exp(x)) as jax.nn.softplus computes it, logaddexp(0, x):
+    max(x, 0) + log1p(exp(-|x|)) with no threshold, and the derivative 1/2
+    at x = 0."""
+    return torch.logaddexp(torch.zeros_like(x), x)
 
 
 class Laplace(NamedTuple):

@@ -1,13 +1,15 @@
 """Planned gather: `table[ids]` with a planned, deterministic backward.
 
 Counterpart of careless_tpu/ops/plan_gather.py. The ELBO gathers the
-posterior sample z_f by refl_id and the image scales by image_id. The ids
-are static for a dataset, so a plan is built once on the host:
+posterior sample z_f by refl_id and the image scales by image_id; Laue
+convolves predictions into harmonic groups (the transpose of a gather). The
+ids are static for a data set, so a plan is built once on the host:
 
-forward:  K2 (ops/table_gather.py), out[k] = table[ids[k]].
+forward:  K2 (ops/table_gather.py), out[k] = table[ids[k]]; K5 for a table
+          past the TPU's VMEM cap whose ids window (`stream`, as below).
 backward: the duplicate-index scatter-add as a segment sum. The cotangent
-          is put in table-id order (a K2 gather by `perm`, skipped when the
-          ids are already sorted, as on the training path's refl_id), then
+          is put in table-id order (a gather by `perm`, skipped when the
+          ids are already sorted, as on the mono path's refl_id), then
           every table entry's gradient is a difference of an exclusive
           prefix sum at two boundaries. No atomics, so the result does not
           depend on the order in which threads run.
@@ -23,20 +25,68 @@ chunks the segment spans. The JAX package adds the two levels before
 differencing, which keeps a flat cumsum's error. The boundary lookups,
 local_excl[pos] and the chunk prefix at pos // _CHUNK, are K2 gathers.
 
+Laue (the harmonic-chain layout of ops/chain_layout.py): the refl gather
+runs through a ChainGatherPlan, z_f permuted to chain order (K2 by sigma,
+its transpose K2 by sigma_inv), then gathered by the renumbered ids. Its
+backward permute is quasi-identity and carries a window plan (`perm_plan`);
+past the VMEM cap (`stream`) it runs through K5, else through K2 by perm.
+The `stream` predicates are the JAX package's own, at the same constants,
+so K5 runs exactly where the JAX package runs windowed_gather_stream; the
+windows themselves are the JAX package's too (_plan_windows).
+
 Left out, as answers to TPU costs only: the one-hot histogram and one-hot
-MXU gathers, the chain layout, the streaming gather and the sort permute.
+MXU gathers, the sort permute and the non-streaming windows of K2 (the
+CUDA K2 takes flat ids). Where the JAX package takes the one-hot
+histogram backward (small unsorted tables, 1-D cotangents), the port
+permutes and takes the segment sum: the same sums in another order. On
+the chain plan that permute is K5 once it streams, so at mc = 1 with more
+than 2,097,152 observations and a refl table within the histogram cap
+(32,768 entries, 65,536 from 4M observations) the port runs K5 where the
+JAX package runs no stream kernel.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional
+from typing import Optional, Union
 
 import numpy as np
 import torch
 
-from .table_gather import table_gather
+from .chain_layout import chain_permutation
+from .table_gather import (BLOCK_ROWS, LANES, table_gather,
+                           windowed_gather_stream)
 
 _CHUNK = 512  # cumsum reset interval (see the module docstring)
+BLOCK_OBS = BLOCK_ROWS * LANES  # entries per window tile
+MAX_WINDOW_CHUNKS = 80      # widest window of a table gather, in chunks
+MAX_TABLE_ROWS = 16384      # the TPU's VMEM cap, in rows of 128 entries
+# the quasi-identity backward permutation spans >= 64 chunks (a tile of
+# 8192 consecutive positions alone covers 64); its plan gives up at 160
+PERM_WINDOW_CHUNKS = 160
+MAX_STREAM_TABLE_ROWS = 1 << 20  # table cap of the streaming kernel
+
+
+@dataclass(frozen=True, eq=False)
+class WindowPlan:
+    """A windowed gather's tiles (ops/table_gather.py, K5's contract).
+
+    ids2d:  (R, 128) int32 ids, padded with the last id to whole tiles
+    bases:  (R // block_rows,) int32 first table row of each tile's window
+    window: window width in rows of 128 entries
+    block_rows: tile height in rows of 128
+    stream: past the VMEM cap: the gather runs through K5
+    """
+
+    ids2d: torch.Tensor
+    bases: torch.Tensor
+    window: int
+    block_rows: int
+    stream: bool
+
+    def gather(self, table: torch.Tensor, n: int) -> torch.Tensor:
+        """table[ids[:n]] through K5 (the plain version on the CPU)."""
+        return windowed_gather_stream(table, self.ids2d, self.bases,
+                                      self.window, self.block_rows)[:n]
 
 
 @dataclass(frozen=True, eq=False)
@@ -51,6 +101,10 @@ class GatherPlan:
     cp_ids: (2 (T+1),) int32 pos // _CHUNK, the chunk of each boundary,
             then the same + m: the hi and lo halves of the chunk prefix,
             m = n // _CHUNK + 1 chunks
+    window: the forward's stream window (tables past the VMEM cap whose
+            ids window), else None
+    perm_plan: window plan of the gather by `perm` (the chain layout's
+            quasi-identity backward permute), else None
     """
 
     ids: torch.Tensor
@@ -60,13 +114,95 @@ class GatherPlan:
     pos: torch.Tensor
     cp_ids: torch.Tensor
     table_size: int
+    window: Optional[WindowPlan] = None
+    perm_plan: Optional[WindowPlan] = None
+
+    @property
+    def stream(self) -> bool:
+        return self.window is not None and self.window.stream
+
+
+@dataclass(frozen=True, eq=False)
+class ChainGatherPlan:
+    """The Laue refl gather on the chain layout: sigma[new] = old (the
+    chain renumbering); `inner` gathers the permuted table by the
+    renumbered ids. Inputs.refl_id and the model's tables stay in
+    canonical order; the permutation lives in this plan."""
+
+    sigma: torch.Tensor      # (T,) int32, new -> old
+    sigma_inv: torch.Tensor  # (T,) int32, old -> new
+    inner: GatherPlan
+    table_size: int
+
+
+def _i32(a, device) -> torch.Tensor:
+    return torch.as_tensor(np.ascontiguousarray(a, dtype=np.int32),
+                           device=device)
+
+
+def _window_plan(planned, block_rows: int, stream: bool,
+                 device) -> Optional[WindowPlan]:
+    ids2d, bases, window = planned
+    if ids2d is None:
+        return None
+    return WindowPlan(ids2d=_i32(ids2d, device), bases=_i32(bases, device),
+                      window=window, block_rows=block_rows, stream=stream)
+
+
+def _plan_windows(ids, table_size: int, max_chunks: int = MAX_WINDOW_CHUNKS,
+                  max_rows: int = MAX_TABLE_ROWS,
+                  block_obs: int = BLOCK_OBS):
+    """(ids2d, bases, window) of a windowed gather, or (None, None, 0)
+    when the table has more than max_rows rows or a tile's ids span more
+    than max_chunks rows of a table wider than that. The max_rows default
+    is bound here, when the function is defined, as in the JAX package."""
+    n = len(ids)
+    table_rows = -(-table_size // LANES)
+    if n == 0 or table_rows > max_rows:
+        return None, None, 0
+    rows = -(-n // LANES)
+    rows_pad = -(-rows // (block_obs // LANES)) * (block_obs // LANES)
+    # pad with the LAST id, never 0: on (quasi-)sorted ids a 0-pad makes
+    # the final tile span the whole table
+    flat = np.full(rows_pad * LANES, ids[-1], np.int32)
+    flat[:n] = ids
+    ids2d = flat.reshape(rows_pad, LANES)
+    n_tiles = rows_pad * LANES // block_obs
+    tiles = flat.reshape(n_tiles, block_obs)
+    lo = tiles.min(axis=1) // LANES
+    hi = tiles.max(axis=1) // LANES
+    window = int((hi - lo).max()) + 1
+    if window > max_chunks:
+        if table_rows > max_chunks:
+            return None, None, 0
+        lo = np.zeros(n_tiles, np.int64)   # small table: cover it whole
+        window = table_rows
+    # clamp so [base, base + window) stays inside the padded table
+    bases = np.minimum(lo, max(table_rows - window, 0)).astype(np.int32)
+    return ids2d, bases, int(window)
+
+
+def _boundaries(sorted_ids: np.ndarray, table_size: int, device) -> dict:
+    n = len(sorted_ids)
+    rng = np.arange(table_size)
+    starts = np.searchsorted(sorted_ids, rng, side="left")
+    ends = np.searchsorted(sorted_ids, rng, side="right")
+    pos = np.concatenate([starts, [n]])
+    m = (n + _CHUNK) // _CHUNK
+    return dict(starts=_i32(starts, device), ends=_i32(ends, device),
+                pos=_i32(pos, device),
+                cp_ids=_i32(np.concatenate([pos // _CHUNK, pos // _CHUNK + m]),
+                            device),
+                table_size=int(table_size))
 
 
 def make_gather_plan(ids: torch.Tensor, table_size: int) -> GatherPlan:
     """Build the plan on the host (numpy) and place it beside `ids`.
 
     table_size must be the GLOBAL table size the parameters were built
-    with, never one inferred from a subset's ids."""
+    with, never one inferred from a subset's ids. Past the VMEM cap
+    (MAX_TABLE_ROWS, read at call time) the plan also gets the stream
+    window, when the ids window (careless_tpu plan_gather.py:199-206)."""
     device = ids.device
     ids_np = ids.detach().cpu().numpy().reshape(-1).astype(np.int64)
     n = len(ids_np)
@@ -80,27 +216,71 @@ def make_gather_plan(ids: torch.Tensor, table_size: int) -> GatherPlan:
     else:
         perm = np.argsort(ids_np, kind="stable")
         sorted_ids = ids_np[perm]
-    rng = np.arange(table_size)
-    starts = np.searchsorted(sorted_ids, rng, side="left")
-    ends = np.searchsorted(sorted_ids, rng, side="right")
-    pos = np.concatenate([starts, [n]])
-    m = (n + _CHUNK) // _CHUNK
-
-    def i32(a):
-        return torch.as_tensor(np.ascontiguousarray(a, dtype=np.int32),
-                               device=device)
-
+    window = None
+    if -(-table_size // LANES) > MAX_TABLE_ROWS:
+        planned = _plan_windows(ids_np, table_size,
+                                max_rows=MAX_STREAM_TABLE_ROWS)
+        window = _window_plan(planned, BLOCK_OBS // LANES, True, device)
     return GatherPlan(
-        ids=i32(ids_np), perm=None if perm is None else i32(perm),
-        starts=i32(starts), ends=i32(ends), pos=i32(pos),
-        cp_ids=i32(np.concatenate([pos // _CHUNK, pos // _CHUNK + m])),
-        table_size=int(table_size))
+        ids=_i32(ids_np, device), perm=None if perm is None else _i32(perm,
+                                                                     device),
+        window=window, **_boundaries(sorted_ids, table_size, device))
+
+
+def make_chain_gather_plan(refl_id: torch.Tensor, harmonic_id: torch.Tensor,
+                           table_size: int) -> Optional[ChainGatherPlan]:
+    """The chain layout's refl-gather plan, or None when the layout does
+    not window (rows not in chain order, or spans past the caps); callers
+    then take make_gather_plan (careless_tpu plan_gather.py:786-838)."""
+    device = refl_id.device
+    ids = refl_id.detach().cpu().numpy().reshape(-1)
+    n = len(ids)
+    if n == 0:
+        return None
+    sigma, sigma_inv = chain_permutation(
+        ids, harmonic_id.detach().cpu().numpy(), table_size)
+    local = sigma_inv[ids]
+    is_sorted = bool(np.all(local[1:] >= local[:-1])) if n > 1 else True
+    if _plan_windows(local, table_size)[0] is None:
+        return None
+    perm = perm_plan = None
+    sorted_local = local
+    if not is_sorted:
+        perm = np.argsort(local, kind="stable").astype(np.int32)
+        sorted_local = local[perm]
+        # 2048-entry tiles for the TPU's VMEM kernel, 8192 for the stream
+        stream = -(-n // LANES) > MAX_TABLE_ROWS
+        block = BLOCK_OBS if stream else 2048
+        planned = _plan_windows(perm, n, max_chunks=PERM_WINDOW_CHUNKS,
+                                max_rows=MAX_STREAM_TABLE_ROWS,
+                                block_obs=block)
+        perm_plan = _window_plan(planned, block // LANES, stream, device)
+        if perm_plan is None:
+            return None  # displacement too large for the windows
+    inner = GatherPlan(ids=_i32(local, device),
+                       perm=None if perm is None else _i32(perm, device),
+                       perm_plan=perm_plan,
+                       **_boundaries(sorted_local, table_size, device))
+    return ChainGatherPlan(sigma=_i32(sigma, device),
+                           sigma_inv=_i32(sigma_inv, device), inner=inner,
+                           table_size=int(table_size))
+
+
+def _apply_perm(contrib: torch.Tensor, plan: GatherPlan) -> torch.Tensor:
+    """contrib[perm]: the backward permute into table-id order; K5 when
+    the plan's permute streams, else K2."""
+    if plan.perm is None:
+        return contrib
+    pp = plan.perm_plan
+    if pp is not None and pp.stream:
+        return pp.gather(contrib, contrib.shape[0])
+    return table_gather(contrib, plan.perm)
 
 
 def segment_sum_by_plan(contrib: torch.Tensor, plan: GatherPlan
                         ) -> torch.Tensor:
     """out[t] = sum of contrib[k] over k with ids[k] == t, shape (T,)."""
-    c = contrib if plan.perm is None else table_gather(contrib, plan.perm)
+    c = _apply_perm(contrib, plan)
     n = c.shape[0]
     # pad with >= 1 zero so boundary position n indexes a real (zero) slot
     m = (n + _CHUNK) // _CHUNK
@@ -120,22 +300,74 @@ def segment_sum_by_plan(contrib: torch.Tensor, plan: GatherPlan
             + ((hi_b[1:] - hi_b[:-1]) + (lo_b[1:] - lo_b[:-1])))
 
 
+def _forward_gather(table: torch.Tensor, plan: GatherPlan) -> torch.Tensor:
+    if plan.stream:
+        return plan.window.gather(table, plan.ids.shape[0])
+    return table_gather(table, plan.ids)
+
+
 class _PlanGather(torch.autograd.Function):
     @staticmethod
     def forward(ctx, table, plan):
         ctx.plan = plan
-        return table_gather(table, plan.ids)
+        return _forward_gather(table, plan)
 
     @staticmethod
     def backward(ctx, ct):
         return segment_sum_by_plan(ct.contiguous(), ctx.plan), None
 
 
+class _ChainPermute(torch.autograd.Function):
+    """x[sigma]; its transpose is the inverse permutation, ct[sigma_inv]."""
+
+    @staticmethod
+    def forward(ctx, x, sigma, sigma_inv):
+        ctx.sigma_inv = sigma_inv
+        return table_gather(x, sigma)
+
+    @staticmethod
+    def backward(ctx, ct):
+        return table_gather(ct.contiguous(), ctx.sigma_inv), None, None
+
+
+class _PlanConvolve(torch.autograd.Function):
+    """Forward: the planned segment sum; backward: the gather of the
+    cotangent by ids, through K5 when the plan streams."""
+
+    @staticmethod
+    def forward(ctx, value, plan):
+        ctx.plan = plan
+        return segment_sum_by_plan(value, plan)
+
+    @staticmethod
+    def backward(ctx, ct):
+        return _forward_gather(ct.contiguous(), ctx.plan), None
+
+
 def plan_gather(table: torch.Tensor, ids: torch.Tensor,
-                plan: Optional[GatherPlan]) -> torch.Tensor:
+                plan: Union[GatherPlan, ChainGatherPlan, None]
+                ) -> torch.Tensor:
     """`table[ids]` for a flat table through the plan built from `ids`."""
     if plan is None:
         raise ValueError("plan_gather needs a GatherPlan (Inputs.with_plans)")
+    if isinstance(plan, ChainGatherPlan):
+        if ids.shape != plan.inner.ids.shape:
+            raise ValueError("ids do not match the plan they were given with")
+        z_perm = _ChainPermute.apply(table, plan.sigma, plan.sigma_inv)
+        return _PlanGather.apply(z_perm, plan.inner)
     if ids.shape != plan.ids.shape:
         raise ValueError("ids do not match the plan they were given with")
     return _PlanGather.apply(table, plan)
+
+
+def plan_convolve(value: torch.Tensor, ids: torch.Tensor,
+                  plan: Optional[GatherPlan]) -> torch.Tensor:
+    """out[g] = sum of value[o] over o with ids[o] == g, the length of
+    value (the plan's table size must equal it): the Laue harmonic
+    convolution, the transpose of plan_gather."""
+    if plan is None:
+        raise ValueError("plan_convolve needs a GatherPlan "
+                         "(Inputs.with_plans)")
+    if ids.shape != plan.ids.shape or plan.table_size != value.shape[0]:
+        raise ValueError("value and ids do not match the plan")
+    return _PlanConvolve.apply(value.contiguous(), plan)

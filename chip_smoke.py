@@ -13,11 +13,14 @@ Phases, each printed on its own lines:
      call computing the same function where there is one, and its bound on
      this card; K3 also passes a statistical gate at n = 2^22; K4 is held
      for all five likelihood kinds, with and without supplied noise, and
-     its in-kernel normals bitwise against K3's;
+     its in-kernel normals bitwise against K3's; K5 on the JAX package's
+     300k swap permutation, bitwise against its plain version and x[perm];
   3. check: the port's loss and every parameter gradient at a small size on
      the card against the same computation on the CPU (plain versions), at
      mc = 1 and at mc = 2 through K4 for the flag sets of slices (a) and
-     (b); then the card's fused ELBO against its unfused ELBO;
+     (b); then the card's fused ELBO against its unfused ELBO; then Laue at
+     50k observations with the VMEM cap lowered so that K5 runs, card
+     against CPU, and the run-aligned ELBO against the plan_convolve one;
   4. slices at 1,000,000 observations, 50,000 reflections, 2,000 images,
      10 metadata columns and a 20-layer MLP of width 10, trained full-batch
      with Adam, from the CLI's mono defaults (`careless-tpu mono
@@ -25,7 +28,14 @@ Phases, each printed on its own lines:
      --mc-samples=2, where --fused-kernel=auto takes K4 (300 steps); (b)
      (a) with --studentt-likelihood-dof=4 --refine-uncertainties (100
      steps). Every loss finite, the loss falling, and each kernel of the
-     slice launched by that run (the counts are set to 0 just before it).
+     slice launched by that run (the counts are set to 0 just before it);
+  5. the Laue slice (`careless-tpu poly` defaults) at 10,000,000
+     observations, 500,000 reflections and 20,000 images on the harmonic-
+     chain layout: the host set-up timed step by step, every kernel of the
+     step held against its plain version and timed at the step's shapes
+     (K1 on the 10M metadata, K2 at each of its nine table and id pairs, K3
+     at 10M, K5 at the chain plan's own backward permute), then 100 steps
+     with K5 launched once per step.
 The second-to-last line is the card's name and power limit; the last line is
 {"ok": true, "device": {...}}. Any failed check raises (exit code != 0), and
 without a CUDA device the script exits non-zero before printing a result.
@@ -43,6 +53,9 @@ import numpy as np
 
 N_OBS, N_REFL, N_IMAGES, D_META, N_LAYERS = 1_000_000, 50_000, 2_000, 10, 20
 STEPS, CHUNK = 300, 50   # training steps of the slice phase, steps per chunk
+# the Laue slice: BASELINE.md's "chain + streaming windowed kernel" size
+LAUE_OBS, LAUE_REFL, LAUE_IMAGES = 10_000_000, 500_000, 20_000
+STEPS_LAUE = 100
 
 # the mono defaults of the CLI, copied from careless_tpu/args/*.py
 MONO_DEFAULTS = dict(
@@ -66,6 +79,7 @@ REPLACES = {
     "philox_normal": "careless_tpu/ops/fused_elbo.py:66",
     "fused_ll_fwd": "careless_tpu/ops/fused_elbo.py:291",
     "fused_ll_bwd": "careless_tpu/ops/fused_elbo.py:311",
+    "gather_stream": "careless_tpu/ops/table_gather.py:85",
 }
 SOURCES = {
     "trunk_fwd": "careless_tpu_torch/csrc/trunk.cu",
@@ -74,6 +88,7 @@ SOURCES = {
     "philox_normal": "careless_tpu_torch/csrc/philox.cu",
     "fused_ll_fwd": "careless_tpu_torch/csrc/fused_ll.cu",
     "fused_ll_bwd": "careless_tpu_torch/csrc/fused_ll.cu",
+    "gather_stream": "careless_tpu_torch/csrc/gather_stream.cu",
 }
 # the flag sets of slices (a) and (b) on top of MONO_DEFAULTS
 SLICE_A = dict(mc_samples=2)
@@ -150,16 +165,42 @@ def check(ok: bool, what: str):
 
 def kernel_phase(torch, dev, gen, peak_flops, peak_bw):
     """Hold each kernel against its plain version and time it."""
+    n = N_OBS
+    rows = trunk_rows(torch, gen, torch.randn(n, D_META, generator=gen,
+                                              device=dev),
+                      peak_flops, peak_bw)
+    # K2: the z_f gather (sorted refl ids) and the image-scale gather
+    cases = {}
+    for label, size, sort in (("z_f", N_REFL, True),
+                              ("image", N_IMAGES, False)):
+        ids = torch.randint(0, size, (n,), generator=gen, device=dev)
+        if sort:
+            ids = torch.sort(ids).values
+        cases[label] = gather_row(torch, gen, size, ids.to(torch.int32),
+                                  label, peak_flops, peak_bw)
+    rows["gather"] = cases["z_f"]
+    print("gather at the image table (2,000 entries, unsorted ids): "
+          + json.dumps(cases["image"]))
+    rows["philox_normal"] = philox_row(torch, dev, gen, n, 3 * n, peak_flops,
+                                       peak_bw)
     from careless_tpu_torch import kernels
-    from careless_tpu_torch.ops.fused_elbo import plain_prng_normal
+    rows["philox_normal"]["stats"] = prng_gate(torch, kernels, dev)
+    rows.update(fused_ll_phase(torch, dev, gen, peak_flops, peak_bw))
+    return rows
+
+
+def trunk_rows(torch, gen, x, peak_flops, peak_bw):
+    """K1-fwd and K1-bwd on metadata x (N, d): a random N_LAYERS-deep trunk
+    of width d (identity plus noise, so every layer matters), held against
+    the plain version and timed; returns their kernel rows."""
+    from careless_tpu_torch import kernels
     from careless_tpu_torch.ops.fused_mlp import (fused_mlp_trunk_head,
                                                    pack_params,
                                                    plain_trunk_head)
-    from careless_tpu_torch.ops.table_gather import plain_gather, table_gather
 
     rows = {}
-    n, d, w, L = N_OBS, D_META, D_META, N_LAYERS
-    x = torch.randn(n, d, generator=gen, device=dev)
+    dev = x.device
+    (n, d), w, L = x.shape, x.shape[1], N_LAYERS
     layers = []
     for i in range(L):
         d_in = d if i == 0 else w
@@ -183,8 +224,10 @@ def kernel_phase(torch, dev, gen, peak_flops, peak_bw):
     scale = max(loc_p.abs().max().item(), raw_p.abs().max().item(), 1.0)
     err = max((loc_k - loc_p).abs().max().item(),
               (raw_k - raw_p).abs().max().item())
+    del loc_k, raw_k, loc_p, raw_p
     tol = 1e-4 * scale   # f32, 20 layers summed in another order than cuBLAS
-    check(err <= tol, f"trunk_fwd differs from plain: {err} > {tol}")
+    check(err <= tol, f"trunk_fwd at N = {n} differs from plain: {err} > "
+          f"{tol}")
     kw = kernels.trunk_width(w)
     wflat, bflat = (t.detach() for t in pack_params(layers, out, kw))
     with torch.no_grad():
@@ -212,11 +255,12 @@ def kernel_phase(torch, dev, gen, peak_flops, peak_bw):
     g_k2 = grads(fused_mlp_trunk_head)
     g_p = grads(plain_trunk_head)
     check(all(torch.equal(a, b) for a, b in zip(g_k, g_k2)),
-          "trunk_bwd is not bitwise repeatable")
+          f"trunk_bwd at N = {n} is not bitwise repeatable")
     err = max((a - b).abs().max().item() for a, b in zip(g_k, g_p))
     gscale = max(b.abs().max().item() for b in g_p)
-    tol = 1e-4 * gscale  # sums over 1M observations in another order
-    check(err <= tol, f"trunk_bwd differs from plain: {err} > {tol}")
+    tol = 1e-4 * gscale  # sums over N observations in another order
+    check(err <= tol, f"trunk_bwd at N = {n} differs from plain: {err} > "
+          f"{tol}")
     ms = time_ms(torch, lambda: kernels.trunk_bwd(x, wflat, bflat, gl, gr,
                                                   kw, L, 0.01, False))
     loc, raw = plain_trunk_head(x, layers, out, 0.01)
@@ -233,42 +277,50 @@ def kernel_phase(torch, dev, gen, peak_flops, peak_bw):
                              device_ms=d_ms, plain_ms=plain_ms,
                              bound_ms=b_ms, bound_by=b_by, library_ms=None,
                              bitwise_repeatable=True)
+    return rows
 
-    # K2: the z_f gather (sorted refl ids) and the image-scale gather
-    cases = {}
-    for label, size, sort in (("z_f", N_REFL, True),
-                              ("image", N_IMAGES, False)):
-        table = torch.randn(size, generator=gen, device=dev)
-        ids = torch.randint(0, size, (n,), generator=gen, device=dev)
-        if sort:
-            ids = torch.sort(ids).values
-        ids = ids.to(torch.int32)
-        err = (table_gather(table, ids) - plain_gather(table, ids)
-               ).abs().max().item()
-        check(err == 0.0, f"gather ({label}) differs from plain: {err}")
-        b_ms, b_by = bound(0.0, 4.0 * (2 * n + size), peak_flops, peak_bw)
-        cases[label] = dict(
-            max_abs_err=err, tolerance=0.0,
-            ms=time_ms(torch, lambda: kernels.gather(table, ids)),
-            device_ms=device_ms(torch, lambda: kernels.gather(table, ids)),
-            plain_ms=time_ms(torch, lambda: plain_gather(table, ids)),
-            library_ms=time_ms(torch, lambda: torch.index_select(table, 0,
-                                                                 ids)),
-            bound_ms=b_ms, bound_by=b_by)
-    rows["gather"] = cases["z_f"]
-    print("gather at the image table (2,000 entries, unsorted ids): "
-          + json.dumps(cases["image"]))
 
-    # K3: raw words bitwise, normals within a few ulp, then statistics
-    seed, offset = 0x1234567890ABCDEF, 3 * n
+def gather_row(torch, gen, size, ids, label, peak_flops, peak_bw):
+    """K2 over a random table of `size` entries by the int32 `ids`, held
+    bit for bit against its plain version and timed beside it and
+    index_select; returns its kernel row."""
+    from careless_tpu_torch import kernels
+    from careless_tpu_torch.ops.table_gather import plain_gather, table_gather
+
+    table = torch.randn(size, generator=gen, device=ids.device)
+    err = (table_gather(table, ids) - plain_gather(table, ids)
+           ).abs().max().item()
+    check(err == 0.0, f"gather ({label}) differs from plain: {err}")
+    b_ms, b_by = bound(0.0, 4.0 * (2 * ids.numel() + size), peak_flops,
+                       peak_bw)
+    return dict(
+        max_abs_err=err, tolerance=0.0,
+        ms=time_ms(torch, lambda: kernels.gather(table, ids)),
+        device_ms=device_ms(torch, lambda: kernels.gather(table, ids)),
+        plain_ms=time_ms(torch, lambda: plain_gather(table, ids)),
+        library_ms=time_ms(torch, lambda: torch.index_select(table, 0, ids)),
+        bound_ms=b_ms, bound_by=b_by, table=size, n_ids=ids.numel())
+
+
+def philox_row(torch, dev, gen, n, offset, peak_flops, peak_bw):
+    """K3 for n normals at counters offset .. offset + n - 1: raw words
+    bitwise, normals within a few ulp of the plain version; timed beside it
+    and randn; returns its kernel row."""
+    from careless_tpu_torch import kernels
+    from careless_tpu_torch.ops.fused_elbo import plain_prng_normal
+
+    seed = 0x1234567890ABCDEF
     e_k, bits_k = kernels.philox_normal(n, seed, offset, dev, with_bits=True)
     e_p, bits_p = plain_prng_normal(n, seed, offset, dev, with_bits=True)
-    check(torch.equal(bits_k, bits_p), "philox words differ from plain")
+    check(torch.equal(bits_k, bits_p),
+          f"philox words at n = {n} differ from plain")
     err = (e_k - e_p).abs().max().item()
+    del e_k, bits_k, e_p, bits_p
     tol = 2e-5  # log/sqrt/cos may round differently; |x| <= 5.8
-    check(err <= tol, f"philox normals differ from plain: {err} > {tol}")
+    check(err <= tol, f"philox normals at n = {n} differ from plain: {err} "
+          f"> {tol}")
     b_ms, b_by = bound(0.0, 4.0 * n, peak_flops, peak_bw)
-    rows["philox_normal"] = dict(
+    return dict(
         max_abs_err=err, tolerance=tol,
         ms=time_ms(torch, lambda: kernels.philox_normal(n, seed, 0, dev)),
         device_ms=device_ms(torch, lambda: kernels.philox_normal(n, seed, 0,
@@ -278,9 +330,6 @@ def kernel_phase(torch, dev, gen, peak_flops, peak_bw):
         library_ms=time_ms(torch, lambda: torch.randn(n, generator=gen,
                                                       device=dev)),
         bound_ms=b_ms, bound_by=b_by)
-    rows["philox_normal"]["stats"] = prng_gate(torch, kernels, dev)
-    rows.update(fused_ll_phase(torch, dev, gen, peak_flops, peak_bw))
-    return rows
 
 
 def fused_ll_phase(torch, dev, gen, peak_flops, peak_bw):
@@ -444,41 +493,96 @@ def prng_gate(torch, kernels, dev):
     return out
 
 
-def build_problem(seed, n_obs, n_refl, n_images, d_meta):
-    """The synthetic mono problem of bench.py (build_problem, mono branch),
-    made with numpy from the seed."""
+def build_problem(seed, n_obs, n_refl, n_images, d_meta, laue=False):
+    """The synthetic problem of bench.py (build_problem, bench.py:62-130),
+    made with numpy from the seed: (arrays in Inputs.from_arrays order, the
+    ASU collection, the true amplitudes). Laue (bench.py:81-128): harmonic
+    chains of 1-4 reflections over a shuffled id table, each group a prefix
+    of one chain on one image, its rows contiguous; the group-indexed
+    intensities are the sums over each group, and `arrays` also holds
+    wavelength and harmonic_id."""
     rng = np.random.default_rng(seed)
     refl_id = rng.integers(0, n_refl, n_obs)
     image_id = rng.integers(0, n_images, n_obs)
+    if laue:
+        perm_ids = rng.permutation(n_refl).astype(np.int64)
+        clens = rng.choice([1, 2, 3, 4], size=n_refl,
+                           p=[0.5, 0.25, 0.15, 0.10])
+        clens = clens[np.cumsum(clens) <= n_refl]
+        rem = n_refl - int(clens.sum())
+        if rem:
+            clens = np.append(clens, rem)
+        n_chains = len(clens)
+        chain_start = np.concatenate([[0], np.cumsum(clens)[:-1]])
+        # groups until the row budget is filled, trimmed at a group
+        # boundary and topped up with singletons to land on n_obs
+        est = int(n_obs / 1.4 * 1.05) + 8
+        gc = rng.integers(0, n_chains, est)
+        gl = 1 + (rng.random(est) * clens[gc]).astype(np.int64)
+        k = int(np.searchsorted(np.cumsum(gl), n_obs, side="right"))
+        gc, gl = gc[:k], gl[:k]
+        fill = n_obs - (int(gl.sum()) if k else 0)
+        if fill:
+            gc = np.concatenate([gc, rng.integers(0, n_chains, fill)])
+            gl = np.concatenate([gl, np.ones(fill, np.int64)])
+        n_groups = len(gl)
+        hid = np.repeat(np.arange(n_groups), gl)
+        row_start = np.repeat(np.concatenate([[0], np.cumsum(gl)[:-1]]), gl)
+        member = np.arange(n_obs) - row_start
+        refl_id = perm_ids[np.repeat(chain_start[gc], gl) + member]
+        image_id = rng.integers(0, n_images, n_groups)[hid]
     metadata = rng.normal(size=(n_obs, d_meta)).astype(np.float32)
     f_true = np.abs(rng.normal(1.0, 0.5, n_refl)) + 0.05
     scale_true = np.exp(0.2 * metadata[:, 0])
     iobs = scale_true * f_true[refl_id] ** 2
     iobs = iobs + 0.1 * np.sqrt(np.abs(iobs)) * rng.normal(size=n_obs)
     sig = np.full(n_obs, 0.1, np.float32)
+    arrays = (refl_id, image_id, np.zeros(n_obs), metadata, iobs, sig)
+    if laue:
+        grouped = np.zeros(n_groups, np.float32)
+        np.add.at(grouped, hid, iobs.astype(np.float32))
+        iobs = np.concatenate([grouped,
+                               np.ones(n_obs - n_groups, np.float32)])
+        arrays = arrays[:4] + (iobs, sig, np.ones(n_obs, np.float32), hid)
     centric = rng.random(n_refl) < 0.2
     asu = types.SimpleNamespace(centric=centric,
                                 multiplicity=np.ones(n_refl, np.float32),
                                 dHKL=np.ones(n_refl, np.float32))
-    return (refl_id, image_id, np.zeros(n_obs), metadata, iobs, sig), asu, \
-        f_true
+    return arrays, asu, f_true
 
 
 def model_on(device, seed, n_obs, n_refl, n_images, d_meta, n_layers,
-             flags=None):
-    """The model of the CLI's mono defaults with `flags` on top, built by
-    DataManager.build_model on `device` (None: the card)."""
+             flags=None, laue=False, times=None):
+    """The model of the CLI's defaults with `flags` on top, built by
+    DataManager.build_model on `device` (None: the card), on rows sorted by
+    refl_id (mono) or in the harmonic-chain layout (Laue), with plans.
+    `times`, when given, receives the host seconds of each set-up step."""
     from careless_tpu_torch.io.manager import DataManager
     from careless_tpu_torch.models.base import Inputs
 
+    times = {} if times is None else times
+    t0 = time.perf_counter()
+
+    def lap(name):
+        nonlocal t0
+        t1 = time.perf_counter()
+        times[name] = t1 - t0
+        t0 = t1
+
     arrays, asu, f_true = build_problem(seed, n_obs, n_refl, n_images,
-                                        d_meta)
+                                        d_meta, laue=laue)
+    lap("problem_s")
     parser = types.SimpleNamespace(**{**MONO_DEFAULTS,
                                       "mlp_layers": n_layers, **(flags or {})})
     dm = DataManager(Inputs.from_arrays(*arrays, device=device), asu, parser,
                      device=device)
     model, params, trainer = dm.build_model()
-    inputs = dm.inputs.sorted_by_refl().with_plans(dm.n_refl, dm.n_images)
+    lap("model_s")
+    inputs = (dm.inputs.sorted_by_harmonic(dm.n_refl) if laue
+              else dm.inputs.sorted_by_refl())
+    lap("layout_s")
+    inputs = inputs.with_plans(dm.n_refl, dm.n_images)
+    lap("plans_s")
     return model, params, trainer, inputs, f_true
 
 
@@ -593,16 +697,25 @@ def check_mc2_phase(torch, dev, seed):
 
 def slice_phase(torch, dev, seed, steps, chunk, label="default",
                 flags=None):
-    """Train one slice at full width; returns (launches over the measured
-    run, model, initial and trained params, history)."""
+    """Build and train one mono slice at full width; returns (launches over
+    the measured run, model, initial and trained params, history)."""
+    t0 = time.perf_counter()
+    times = {}
+    built = model_on(None, seed, N_OBS, N_REFL, N_IMAGES, D_META, N_LAYERS,
+                     flags=flags, times=times)
+    torch.cuda.synchronize()
+    return train_slice(torch, dev, seed, *built, steps, chunk, label, flags,
+                       time.perf_counter() - t0, times)
+
+
+def train_slice(torch, dev, seed, model, params, trainer, inputs, f_true,
+                steps, chunk, label, flags, setup_s, setup_times):
+    """Train a built slice: a 5-step warm-up, then `steps` steps in chunks
+    of `chunk` with every kernel count set to 0 just before them; returns
+    (launches over that run, model, initial and trained params)."""
     from careless_tpu_torch import kernels
     from careless_tpu_torch.device import seeded_generator
 
-    t0 = time.perf_counter()
-    model, params, trainer, inputs, f_true = model_on(
-        None, seed, N_OBS, N_REFL, N_IMAGES, D_META, N_LAYERS, flags=flags)
-    torch.cuda.synchronize()
-    setup_s = time.perf_counter() - t0
     # warm-up (first launches, cuBLAS handles), then the measured run
     trainer.train(params, seeded_generator(seed + 100, dev), inputs, 5,
                   chunk_size=5)
@@ -623,11 +736,13 @@ def slice_phase(torch, dev, seed, steps, chunk, label="default",
     check(last < first, f"loss did not fall: {first} -> {last}")
     q = model.posterior.distribution(trained["posterior"])
     corr = float(np.corrcoef(q.mean().detach().cpu().numpy(), f_true)[0, 1])
-    out = dict(slice=label, flags=flags or {}, mc_samples=model.mc_samples,
-               fused_kernel=model.fused_kernel,
-               likelihood=type(model.likelihood).__name__,
+    out = dict(slice=label, flags=flags or {}, n_obs=inputs.n_obs,
+               mc_samples=model.mc_samples, fused_kernel=model.fused_kernel,
+               likelihood=type(model.likelihood).__module__.rsplit(".")[-1]
+               + "." + type(model.likelihood).__name__,
                steps=steps, chunk=chunk, steps_per_s=steps / wall,
                ms_per_step=1e3 * wall / steps, setup_s=setup_s,
+               setup_breakdown_s=setup_times,
                loss_first_chunk=float(first), loss_last_chunk=float(last),
                posterior_mean_corr_f_true=corr,
                peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
@@ -635,6 +750,238 @@ def slice_phase(torch, dev, seed, steps, chunk, label="default",
     print("slice: " + json.dumps(out), flush=True)
     profile_steps(torch, trainer, trained, inputs, seed, out["ms_per_step"])
     return launches, model, params, trained
+
+
+def k5_case(torch, dev, gen, x, ids2d, bases, window, block_rows, perm,
+            peak_flops, peak_bw, label):
+    """K5 at one case: held bit for bit against its plain version and
+    against x[perm], then timed beside its plain version, index_select and
+    K2 on the same flat ids (K5's windows are the plan's, padded with the
+    last id, so all three compute the same (R * 128,) values)."""
+    from careless_tpu_torch import kernels
+    from careless_tpu_torch.ops.table_gather import (plain_windowed_gather,
+                                                     windowed_gather_stream)
+
+    n = x.shape[0]
+    args = (x, ids2d, bases, window, block_rows)
+    got = windowed_gather_stream(*args)
+    check(torch.equal(got, plain_windowed_gather(*args)),
+          f"gather_stream ({label}) differs from plain")
+    check(torch.equal(got[:n], x[perm.long()]),
+          f"gather_stream ({label}) differs from x[perm]")
+    flat = ids2d.reshape(-1)
+    check(torch.equal(got, kernels.gather(x, flat)),
+          f"gather_stream ({label}) differs from K2 on the flat ids")
+    n_ids = flat.numel()
+    b_ms, b_by = bound(0.0, 4.0 * (2 * n_ids + n), peak_flops, peak_bw)
+    row = dict(
+        max_abs_err=0.0, tolerance=0.0,
+        ms=time_ms(torch, lambda: kernels.gather_stream(*args)),
+        device_ms=device_ms(torch, lambda: kernels.gather_stream(*args)),
+        plain_ms=time_ms(torch, lambda: plain_windowed_gather(*args),
+                         reps=10),
+        bound_ms=b_ms, bound_by=b_by,
+        library_ms=time_ms(torch, lambda: torch.index_select(x, 0, flat)),
+        library_device_ms=device_ms(torch, lambda: torch.index_select(
+            x, 0, flat)),
+        k2_ms=time_ms(torch, lambda: kernels.gather(x, flat)),
+        k2_device_ms=device_ms(torch, lambda: kernels.gather(x, flat)),
+        n=n, window=window, block_rows=block_rows,
+        n_tiles=bases.shape[0],
+        staged_bytes=bases.shape[0] * window * 128 * 4,
+        bound_bytes=4 * (2 * n_ids + n))
+    print(f"gather_stream ({label}): " + json.dumps(row), flush=True)
+    return row
+
+
+def swap_case(torch, dev, gen, peak_flops, peak_bw):
+    """K5 at the JAX package's hardware test (tests/ops/test_chain_layout.py
+    :249-269): a 300k quasi-identity permutation with swaps at offsets 3,
+    17 and 111, windowed as that test windows it."""
+    from careless_tpu_torch.ops.plan_gather import _plan_windows
+
+    n = 300_000
+    perm = np.arange(n, dtype=np.int64)
+    for off in (3, 17, 111):
+        i = np.arange(0, n - off, off * 13)
+        perm[i], perm[i + off] = perm[i + off].copy(), perm[i].copy()
+    ids2d, bases, window = _plan_windows(perm.astype(np.int32), n,
+                                         max_chunks=160, max_rows=1 << 20)
+    check(window > 0, "the swap permutation does not window")
+    x = torch.randn(n, generator=gen, device=dev)
+    return k5_case(torch, dev, gen, x,
+                   torch.as_tensor(ids2d, device=dev),
+                   torch.as_tensor(bases, device=dev), window, 64,
+                   torch.as_tensor(perm, device=dev), peak_flops, peak_bw,
+                   "swap permutation, 300k")
+
+
+def elbo_and_grads(torch, model, start, inputs, device, **kw):
+    """(loss, gradients on the CPU) of model.elbo at the numpy params."""
+    from careless_tpu_torch.models.merging.variational import flatten_params
+    from careless_tpu_torch.utils.params import params_from_jax
+
+    p = params_from_jax(start, device)
+    leaves = [t.requires_grad_(True) for _, t in flatten_params(p)]
+    loss, _ = model.elbo(p, inputs, **kw)
+    grads = torch.autograd.grad(loss, leaves)
+    return loss.item(), [g.cpu() for g in grads]
+
+
+def check_laue_phase(torch, dev, seed):
+    """The Laue ELBO at 50k observations, 5k reflections and 50 images with
+    the VMEM cap of ops/plan_gather.py lowered to 64 rows (50k
+    observations are 391), so that the chain plan's backward permute and
+    the harmonic plan stream, as they do at 10M. The refl table is within
+    the JAX package's one-hot histogram cap (32,768 entries), so at mc = 1
+    the JAX package would take the histogram there and run no stream kernel
+    on the chain permute, where the port runs K5 (ops/plan_gather.py); at
+    10M the table is past the cap and both run it. Loss and every gradient
+    on the card (K5) against the CPU (plain versions) at the same uniforms
+    and noise, within 1e-4 / 1e-3 as the mono check; then on the card the
+    run-aligned ELBO against the plan_convolve ELBO (harmonic_run dropped,
+    whose backward is a second K5 launch): equal by construction, loss at
+    rtol 1e-5 and gradients within 1e-4 of each tensor's largest entry
+    (f32 sums in another order)."""
+    import dataclasses
+
+    import careless_tpu_torch.ops.plan_gather as pg
+    from careless_tpu_torch import kernels
+    from careless_tpu_torch.models.merging.variational import map_params
+    from careless_tpu_torch.utils.params import params_to_numpy
+
+    sizes = (50_000, 5_000, 50, D_META, N_LAYERS)
+    rng = np.random.default_rng(seed + 3)
+    u_f = rng.random(sizes[1]).astype(np.float32)
+    eps = rng.standard_normal(sizes[0]).astype(np.float32)
+    cap = pg.MAX_TABLE_ROWS
+    pg.MAX_TABLE_ROWS = 64
+    try:
+        results, start = [], None
+        for device in ("cpu", dev):
+            model, params, _, inputs, _ = model_on(device, seed, *sizes,
+                                                   laue=True)
+            plans = inputs.plans
+            check(isinstance(plans.refl, pg.ChainGatherPlan)
+                  and plans.refl.inner.perm_plan.stream
+                  and plans.harmonic.stream
+                  and plans.harmonic_run is not None,
+                  "Laue check: the plans do not stream at the lowered cap")
+            if start is None:
+                start = map_params(lambda a: a + 0.05 * rng.standard_normal(
+                    a.shape).astype(np.float32), params_to_numpy(params))
+                start["posterior"] = params_to_numpy(params["posterior"])
+            kw = dict(u_f=torch.as_tensor(u_f, device=device),
+                      eps=torch.as_tensor(eps, device=device))
+            kernels.reset_launches()
+            results.append(elbo_and_grads(torch, model, start, inputs,
+                                          device, **kw))
+        launches_run = kernels.LAUNCHES["gather_stream"]
+        conv_inputs = dataclasses.replace(inputs, plans=dataclasses.replace(
+            plans, harmonic_run=None))
+        kernels.reset_launches()
+        l_conv, g_conv = elbo_and_grads(torch, model, start, conv_inputs,
+                                        dev, **kw)
+        launches_conv = kernels.LAUNCHES["gather_stream"]
+    finally:
+        pg.MAX_TABLE_ROWS = cap
+    (l_cpu, g_cpu), (l_dev, g_dev) = results
+    rel = abs(l_dev - l_cpu) / abs(l_cpu)
+    check(rel < 1e-4, f"Laue: loss on the card {l_dev} vs CPU {l_cpu}")
+    g_err = grad_rel_err(g_dev, g_cpu)
+    check(g_err < 1e-3, f"Laue: gradients on the card vs CPU: rel err "
+          f"{g_err}")
+    check(launches_run == 1 and launches_conv == 2,
+          f"Laue: gather_stream launched {launches_run} (run plan) and "
+          f"{launches_conv} (plan_convolve) times, expected 1 and 2")
+    rel_conv = abs(l_dev - l_conv) / abs(l_conv)
+    check(rel_conv < 1e-5, f"Laue: run-plan loss {l_dev} vs plan_convolve "
+          f"{l_conv} on the card")
+    g_conv_err = grad_rel_err(g_dev, g_conv)
+    check(g_conv_err < 1e-4, f"Laue: run-plan vs plan_convolve gradients "
+          f"on the card: rel err {g_conv_err}")
+    print(f"check Laue (stream at cap 64 rows): loss {l_dev:.6f} vs CPU "
+          f"{l_cpu:.6f} (rel {rel:.2e}), grad rel err {g_err:.2e} over "
+          f"{len(g_dev)} tensors; run plan vs plan_convolve on the card: "
+          f"loss {l_dev:.6f} vs {l_conv:.6f} (rel {rel_conv:.2e}), grad rel "
+          f"err {g_conv_err:.2e}; gather_stream launches {launches_run} and "
+          f"{launches_conv}", flush=True)
+
+
+def laue_phase(torch, dev, gen, seed, peak_flops, peak_bw):
+    """The Laue slice (`careless-tpu poly` defaults) at LAUE_OBS
+    observations: set-up on the host, every kernel of its step held against
+    its plain version at the step's shapes and timed (K5 at the chain
+    plan's own backward permute), then training; returns (K5's kernel row,
+    launches over the measured run, each kernel's largest error)."""
+    import careless_tpu_torch.ops.plan_gather as pg
+
+    t0 = time.perf_counter()
+    times = {}
+    model, params, trainer, inputs, f_true = model_on(
+        None, seed, LAUE_OBS, LAUE_REFL, LAUE_IMAGES, D_META, N_LAYERS,
+        laue=True, times=times)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    refl = inputs.plans.refl
+    check(isinstance(refl, pg.ChainGatherPlan),
+          "Laue slice: the refl plan is not a ChainGatherPlan")
+    pp = refl.inner.perm_plan
+    check(pp is not None and pp.stream,
+          "Laue slice: the chain plan's backward permute does not stream")
+    held = laue_kernels(torch, dev, gen, inputs, peak_flops, peak_bw)
+    x = torch.randn(inputs.n_obs, generator=gen, device=dev)
+    row = k5_case(torch, dev, gen, x, pp.ids2d, pp.bases, pp.window,
+                  pp.block_rows, refl.inner.perm, peak_flops, peak_bw,
+                  f"chain permute, {inputs.n_obs} observations")
+    del x
+    held["gather_stream"] = row["max_abs_err"]
+    launches, _, _, _ = train_slice(
+        torch, dev, seed, model, params, trainer, inputs, f_true, STEPS_LAUE,
+        CHUNK, "laue", {}, setup_s, times)
+    check_launches(launches, "laue", {
+        "trunk_fwd": STEPS_LAUE, "trunk_bwd": STEPS_LAUE, "gather": None,
+        "philox_normal": STEPS_LAUE, "fused_ll_fwd": 0, "fused_ll_bwd": 0,
+        "gather_stream": STEPS_LAUE})
+    return row, launches, held
+
+
+def laue_kernels(torch, dev, gen, inputs, peak_flops, peak_bw):
+    """Each kernel the Laue step launches besides K5 (k5_case holds that),
+    held against its plain version at this run's shapes and timed, at
+    kernel_phase's tolerances: K1 on the inputs' metadata, K3 for the
+    step's N normals, and K2 at each (table, ids) pair of the step, on
+    random tables of the step's sizes by the plans' own ids. Returns each
+    kernel's largest error."""
+    import careless_tpu_torch.ops.plan_gather as pg
+
+    n, plans = inputs.n_obs, inputs.plans
+    refl, image = plans.refl, plans.image
+    n_refl, n_images = refl.table_size, image.table_size
+    m = (n + pg._CHUNK) // pg._CHUNK   # segment-sum chunks over N entries
+    rows = trunk_rows(torch, gen, inputs.metadata, peak_flops, peak_bw)
+    pairs = {
+        "z_f by sigma (forward permute)": (n_refl, refl.sigma),
+        "permuted z_f by renumbered refl_id": (n_refl, refl.inner.ids),
+        "refl segment-sum boundaries": (m * pg._CHUNK, refl.inner.pos),
+        "refl chunk prefixes": (2 * m, refl.inner.cp_ids),
+        "cotangent by sigma_inv (backward permute)": (n_refl,
+                                                      refl.sigma_inv),
+        "image scales by image_id": (n_images, image.ids),
+        "image cotangent by perm": (n, image.perm),
+        "image segment-sum boundaries": (m * pg._CHUNK, image.pos),
+        "image chunk prefixes": (2 * m, image.cp_ids),
+    }
+    gathers = {label: gather_row(torch, gen, size, ids, label, peak_flops,
+                                 peak_bw)
+               for label, (size, ids) in pairs.items() if ids is not None}
+    rows["philox_normal"] = philox_row(torch, dev, gen, n, 0, peak_flops,
+                                       peak_bw)
+    print(f"laue kernels at {n} observations: " + json.dumps(
+        {**rows, "gather": gathers}), flush=True)
+    held = {k: v["max_abs_err"] for k, v in rows.items()}
+    held["gather"] = max(v["max_abs_err"] for v in gathers.values())
+    return held
 
 
 def check_launches(launches, label, want):
@@ -706,13 +1053,16 @@ def main():
     gen = torch.Generator(device=dev)
     gen.manual_seed(args.seed)
     rows = kernel_phase(torch, dev, gen, peak_flops, peak_bw)
+    swap_case(torch, dev, gen, peak_flops, peak_bw)
     check_phase(torch, dev, args.seed)
     check_mc2_phase(torch, dev, args.seed)
+    check_laue_phase(torch, dev, args.seed)
 
     launches, _, _, _ = slice_phase(torch, dev, args.seed, STEPS, CHUNK)
     check_launches(launches, "default", {
         "trunk_fwd": None, "trunk_bwd": None, "gather": None,
-        "philox_normal": None, "fused_ll_fwd": 0, "fused_ll_bwd": 0})
+        "philox_normal": None, "fused_ll_fwd": 0, "fused_ll_bwd": 0,
+        "gather_stream": 0})
 
     launches_a, model, _, _ = slice_phase(torch, dev, args.seed, STEPS,
                                           CHUNK, "a", SLICE_A)
@@ -721,7 +1071,7 @@ def main():
     check_launches(launches_a, "a", {
         "trunk_fwd": STEPS, "trunk_bwd": STEPS, "gather": None,
         "philox_normal": 0, "fused_ll_fwd": 2 * STEPS,
-        "fused_ll_bwd": 2 * STEPS})
+        "fused_ll_bwd": 2 * STEPS, "gather_stream": 0})
 
     launches_b, model, start, trained = slice_phase(
         torch, dev, args.seed, STEPS_B, CHUNK, "b", SLICE_B)
@@ -729,7 +1079,7 @@ def main():
     check_launches(launches_b, "b", {
         "trunk_fwd": STEPS_B, "trunk_bwd": STEPS_B, "gather": None,
         "philox_normal": 0, "fused_ll_fwd": 2 * STEPS_B,
-        "fused_ll_bwd": 2 * STEPS_B})
+        "fused_ll_bwd": 2 * STEPS_B, "gather_stream": 0})
     ev11 = {k: (start["likelihood"][k].item(), v.item())
             for k, v in trained["likelihood"].items()}
     check(all(math.isfinite(b) and b != a for a, b in ev11.values()),
@@ -737,9 +1087,16 @@ def main():
     print("slice b Ev11 raw parameters (start, trained): " + json.dumps(ev11),
           flush=True)
 
-    # launches: K1-K3 from the default slice, K4 from slice (a)
+    rows["gather_stream"], launches_laue, held = laue_phase(
+        torch, dev, gen, args.seed, peak_flops, peak_bw)
+    for k, err in held.items():
+        rows[k]["laue_max_abs_err"] = err
+
+    # launches: K1-K3 from the default slice, K4 from slice (a), K5 from
+    # the Laue slice
     counts = {**launches, "fused_ll_fwd": launches_a["fused_ll_fwd"],
-              "fused_ll_bwd": launches_a["fused_ll_bwd"]}
+              "fused_ll_bwd": launches_a["fused_ll_bwd"],
+              "gather_stream": launches_laue["gather_stream"]}
     table = [dict(name=k, route="cuda", source=SOURCES[k],
                   replaces=REPLACES[k], launches=counts[k], **v)
              for k, v in rows.items()]

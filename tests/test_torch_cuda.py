@@ -6,7 +6,7 @@ it also runs where only PyTorch is installed:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
-Tolerances: gathers copy, so they are exact; the trunk sums in another
+Tolerances: gathers (K2, K5) copy, so they are exact; the trunk sums in another
 order than cuBLAS (1e-5 of the output scale, and of each gradient
 tensor's largest entry); Philox words are exact and normals within 2e-5
 (log/cos may round differently, |x| <= 5.8). K4 against its plain
@@ -26,8 +26,12 @@ from careless_tpu_torch.ops.fused_elbo import (
     plain_prng_normal, studentt_log_norm)
 from careless_tpu_torch.ops.fused_mlp import (fused_mlp_trunk_head,
                                               plain_trunk_head)
-from careless_tpu_torch.ops.plan_gather import make_gather_plan, plan_gather
-from careless_tpu_torch.ops.table_gather import plain_gather, table_gather
+from careless_tpu_torch.ops.plan_gather import (_plan_windows,
+                                                make_gather_plan, plan_gather)
+from careless_tpu_torch.ops.table_gather import (plain_gather,
+                                                 plain_windowed_gather,
+                                                 table_gather,
+                                                 windowed_gather_stream)
 
 pytestmark = pytest.mark.cuda
 
@@ -135,7 +139,7 @@ def test_launch_counts_move_only_on_launch(cuda):
     plain_prng_normal(8, 1, 0, cuda)
     assert kernels.LAUNCHES == {"trunk_fwd": 0, "trunk_bwd": 0, "gather": 1,
                                 "philox_normal": 0, "fused_ll_fwd": 0,
-                                "fused_ll_bwd": 0}
+                                "fused_ll_bwd": 0, "gather_stream": 0}
 
 
 K4_KINDS = [("normal", 0.0), ("studentt", 4.0), ("laplace", 0.0),
@@ -202,3 +206,65 @@ def test_fused_ll_philox_is_k3(cuda, kind, dof):
     own = kernels.fused_ll_bwd(*args, None, None, ev, ct, **cfg)
     fed = kernels.fused_ll_bwd(*args, None, k3, ev, ct, **cfg)
     assert all(a is b or torch.equal(a, b) for a, b in zip(own, fed))
+
+
+def _k5_case(name, rng):
+    """(table, ids2d, bases, window, block_rows) of a K5 case."""
+    if name == "swap":   # tests/ops/test_chain_layout.py:257-264
+        n = 300_000
+        perm = np.arange(n, dtype=np.int64)
+        for off in (3, 17, 111):
+            i = np.arange(0, n - off, off * 13)
+            perm[i], perm[i + off] = perm[i + off].copy(), perm[i].copy()
+        ids2d, bases, w = _plan_windows(perm.astype(np.int32), n,
+                                        max_chunks=160, max_rows=1 << 20)
+        return rng.normal(size=n), ids2d, bases, w, 64
+    if name == "past_end":   # 5-row windows over a 300-entry table
+        return (rng.normal(size=300),
+                rng.integers(0, 640, (4 * 16, 128)), np.zeros(4), 5, 16)
+    # a 160-row (80 KB) window, past the 48 KB default: ids spread over
+    # each tile's window and beyond it, on either side
+    n_tiles, t = 6, 300_000
+    bases = rng.integers(0, t // 128 - 160, n_tiles)
+    lo = np.repeat(bases * 128, 64 * 128)
+    ids = lo + rng.integers(-500, 160 * 128 + 500, lo.shape)
+    return rng.normal(size=t), np.clip(ids, 0, t - 1).reshape(-1, 128), \
+        bases, 160, 64
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("name", ["swap", "past_end", "wide"])
+def test_gather_stream_kernel_matches_plain(cuda, name, aligned):
+    """K5 equals its plain version bit for bit, and the permutation on the
+    swap case; an unaligned table (a view one entry in) is copied to an
+    aligned one by the wrapper, which the kernel's 16-byte loads need."""
+    rng = np.random.default_rng(len(name))
+    table, ids2d, bases, window, block_rows = _k5_case(name, rng)
+    buf = torch.tensor(np.concatenate([[0.0], table]).astype(np.float32),
+                       device=cuda)
+    table_t = buf[1:] if not aligned else buf[1:].clone()
+    ids_t = torch.tensor(np.asarray(ids2d, np.int32), device=cuda)
+    bases_t = torch.tensor(np.asarray(bases, np.int32), device=cuda)
+    kernels.reset_launches()
+    got = windowed_gather_stream(table_t, ids_t, bases_t, window, block_rows)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["gather_stream"] == 1
+    want = plain_windowed_gather(table_t, ids_t, bases_t, window, block_rows)
+    assert torch.equal(got, want)
+    if name == "swap":
+        assert torch.equal(got[:table.shape[0]],
+                           table_t[ids_t.reshape(-1)[:table.shape[0]].long()])
+    if name == "wide":
+        flat = ids_t.reshape(6, -1).long() - 128 * bases_t.long()[:, None]
+        outside = (flat < 0) | (flat >= 160 * 128)
+        assert outside.any() and (got.reshape(6, -1)[outside] == 0).all()
+
+
+def test_gather_stream_refuses_a_window_past_shared_memory(cuda):
+    window = kernels.MAX_SMEM_PER_BLOCK // 512 + 1
+    with pytest.raises(ValueError, match="shared memory"):
+        kernels.gather_stream(torch.zeros(1000, device=cuda),
+                              torch.zeros((64, 128), dtype=torch.int32,
+                                          device=cuda),
+                              torch.zeros(1, dtype=torch.int32, device=cuda),
+                              window, 64)

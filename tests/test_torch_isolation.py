@@ -62,6 +62,8 @@ print(json.dumps(sorted(sys.modules)))
                          capture_output=True, text=True, check=True)
     loaded = json.loads(out.stdout.strip().splitlines()[-1])
     for mod in ("io.manager", "kernels._build", "ops.fused_elbo",
-                "models.likelihoods.mono", "models.merging.variational"):
+                "models.likelihoods.mono", "models.merging.variational",
+                "ops.chain_layout", "ops.conv_runs",
+                "models.likelihoods.laue"):
         assert "careless_tpu_torch." + mod in loaded
     assert [m for m in loaded if forbidden(m)] == []

@@ -70,6 +70,17 @@ def test_softplus_is_jax_softplus():
     _close(td.softplus(_t(x)), jax.nn.softplus(x), rtol=1e-6, atol=0)
 
 
+def test_softplus_gradient_is_jax_softplus():
+    """Including x = 0, where the derivative is 1/2 (a prediction that is
+    exactly 0 reaches the Ev11 softplus on the Laue path's padding tail)."""
+    x = np.array([-30, -1, 0, 1e-3, 1, 25], np.float32)
+    xt = _t(x).requires_grad_(True)
+    (g,) = torch.autograd.grad(td.softplus(xt).sum(), xt)
+    _close(g, jax.grad(lambda v: jnp.sum(jax.nn.softplus(v)))(x),
+           rtol=1e-6, atol=0)
+    assert g[2].item() == 0.5
+
+
 LIKELIHOODS = [
     (jmono.NormalLikelihood(), mono.NormalLikelihood()),
     (jmono.LaplaceLikelihood(), mono.LaplaceLikelihood()),

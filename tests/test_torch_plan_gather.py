@@ -1,5 +1,7 @@
 """The port's planned gather (K2 forward, planned segment-sum backward)
-against careless_tpu.ops.plan_gather, np.bincount and a flat cumsum.
+against careless_tpu.ops.plan_gather, np.bincount and a flat cumsum; K5's
+plain version against the JAX package's windowed_gather_stream (interpret
+mode), and the chain gather plan and plan_convolve of the Laue path.
 
 Forward values are exact copies, so they must match bit for bit. Table
 gradients are sums of the cotangent over each id's rows; the JAX package
@@ -13,12 +15,19 @@ import numpy as np
 import pytest
 import torch
 
+import careless_tpu.ops.plan_gather as jpg
+import careless_tpu_torch.ops.plan_gather as tpg
+from careless_tpu.models.base import Inputs as JInputs
 from careless_tpu.ops.plan_gather import make_gather_plan as jax_plan
 from careless_tpu.ops.plan_gather import plan_gather as jax_plan_gather
-from careless_tpu_torch.ops.plan_gather import (_CHUNK, make_gather_plan,
+from careless_tpu.ops.table_gather import \
+    windowed_gather_stream as jax_windowed_gather_stream
+from careless_tpu_torch.ops.plan_gather import (_CHUNK, _plan_windows,
+                                                make_gather_plan,
                                                 plan_gather,
                                                 segment_sum_by_plan)
-from careless_tpu_torch.ops.table_gather import plain_gather, table_gather
+from careless_tpu_torch.ops.table_gather import (plain_gather, table_gather,
+                                                 windowed_gather_stream)
 
 torch.set_num_threads(2)
 
@@ -115,3 +124,160 @@ def test_table_gather_on_cpu_is_the_plain_version():
     ids = torch.tensor([6, 0, 0, 3], dtype=torch.int32)
     assert torch.equal(table_gather(table, ids), plain_gather(table, ids))
     assert table_gather(table, ids).tolist() == [6.0, 0.0, 0.0, 3.0]
+
+
+# ---------------------------------------------------------------------------
+# The Laue pieces: K5's plain version, the chain gather plan, plan_convolve
+# ---------------------------------------------------------------------------
+def _swap_perm(n, offsets=(3, 17, 111)):
+    """tests/ops/test_chain_layout.py:257-261's quasi-identity permutation."""
+    perm = np.arange(n, dtype=np.int64)
+    for off in offsets:
+        i = np.arange(0, n - off, off * 13)
+        perm[i], perm[i + off] = perm[i + off].copy(), perm[i].copy()
+    return perm.astype(np.int32)
+
+
+def _stream_cases():
+    rng = np.random.default_rng(21)
+    # the hardware test's swap permutation, at a CPU size
+    perm = _swap_perm(40_000)
+    ids2d, bases, w = _plan_windows(perm, 40_000, max_chunks=160,
+                                    max_rows=1 << 20)
+    yield "swap", rng.normal(size=40_000), ids2d, bases, w, 64
+    # an id outside its tile's window gives 0
+    bad = ids2d.copy()
+    bad[0, 5] = 39_999
+    yield "outside", rng.normal(size=40_000), bad, bases, w, 64
+    # a 300-entry table read through 5-row (640-entry) windows: past its
+    # end it reads 0
+    ids = rng.integers(0, 640, (4 * 16, 128)).astype(np.int32)
+    yield ("past_end", rng.normal(size=300), ids,
+           np.zeros(4, np.int32), 5, 16)
+
+
+@pytest.mark.parametrize("case", list(_stream_cases()),
+                         ids=lambda c: c[0])
+def test_plain_windowed_gather_matches_jax_stream(case):
+    """plain_windowed_gather against careless_tpu's windowed_gather_stream
+    (interpret mode on the CPU), bit for bit."""
+    _, table, ids2d, bases, window, block_rows = case
+    table = table.astype(np.float32)
+    want = np.asarray(jax_windowed_gather_stream(
+        jnp.asarray(table), jnp.asarray(ids2d), jnp.asarray(bases), window,
+        block_rows))
+    got = windowed_gather_stream(torch.tensor(table), torch.tensor(ids2d),
+                                 torch.tensor(bases), window, block_rows)
+    np.testing.assert_array_equal(got.numpy(), want)
+    if case[0] == "swap":
+        perm = _swap_perm(40_000)
+        np.testing.assert_array_equal(got.numpy()[:40_000], table[perm])
+    if case[0] == "outside":
+        assert got[5].item() == 0.0 and table[39_999] != 0.0
+    if case[0] == "past_end":
+        flat = ids2d.reshape(-1)
+        assert (flat >= 300).any()
+        np.testing.assert_array_equal(
+            got.numpy(), np.where(flat < 300, table[np.minimum(flat, 299)],
+                                  0.0))
+
+
+def test_windowed_gather_rejects_mismatched_tiles():
+    with pytest.raises(ValueError, match="tiles"):
+        windowed_gather_stream(torch.zeros(10), torch.zeros(
+            (3, 128), dtype=torch.int32), torch.zeros(1, dtype=torch.int32),
+            2, 64)
+
+
+def test_gather_stream_launcher_refuses_cpu_tensors():
+    from careless_tpu_torch import kernels
+    with pytest.raises(ValueError, match="contiguous"):
+        kernels.gather_stream(torch.zeros(256),
+                              torch.zeros((64, 128), dtype=torch.int32),
+                              torch.zeros(1, dtype=torch.int32), 2, 64)
+
+
+def _chain_inputs(n=3000, n_refl=400):
+    from chip_smoke import build_problem
+    arrays, _, _ = build_problem(0, n, n_refl, 9, 3, laue=True)
+    j = JInputs.from_arrays(*arrays).sorted_by_harmonic(n_refl)
+    return np.asarray(j.refl_id), np.asarray(j.harmonic_id), n_refl
+
+
+@pytest.fixture(params=[False, True], ids=["cap", "lowered_cap"])
+def stream(request, monkeypatch):
+    """At the lowered VMEM cap (8 rows) the 3000-row observation axis is
+    past it in both packages and the plans stream."""
+    if request.param:
+        monkeypatch.setattr(jpg, "MAX_TABLE_ROWS", 8)
+        monkeypatch.setattr(tpg, "MAX_TABLE_ROWS", 8)
+    return request.param
+
+
+def _same_window(got, ids2d, bases, window, stream, block_rows):
+    np.testing.assert_array_equal(got.ids2d.numpy(), np.asarray(ids2d))
+    np.testing.assert_array_equal(got.bases.numpy(), np.asarray(bases))
+    assert (got.window, got.stream, got.block_rows) == (window, stream,
+                                                        block_rows)
+
+
+def test_chain_gather_plan_matches_jax(stream):
+    refl_id, hid, n_refl = _chain_inputs()
+    want = jpg.make_chain_gather_plan(refl_id, hid, n_refl)
+    got = tpg.make_chain_gather_plan(torch.tensor(refl_id), torch.tensor(hid),
+                                     n_refl)
+    assert isinstance(got, tpg.ChainGatherPlan)
+    n = len(refl_id)
+    np.testing.assert_array_equal(got.sigma.numpy(), want.sigma)
+    np.testing.assert_array_equal(got.sigma_inv.numpy(), want.sigma_inv)
+    np.testing.assert_array_equal(got.inner.ids.numpy(),
+                                  np.asarray(want.inner.ids2d).reshape(-1)[:n])
+    np.testing.assert_array_equal(got.inner.perm.numpy(), want.inner.perm)
+    np.testing.assert_array_equal(got.inner.starts.numpy(), want.inner.starts)
+    jp = want.inner.perm_plan
+    _same_window(got.inner.perm_plan, jp.ids2d, jp.bases, jp.window,
+                 jp.stream, jp.block_rows)
+    assert jp.stream == stream
+    # the harmonic convolve plan streams past the cap, with JAX's windows
+    jh = jpg.make_gather_plan(hid, n)
+    th = tpg.make_gather_plan(torch.tensor(hid), n)
+    assert th.stream == jh.stream == stream
+    if stream:
+        _same_window(th.window, jh.ids2d, jh.bases, jh.window, True, 64)
+    else:
+        assert th.window is None
+
+
+def test_chain_gather_and_convolve_match_jax(stream):
+    """Values and table gradients of plan_gather through the chain plan and
+    of plan_convolve through the harmonic plan (sums in another order: the
+    JAX package's one-hot histogram and cumsums; atol 1e-5 on O(1)
+    cotangents)."""
+    refl_id, hid, n_refl = _chain_inputs()
+    n = len(refl_id)
+    rng = np.random.default_rng(22)
+    table = rng.normal(size=n_refl).astype(np.float32)
+    value = rng.normal(size=n).astype(np.float32)
+    ct = rng.normal(size=n).astype(np.float32)
+    jplan = jpg.make_chain_gather_plan(refl_id, hid, n_refl)
+    hplan = jpg.make_gather_plan(hid, n)
+    cases = [
+        (lambda x: jpg.plan_gather(x, jnp.asarray(refl_id), jplan),
+         lambda x: tpg.plan_gather(x, torch.tensor(refl_id),
+                                   tpg.make_chain_gather_plan(
+                                       torch.tensor(refl_id),
+                                       torch.tensor(hid), n_refl)), table),
+        (lambda x: jpg.plan_convolve(x, jnp.asarray(hid), hplan),
+         lambda x: tpg.plan_convolve(x, torch.tensor(hid),
+                                     tpg.make_gather_plan(torch.tensor(hid),
+                                                          n)), value)]
+    for jfn, tfn, x in cases:
+        out_j, vjp = jax.vjp(jfn, jnp.asarray(x))
+        (g_j,) = vjp(jnp.asarray(ct))
+        xt = torch.tensor(x, requires_grad=True)
+        out = tfn(xt)
+        (g,) = torch.autograd.grad(out, xt, torch.tensor(ct))
+        np.testing.assert_allclose(out.detach().numpy(), np.asarray(out_j),
+                                   rtol=1e-5, atol=1e-5)
+        np.testing.assert_allclose(g.numpy(), np.asarray(g_j), rtol=1e-5,
+                                   atol=1e-5)
