@@ -1,18 +1,32 @@
-// K1: the scaling-MLP trunk + linear head, forward and backward.
+// K1: the scaling-MLP trunk, with or without its linear head, in f32 or with
+// bf16 operands, forward and backward.
 //
 // Replaces careless_tpu/ops/fused_mlp.py:_fwd_kernel and :_bwd_kernel (the
-// pallas_calls of _trunk_fwd and _trunk_bwd). Computes, for every
-// observation n with metadata x[n] (d_in floats),
+// pallas_calls of _trunk_fwd and _trunk_bwd) in all four of their
+// instantiations (head or not, bf16 or not). Computes, for every observation
+// n with metadata x[n] (d_in floats),
 //     h_0 = x[n];  h_{l+1} = leaky(h_l W_l + b_l)  for l < L
-//     (loc[n], raw[n]) = h_L W_L + b_L              (the head, width -> 2)
-// with leaky(v) = v for v >= 0 and leak * v otherwise, in f32 throughout (no
-// TF32, no tensor cores).
+//     (loc[n], raw[n]) = h_L W_L + b_L              (head: width -> 2)
+//     out[n, :] = h_L                               (trunk only)
+// with leaky(v) = v for v >= 0 and leak * v otherwise. In f32 every product
+// is f32 (no TF32, no tensor cores). With bf16, as `_dot` there, both
+// operands of every layer product are rounded to bf16 (to nearest, ties to
+// even, as XLA's convert and torch's .bfloat16()) and the products sum in
+// f32: h W and the head in the forward; bf16(a)^T bf16(dpre) for dW and
+// bf16(dpre) bf16(W)^T for dh and dx in the backward. A product of two bf16
+// values is exact in f32, so f32 FMAs on rounded operands compute exactly
+// that. Biases, the leaky ReLU, the activations kept for its mask and
+// db = sum dpre stay f32. `head` and `bf16` are runtime flags: they decide
+// where operands are rounded and what the two ends of each direction read
+// and write, and add no instantiation.
 //
 // What bounds it on the H100: operations. At the main path (N = 1M,
 // d_in = width = 10, L = 20) the forward does 2 N (20*100 + 20) = 4.0 GFLOP
 // on 48 MB of input and output; at 67 TFLOP/s f32 that is ~60 us against
 // ~14 us of memory traffic. The backward recomputes the forward and adds the
-// products for dW and for the cotangent, ~11.9 GFLOP.
+// products for dW and for the cotangent, ~11.9 GFLOP. The bf16 variants do
+// the same f32 FMAs (the least time for bf16 products is on tensor cores,
+// which this kernel does not use).
 //
 // Design. The TPU kernel lane-packed 12 observations into one 128-wide MXU
 // row and kept every layer's block-diagonal weight in VMEM. Here one thread
@@ -20,34 +34,42 @@
 // template parameter, so the per-layer product is a fully unrolled chain of
 // W*W FMAs), and all layers' weights and biases sit in shared memory, where
 // every thread of a warp reads the same word (a broadcast, no bank
-// conflicts). Widths the library is not instantiated for are padded by the
-// Python wrapper to the next instantiated width with zero weights, which is
-// exact.
+// conflicts). With bf16 the weights are rounded once as they are staged.
+// Widths the library is not instantiated for are padded by the Python
+// wrapper to the next instantiated width with zero weights, which is exact;
+// the trunk-only forward writes, and its backward reads, only the model's
+// `out_w` columns of each row.
 //
 // The TPU backward accumulated dW/db across a sequential grid. Blocks run in
 // parallel here, so the backward uses a fixed grid: block g walks the tiles
-// g, g + G, g + 2G, ... of BWD_T observations, recomputes each tile's
-// forward into shared memory (activations of all layers, one row per
-// feature, padded to avoid bank conflicts), and sums each (k, j) product
-// over the tile in a fixed order into a per-block partial in shared memory.
-// The partials go to a (G, nw + nb) scratch and a second launch sums them
-// over blocks in block order. No atomics: two runs give bitwise-identical
-// dW and db.
+// g, g + G, g + 2G, ... of T observations (one thread each), recomputes each
+// tile's forward into shared memory (activations of all layers, one row per
+// feature, T + 1 floats apart to avoid bank conflicts), and sums each (k, j)
+// product over the tile in a fixed order into a per-block partial in shared
+// memory. The partials go to a (G, nw + nb) scratch and a second launch sums
+// them over blocks in block order. No atomics: two runs give bitwise-
+// identical dW and db. The tile height T (64, 32, 16 or 8) is the block size,
+// chosen at run time by the wrapper as the largest whose shared memory fits
+// in the block's 227 KB; deep wide trunks (width 28 and 32 at 20 layers) get
+// a short tile and a small, slow block rather than a refusal.
+#include <cuda_bf16.h>
+
 #include "common.cuh"
 
 namespace {
 
 constexpr int FWD_THREADS = 128;
-constexpr int BWD_T = 64;           // observations per backward tile
-constexpr int PAD = BWD_T + 1;      // shared-memory row stride
+constexpr int MAX_BWD_T = 64;       // the tallest backward tile
 constexpr int REDUCE_THREADS = 256;
 
 // number of weight / bias floats in the flat parameter layout:
-// W_0 (d_in, W), W_1..W_{L-1} (W, W), head (W, 2); b_0..b_{L-1} (W), head (2)
-__host__ __device__ inline int n_weights(int d_in, int W, int L) {
-  return d_in * W + (L - 1) * W * W + 2 * W;
+// W_0 (d_in, W), W_1..W_{L-1} (W, W)[, head (W, 2)]; b_0..b_{L-1} (W)[, (2)]
+__host__ __device__ inline int n_weights(int d_in, int W, int L, bool head) {
+  return d_in * W + (L - 1) * W * W + (head ? 2 * W : 0);
 }
-__host__ __device__ inline int n_biases(int W, int L) { return L * W + 2; }
+__host__ __device__ inline int n_biases(int W, int L, bool head) {
+  return L * W + (head ? 2 : 0);
+}
 __host__ __device__ inline int w_offset(int l, int d_in, int W) {
   return l == 0 ? 0 : d_in * W + (l - 1) * W * W;
 }
@@ -56,19 +78,32 @@ __device__ inline float leaky(float v, float leak) {
   return v >= 0.f ? v : leak * v;
 }
 
+// the nearest bf16 value (ties to even), as an f32
+__device__ inline float bf16_round(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+template <int W>
+__device__ inline void round_all(float (&v)[W]) {
+#pragma unroll
+  for (int j = 0; j < W; ++j) v[j] = bf16_round(v[j]);
+}
+
 template <int W>
 __global__ void trunk_fwd_kernel(const float* __restrict__ x,
                                  const float* __restrict__ w,
                                  const float* __restrict__ b,
-                                 float* __restrict__ loc,
-                                 float* __restrict__ raw, int n, int d_in,
-                                 int L, float leak) {
+                                 float* __restrict__ out0,
+                                 float* __restrict__ out1, int n, int d_in,
+                                 int L, int out_w, bool head, bool bf16,
+                                 float leak) {
   extern __shared__ float smem[];
-  const int nw = n_weights(d_in, W, L);
-  const int nb = n_biases(W, L);
+  const int nw = n_weights(d_in, W, L, head);
+  const int nb = n_biases(W, L, head);
   float* sw = smem;
   float* sb = smem + nw;
-  for (int i = threadIdx.x; i < nw; i += blockDim.x) sw[i] = w[i];
+  for (int i = threadIdx.x; i < nw; i += blockDim.x)
+    sw[i] = bf16 ? bf16_round(w[i]) : w[i];
   for (int i = threadIdx.x; i < nb; i += blockDim.x) sb[i] = b[i];
   __syncthreads();
 
@@ -80,7 +115,7 @@ __global__ void trunk_fwd_kernel(const float* __restrict__ x,
   for (int j = 0; j < W; ++j) h[j] = 0.f;
   const float* xr = x + static_cast<size_t>(row) * d_in;
   for (int k = 0; k < d_in; ++k) {
-    const float xk = xr[k];
+    const float xk = bf16 ? bf16_round(xr[k]) : xr[k];
 #pragma unroll
     for (int j = 0; j < W; ++j) h[j] = fmaf(xk, sw[k * W + j], h[j]);
   }
@@ -90,6 +125,7 @@ __global__ void trunk_fwd_kernel(const float* __restrict__ x,
   for (int l = 1; l < L; ++l) {
     const float* wl = sw + w_offset(l, d_in, W);
     const float* bl = sb + l * W;
+    if (bf16) round_all(h);
     float acc[W];
 #pragma unroll
     for (int j = 0; j < W; ++j) acc[j] = 0.f;
@@ -102,6 +138,14 @@ __global__ void trunk_fwd_kernel(const float* __restrict__ x,
     for (int j = 0; j < W; ++j) h[j] = leaky(acc[j] + bl[j], leak);
   }
 
+  if (!head) {
+    float* o = out0 + static_cast<size_t>(row) * out_w;
+#pragma unroll
+    for (int j = 0; j < W; ++j)
+      if (j < out_w) o[j] = h[j];
+    return;
+  }
+  if (bf16) round_all(h);
   const float* wh = sw + w_offset(L, d_in, W);
   float y0 = 0.f, y1 = 0.f;
 #pragma unroll
@@ -109,51 +153,78 @@ __global__ void trunk_fwd_kernel(const float* __restrict__ x,
     y0 = fmaf(h[k], wh[2 * k], y0);
     y1 = fmaf(h[k], wh[2 * k + 1], y1);
   }
-  loc[row] = y0 + sb[L * W];
-  raw[row] = y1 + sb[L * W + 1];
+  out0[row] = y0 + sb[L * W];
+  out1[row] = y1 + sb[L * W + 1];
 }
 
-// Sum over the tile of a[k][r] * dp[j][r] for the pairs this thread owns,
-// plus the bias rows sum_r dp[j][r]; added to the block's partials.
+// Sum over the tile's T rows of a[k][r] * dp[j][r] for the pairs this thread
+// owns (both operands rounded to bf16 when asked), plus the bias rows
+// sum_r dp[j][r] (never rounded); added to the block's partials. These sums
+// are most of the backward's shared-memory loads, so the tallest tile, which
+// every launch at the main path's shape takes, gets loops of a fixed count
+// (FIXED_T) that the compiler unrolls; other heights run the same sums in
+// the same order with T read at run time.
+template <int FIXED_T>
 __device__ inline void accumulate_pairs(const float* a, const float* dp,
-                                        int d_in_l, int d_out,
-                                        float* acc_w, float* acc_b) {
+                                        int d_in_l, int d_out, int T,
+                                        bool bf16, float* acc_w,
+                                        float* acc_b) {
+  if (FIXED_T) T = FIXED_T;
+  const int pad = T + 1;
   const int n_pairs = d_in_l * d_out + d_out;
   for (int p = threadIdx.x; p < n_pairs; p += blockDim.x) {
     float s = 0.f;
     if (p < d_in_l * d_out) {
       const int k = p / d_out, j = p % d_out;
-      const float* ak = a + k * PAD;
-      const float* dj = dp + j * PAD;
-      for (int r = 0; r < BWD_T; ++r) s = fmaf(ak[r], dj[r], s);
+      const float* ak = a + k * pad;
+      const float* dj = dp + j * pad;
+      if (bf16) {
+        for (int r = 0; r < T; ++r)
+          s = fmaf(bf16_round(ak[r]), bf16_round(dj[r]), s);
+      } else {
+        for (int r = 0; r < T; ++r) s = fmaf(ak[r], dj[r], s);
+      }
       acc_w[p] += s;
     } else {
-      const float* dj = dp + (p - d_in_l * d_out) * PAD;
-      for (int r = 0; r < BWD_T; ++r) s += dj[r];
+      const float* dj = dp + (p - d_in_l * d_out) * pad;
+      for (int r = 0; r < T; ++r) s += dj[r];
       acc_b[p - d_in_l * d_out] += s;
     }
   }
 }
 
+__device__ inline void tile_sums(const float* a, const float* dp, int d_in_l,
+                                 int d_out, int T, bool bf16, float* acc_w,
+                                 float* acc_b) {
+  if (T == MAX_BWD_T)
+    accumulate_pairs<MAX_BWD_T>(a, dp, d_in_l, d_out, T, bf16, acc_w, acc_b);
+  else
+    accumulate_pairs<0>(a, dp, d_in_l, d_out, T, bf16, acc_w, acc_b);
+}
+
+// dy0/dy1: the head's (dloc, draw), each (n,); trunk only: dy0 is the
+// (n, out_w) cotangent of the last layer's activations and dy1 is unused.
 template <int W>
-__global__ void __launch_bounds__(BWD_T)
+__global__ void __launch_bounds__(MAX_BWD_T)
 trunk_bwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                 const float* __restrict__ b, const float* __restrict__ dloc,
-                 const float* __restrict__ draw, float* __restrict__ dx,
-                 float* __restrict__ part, int n, int d_in, int L,
-                 float leak) {
+                 const float* __restrict__ b, const float* __restrict__ dy0,
+                 const float* __restrict__ dy1, float* __restrict__ dx,
+                 float* __restrict__ part, int n, int d_in, int L, int out_w,
+                 bool head, bool bf16, float leak) {
   extern __shared__ float smem[];
-  const int nw = n_weights(d_in, W, L);
-  const int nb = n_biases(W, L);
+  const int T = blockDim.x;             // the tile height
+  const int pad = T + 1;                // shared-memory row stride
+  const int nw = n_weights(d_in, W, L, head);
+  const int nb = n_biases(W, L, head);
   float* sw = smem;                     // weights            (nw)
   float* sb = sw + nw;                  // biases             (nb)
   float* acc_w = sb + nb;               // dW partial         (nw)
   float* acc_b = acc_w + nw;            // db partial         (nb)
   float* xs = acc_b + nb;               // x tile             (d_in rows)
-  float* acts = xs + d_in * PAD;        // a_1..a_L           (L*W rows)
-  float* dps = acts + L * W * PAD;      // current dpre       (W rows)
+  float* acts = xs + d_in * pad;        // a_1..a_L           (L*W rows)
+  float* dps = acts + L * W * pad;      // current dpre       (max(W, 2) rows)
   for (int i = threadIdx.x; i < nw; i += blockDim.x) {
-    sw[i] = w[i];
+    sw[i] = bf16 ? bf16_round(w[i]) : w[i];
     acc_w[i] = 0.f;
   }
   for (int i = threadIdx.x; i < nb; i += blockDim.x) {
@@ -162,35 +233,36 @@ trunk_bwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
   }
 
   const int t = threadIdx.x;
-  const int n_tiles = (n + BWD_T - 1) / BWD_T;
+  const int n_tiles = (n + T - 1) / T;
   for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-    const int first = tile * BWD_T;
+    const int first = tile * T;
     const int row = first + t;
     const bool valid = row < n;
     // stage the x tile, transposed, zero past the ragged edge
-    for (int i = t; i < BWD_T * d_in; i += BWD_T) {
+    for (int i = t; i < T * d_in; i += T) {
       const int r = i / d_in, k = i % d_in;
-      xs[k * PAD + r] = first + r < n
+      xs[k * pad + r] = first + r < n
           ? x[static_cast<size_t>(first) * d_in + i] : 0.f;
     }
     __syncthreads();
 
-    // recompute the forward, keeping a_1..a_L in shared memory
+    // recompute the forward, keeping a_1..a_L (f32) in shared memory
     float h[W];
 #pragma unroll
     for (int j = 0; j < W; ++j) h[j] = 0.f;
     for (int k = 0; k < d_in; ++k) {
-      const float xk = xs[k * PAD + t];
+      const float xk = bf16 ? bf16_round(xs[k * pad + t]) : xs[k * pad + t];
 #pragma unroll
       for (int j = 0; j < W; ++j) h[j] = fmaf(xk, sw[k * W + j], h[j]);
     }
 #pragma unroll
     for (int j = 0; j < W; ++j) {
       h[j] = leaky(h[j] + sb[j], leak);
-      acts[j * PAD + t] = h[j];
+      acts[j * pad + t] = h[j];
     }
     for (int l = 1; l < L; ++l) {
       const float* wl = sw + w_offset(l, d_in, W);
+      if (bf16) round_all(h);
       float acc[W];
 #pragma unroll
       for (int j = 0; j < W; ++j) acc[j] = 0.f;
@@ -203,33 +275,44 @@ trunk_bwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
 #pragma unroll
       for (int j = 0; j < W; ++j) {
         h[j] = leaky(acc[j] + sb[l * W + j], leak);
-        acts[(l * W + j) * PAD + t] = h[j];
+        acts[(l * W + j) * pad + t] = h[j];
       }
     }
 
-    // head: dpre = (dloc, draw); dh = dpre W_L^T
-    const float d0 = valid ? dloc[row] : 0.f;
-    const float d1 = valid ? draw[row] : 0.f;
-    dps[t] = d0;
-    dps[PAD + t] = d1;
-    const float* wh = sw + w_offset(L, d_in, W);
     float dh[W];
+    if (head) {
+      // dpre = (dloc, draw); dh = dpre W_L^T
+      const float d0 = valid ? dy0[row] : 0.f;
+      const float d1 = valid ? dy1[row] : 0.f;
+      dps[t] = d0;
+      dps[pad + t] = d1;
+      const float r0 = bf16 ? bf16_round(d0) : d0;
+      const float r1 = bf16 ? bf16_round(d1) : d1;
+      const float* wh = sw + w_offset(L, d_in, W);
 #pragma unroll
-    for (int k = 0; k < W; ++k) dh[k] = fmaf(d0, wh[2 * k], d1 * wh[2 * k + 1]);
-    __syncthreads();
-    accumulate_pairs(acts + (L - 1) * W * PAD, dps, W, 2,
-                     acc_w + w_offset(L, d_in, W), acc_b + L * W);
-    __syncthreads();
+      for (int k = 0; k < W; ++k)
+        dh[k] = fmaf(r0, wh[2 * k], r1 * wh[2 * k + 1]);
+      __syncthreads();
+      tile_sums(acts + (L - 1) * W * pad, dps, W, 2, T, bf16,
+                acc_w + w_offset(L, d_in, W), acc_b + L * W);
+      __syncthreads();
+    } else {
+      // the cotangent of a_L, zero in the padded columns and rows
+      const float* dr = dy0 + static_cast<size_t>(valid ? row : 0) * out_w;
+#pragma unroll
+      for (int j = 0; j < W; ++j) dh[j] = valid && j < out_w ? dr[j] : 0.f;
+    }
 
     for (int l = L - 1; l >= 0; --l) {
       // slope 1 where the activation is >= 0 (fused_mlp.py:141)
       float dpre[W];
 #pragma unroll
       for (int j = 0; j < W; ++j) {
-        const float a = acts[(l * W + j) * PAD + t];
+        const float a = acts[(l * W + j) * pad + t];
         dpre[j] = a >= 0.f ? dh[j] : leak * dh[j];
-        dps[j * PAD + t] = dpre[j];
+        dps[j * pad + t] = dpre[j];
       }
+      if (bf16) round_all(dpre);
       const float* wl = sw + w_offset(l, d_in, W);
       if (l > 0) {
 #pragma unroll
@@ -248,9 +331,9 @@ trunk_bwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
         }
       }
       __syncthreads();
-      const float* a_in = l == 0 ? xs : acts + (l - 1) * W * PAD;
-      accumulate_pairs(a_in, dps, l == 0 ? d_in : W, W,
-                       acc_w + w_offset(l, d_in, W), acc_b + l * W);
+      const float* a_in = l == 0 ? xs : acts + (l - 1) * W * pad;
+      tile_sums(a_in, dps, l == 0 ? d_in : W, W, T, bf16,
+                acc_w + w_offset(l, d_in, W), acc_b + l * W);
       __syncthreads();
     }
   }
@@ -271,45 +354,49 @@ __global__ void reduce_blocks_kernel(const float* __restrict__ part,
   out[i] = s;
 }
 
-size_t fwd_smem(int d_in, int W, int L) {
-  return sizeof(float) * (n_weights(d_in, W, L) + n_biases(W, L));
+size_t fwd_smem(int d_in, int W, int L, bool head) {
+  return sizeof(float) * (n_weights(d_in, W, L, head) + n_biases(W, L, head));
 }
 
-size_t bwd_smem(int d_in, int W, int L) {
+size_t bwd_smem(int d_in, int W, int L, bool head, int T) {
   const int rows = d_in + L * W + (W > 2 ? W : 2);
-  return sizeof(float) *
-      (2 * (n_weights(d_in, W, L) + n_biases(W, L)) + rows * PAD);
+  return sizeof(float) * (2 * (n_weights(d_in, W, L, head) +
+                               n_biases(W, L, head)) +
+                          static_cast<size_t>(rows) * (T + 1));
 }
 
 template <int W>
 cudaError_t launch_fwd(const float* x, const float* w, const float* b,
-                       float* loc, float* raw, int n, int d_in, int L,
-                       float leak, cudaStream_t stream) {
-  const size_t smem = fwd_smem(d_in, W, L);
+                       float* out0, float* out1, int n, int d_in, int L,
+                       int out_w, bool head, bool bf16, float leak,
+                       cudaStream_t stream) {
+  const size_t smem = fwd_smem(d_in, W, L, head);
   cudaError_t err = cudaFuncSetAttribute(
       trunk_fwd_kernel<W>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   trunk_fwd_kernel<W><<<ct_blocks(n, FWD_THREADS), FWD_THREADS, smem,
-                        stream>>>(x, w, b, loc, raw, n, d_in, L, leak);
+                        stream>>>(x, w, b, out0, out1, n, d_in, L, out_w,
+                                  head, bf16, leak);
   return cudaGetLastError();
 }
 
 template <int W>
 cudaError_t launch_bwd(const float* x, const float* w, const float* b,
-                       const float* dloc, const float* draw, float* dx,
+                       const float* dy0, const float* dy1, float* dx,
                        float* part, float* out, int n, int d_in, int L,
+                       int out_w, bool head, bool bf16, int tile,
                        int n_blocks, float leak, cudaStream_t stream) {
-  const size_t smem = bwd_smem(d_in, W, L);
+  const size_t smem = bwd_smem(d_in, W, L, head, tile);
   cudaError_t err = cudaFuncSetAttribute(
       trunk_bwd_kernel<W>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  trunk_bwd_kernel<W><<<n_blocks, BWD_T, smem, stream>>>(
-      x, w, b, dloc, draw, dx, part, n, d_in, L, leak);
+  trunk_bwd_kernel<W><<<n_blocks, tile, smem, stream>>>(
+      x, w, b, dy0, dy1, dx, part, n, d_in, L, out_w, head, bf16, leak);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const int size = n_weights(d_in, W, L) + n_biases(W, L);
+  const int size = n_weights(d_in, W, L, head) + n_biases(W, L, head);
   reduce_blocks_kernel<<<ct_blocks(size, REDUCE_THREADS), REDUCE_THREADS, 0,
                          stream>>>(part, out, n_blocks, size);
   return cudaGetLastError();
@@ -322,16 +409,20 @@ cudaError_t launch_bwd(const float* x, const float* w, const float* b,
   X(1) X(2) X(3) X(4) X(5) X(6) X(7) X(8) X(9) X(10) X(11) X(12) X(13)     \
   X(14) X(15) X(16) X(20) X(24) X(28) X(32)
 
+// head: out0 = loc, out1 = raw, each (n,); trunk only: out0 is (n, out_w),
+// the first out_w of the kernel's `width` columns, and out1 is unused
 CT_API int ct_trunk_fwd(const float* x, const float* w, const float* b,
-                        float* loc, float* raw, int n, int d_in, int width,
-                        int n_layers, float leak, void* stream) {
+                        float* out0, float* out1, int n, int d_in, int width,
+                        int n_layers, int head, int out_w, int bf16,
+                        float leak, void* stream) {
   if (n <= 0) return cudaSuccess;
   if (n_layers < 1 || d_in < 1) return cudaErrorInvalidValue;
+  if (!head && (out_w < 1 || out_w > width)) return cudaErrorInvalidValue;
   switch (width) {
 #define CT_CASE(W)                                                           \
   case W:                                                                    \
-    return launch_fwd<W>(x, w, b, loc, raw, n, d_in, n_layers, leak,        \
-                         ct_stream(stream));
+    return launch_fwd<W>(x, w, b, out0, out1, n, d_in, n_layers, out_w,     \
+                         head != 0, bf16 != 0, leak, ct_stream(stream));
     CT_TRUNK_WIDTHS(CT_CASE)
 #undef CT_CASE
     default:
@@ -339,18 +430,23 @@ CT_API int ct_trunk_fwd(const float* x, const float* w, const float* b,
   }
 }
 
-// part: (n_blocks, nw + nb) scratch; out: (nw + nb) = [dW flat, db flat]
+// dy0, dy1 as ct_trunk_fwd's outputs; tile: the backward's tile height (its
+// block size); part: (n_blocks, nw + nb) scratch; out: (nw + nb) =
+// [dW flat, db flat]
 CT_API int ct_trunk_bwd(const float* x, const float* w, const float* b,
-                        const float* dloc, const float* draw, float* dx,
+                        const float* dy0, const float* dy1, float* dx,
                         float* part, float* out, int n, int d_in, int width,
-                        int n_layers, int n_blocks, float leak,
-                        void* stream) {
+                        int n_layers, int head, int out_w, int bf16, int tile,
+                        int n_blocks, float leak, void* stream) {
   if (n_layers < 1 || d_in < 1 || n_blocks < 1) return cudaErrorInvalidValue;
+  if (tile < 1 || tile > MAX_BWD_T) return cudaErrorInvalidValue;
+  if (!head && (out_w < 1 || out_w > width)) return cudaErrorInvalidValue;
   switch (width) {
 #define CT_CASE(W)                                                           \
   case W:                                                                    \
-    return launch_bwd<W>(x, w, b, dloc, draw, dx, part, out, n, d_in,       \
-                         n_layers, n_blocks, leak, ct_stream(stream));
+    return launch_bwd<W>(x, w, b, dy0, dy1, dx, part, out, n, d_in,         \
+                         n_layers, out_w, head != 0, bf16 != 0, tile,       \
+                         n_blocks, leak, ct_stream(stream));
     CT_TRUNK_WIDTHS(CT_CASE)
 #undef CT_CASE
     default:
@@ -358,7 +454,9 @@ CT_API int ct_trunk_bwd(const float* x, const float* w, const float* b,
   }
 }
 
-CT_API size_t ct_trunk_smem(int d_in, int width, int n_layers, int backward) {
-  return backward ? bwd_smem(d_in, width, n_layers)
-                  : fwd_smem(d_in, width, n_layers);
+// tile 0: the forward's shared memory; else the backward's at that height
+CT_API size_t ct_trunk_smem(int d_in, int width, int n_layers, int head,
+                            int tile) {
+  return tile ? bwd_smem(d_in, width, n_layers, head != 0, tile)
+              : fwd_smem(d_in, width, n_layers, head != 0);
 }

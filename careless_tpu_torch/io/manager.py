@@ -6,7 +6,9 @@ prior's moments with centric low = 0 and acentric low = 1e-32; the Normal,
 StudentT, Normal-Ev11 or StudentT-Ev11 likelihood of
 --studentt-likelihood-dof and --refine-uncertainties, convolved over
 harmonic groups for Laue inputs;
-HybridImageScaler over an MLP with the exp or softplus bijector;
+an MLP with the exp or softplus bijector and the --mlp-dtype of its
+products, alone, under per-image scales (HybridImageScaler) or followed by
+--image-layers per-image banks (NeuralImageScaler);
 --mc-samples and the --fused-kernel auto/on/off policy). Options outside
 the ported slice raise NotImplementedError naming the flag. Output writing
 (get_results, get_predictions) is not ported yet.
@@ -24,15 +26,14 @@ from ..models.likelihoods import laue, mono
 from ..models.merging.surrogate import TruncatedNormalPosterior
 from ..models.merging.variational import Trainer, VariationalMergingModel
 from ..models.priors.wilson import WilsonPrior
-from ..models.scaling.image import HybridImageScaler, ImageScaler
+from ..models.scaling.image import (HybridImageScaler, ImageScaler,
+                                    NeuralImageScaler)
 from ..models.scaling.nn import MLPScaler
 
 # (flag, attribute, value that selects the unported option)
 _UNPORTED = (
     ("--double-wilson-parents", "parents", lambda v: v is not None),
-    ("--image-layers", "image_layers", lambda v: bool(v)),
     ("--analytic-kl", "analytic_kl", bool),
-    ("--mlp-dtype bfloat16", "mlp_dtype", lambda v: v == "bfloat16"),
 )
 
 
@@ -116,9 +117,16 @@ class DataManager:
             raise ValueError(
                 f"Unsupported scale bijector type, {parser.scale_bijector}")
         mlp = MLPScaler(parser.mlp_layers, width, epsilon=parser.epsilon,
-                        scale_bijector=bijector, scale_multiplier=istd)
-        scaler = (HybridImageScaler(mlp, ImageScaler(self.n_images))
-                  if parser.use_image_scales else mlp)
+                        scale_bijector=bijector, scale_multiplier=istd,
+                        mlp_dtype=getattr(parser, "mlp_dtype", None)
+                        or "float32")
+        if (getattr(parser, "image_layers", None) or 0) > 0:
+            scaler = NeuralImageScaler(parser.image_layers, self.n_images,
+                                       mlp)
+        elif parser.use_image_scales:
+            scaler = HybridImageScaler(mlp, ImageScaler(self.n_images))
+        else:
+            scaler = mlp
 
         lik = laue if self.inputs.is_laue else mono
         dof = getattr(parser, "studentt_likelihood_dof", None)

@@ -15,8 +15,11 @@ import torch
 
 from ._build import library
 
-LAUNCHES = {"trunk_fwd": 0, "trunk_bwd": 0, "gather": 0, "philox_normal": 0,
-            "fused_ll_fwd": 0, "fused_ll_bwd": 0, "gather_stream": 0}
+LAUNCHES = {"trunk_fwd": 0, "trunk_bwd": 0, "trunk_fwd_bf16": 0,
+            "trunk_bwd_bf16": 0, "trunk_only_fwd": 0, "trunk_only_bwd": 0,
+            "trunk_only_fwd_bf16": 0, "trunk_only_bwd_bf16": 0, "gather": 0,
+            "philox_normal": 0, "fused_ll_fwd": 0, "fused_ll_bwd": 0,
+            "gather_stream": 0}
 
 # csrc/fused_ll.cu's kinds, in the order of its Kind enum
 FUSED_KINDS = ("normal", "studentt", "laplace", "normal_ev11",
@@ -24,6 +27,8 @@ FUSED_KINDS = ("normal", "studentt", "laplace", "normal_ev11",
 
 # widths with an instantiated trunk kernel (csrc/trunk.cu CT_TRUNK_WIDTHS)
 TRUNK_WIDTHS = tuple(range(1, 17)) + (20, 24, 28, 32)
+# the trunk backward's tile heights (its block sizes), tallest first
+TRUNK_BWD_TILES = (64, 32, 16, 8)
 MAX_SMEM_PER_BLOCK = 232448    # H100: 227 KB of dynamic shared memory
 SMEM_PER_SM = 233472           # H100: 228 KB per SM, 1 KB reserved per block
 
@@ -31,6 +36,13 @@ SMEM_PER_SM = 233472           # H100: 228 KB per SM, 1 KB reserved per block
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+def trunk_key(direction: str, head: bool, bf16: bool) -> str:
+    """The LAUNCHES name of one K1 instantiation: direction "fwd" or
+    "bwd", with the head or the trunk only, f32 or bf16 operands."""
+    return (("trunk_" if head else "trunk_only_") + direction
+            + ("_bf16" if bf16 else ""))
 
 
 def trunk_width(width: int) -> int:
@@ -41,6 +53,35 @@ def trunk_width(width: int) -> int:
             return w
     raise ValueError(f"MLP width {width} exceeds the trunk kernel's cap of "
                      f"{TRUNK_WIDTHS[-1]}")
+
+
+def trunk_smem(d_in: int, width: int, n_layers: int, head: bool,
+               tile: int = 0) -> int:
+    """Shared-memory bytes of K1 at a kernel width: the forward's (tile 0)
+    or the backward's at tile height `tile`. The same sums as csrc/
+    trunk.cu's fwd_smem and bwd_smem (ct_trunk_smem; a card test holds the
+    two equal): the weights and biases, twice in the backward (values and
+    partials), and the backward's d_in + L W + max(W, 2) rows of tile + 1
+    floats."""
+    params = (d_in * width + (n_layers - 1) * width * width
+              + n_layers * width + ((2 * width + 2) if head else 0))
+    if not tile:
+        return 4 * params
+    rows = d_in + n_layers * width + max(width, 2)
+    return 4 * (2 * params + rows * (tile + 1))
+
+
+def trunk_bwd_tile(d_in: int, width: int, n_layers: int, head: bool) -> int:
+    """The tallest backward tile whose shared memory fits in a block."""
+    for tile in TRUNK_BWD_TILES:
+        if trunk_smem(d_in, width, n_layers, head, tile) <= MAX_SMEM_PER_BLOCK:
+            return tile
+    need = trunk_smem(d_in, width, n_layers, head, TRUNK_BWD_TILES[-1])
+    raise ValueError(
+        f"trunk of {n_layers} layers at width {width} (d_in {d_in}) needs "
+        f"{need} bytes of shared memory in the backward at its shortest "
+        f"tile of {TRUNK_BWD_TILES[-1]} rows; the card allows "
+        f"{MAX_SMEM_PER_BLOCK}")
 
 
 def _check(err: int, what: str) -> None:
@@ -61,75 +102,86 @@ def _stream(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def _trunk_smem(d_in: int, width: int, n_layers: int, backward: bool) -> int:
-    smem = library().ct_trunk_smem(d_in, width, n_layers, int(backward))
-    if smem > MAX_SMEM_PER_BLOCK:
-        raise ValueError(
-            f"trunk of {n_layers} layers at width {width} (d_in {d_in}) "
-            f"needs {smem} bytes of shared memory "
-            f"({'backward' if backward else 'forward'}); the card allows "
-            f"{MAX_SMEM_PER_BLOCK}")
-    return smem
-
-
 def trunk_fwd(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
-              width: int, n_layers: int, leak: float
-              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K1-fwd: flat (N,) loc and raw from metadata x (N, d_in) and the flat
-    packed weights/biases of csrc/trunk.cu at an instantiated width."""
+              width: int, n_layers: int, leak: float, *, head: bool = True,
+              out_w: Optional[int] = None, bf16: bool = False):
+    """K1-fwd from metadata x (N, d_in) and the flat packed weights/biases
+    of csrc/trunk.cu at an instantiated width: flat (N,) loc and raw with
+    the head; else the (N, out_w) activations of the last layer (out_w,
+    the model's width, defaults to the kernel's). bf16 rounds both
+    operands of every product to bf16."""
     dev = x.device
     _require(x, "x", torch.float32, dev)
     _require(w, "w", torch.float32, dev)
     _require(b, "b", torch.float32, dev)
     n, d_in = x.shape
-    _trunk_smem(d_in, width, n_layers, False)
-    loc = torch.empty(n, dtype=torch.float32, device=dev)
-    raw = torch.empty(n, dtype=torch.float32, device=dev)
+    out_w = width if out_w is None else out_w
+    smem = trunk_smem(d_in, width, n_layers, head)
+    if smem > MAX_SMEM_PER_BLOCK:
+        raise ValueError(f"trunk of {n_layers} layers at width {width} "
+                         f"(d_in {d_in}) needs {smem} bytes of shared memory "
+                         f"in the forward; the card allows "
+                         f"{MAX_SMEM_PER_BLOCK}")
+    if head:
+        outs = (torch.empty(n, dtype=torch.float32, device=dev),
+                torch.empty(n, dtype=torch.float32, device=dev))
+    else:
+        outs = (torch.empty((n, out_w), dtype=torch.float32, device=dev),)
     with torch.cuda.device(dev):
         err = library().ct_trunk_fwd(
-            x.data_ptr(), w.data_ptr(), b.data_ptr(), loc.data_ptr(),
-            raw.data_ptr(), n, d_in, width, n_layers, leak, _stream(dev))
+            x.data_ptr(), w.data_ptr(), b.data_ptr(), outs[0].data_ptr(),
+            outs[-1].data_ptr() if head else None, n, d_in, width, n_layers,
+            int(head), out_w, int(bf16), leak, _stream(dev))
     _check(err, "trunk forward")
-    LAUNCHES["trunk_fwd"] += 1
-    return loc, raw
+    LAUNCHES[trunk_key("fwd", head, bf16)] += 1
+    return outs if head else outs[0]
 
 
-def _trunk_bwd_blocks(n: int, d_in: int, width: int, n_layers: int,
-                     device: torch.device) -> int:
+def _trunk_bwd_blocks(n: int, smem: int, tile: int,
+                      device: torch.device) -> int:
     """The backward's fixed grid: as many blocks as fit on the card at once,
     never more than there are tiles. Fixed for a given shape and card, so
     the reduction order, and with it dW, is repeatable bit for bit."""
-    smem = _trunk_smem(d_in, width, n_layers, True)
     per_sm = max(1, SMEM_PER_SM // (smem + 1024))
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    tiles = -(-n // 64)
+    tiles = -(-n // tile)
     return max(1, min(tiles, per_sm * sms))
 
 
-def trunk_bwd(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
-              dloc: torch.Tensor, draw: torch.Tensor, width: int,
-              n_layers: int, leak: float, need_dx: bool
+def trunk_bwd(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, dy,
+              width: int, n_layers: int, leak: float, need_dx: bool, *,
+              head: bool = True, bf16: bool = False
               ) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
-    """K1-bwd: (dw, db, dx) for the flat packed weights/biases; dx only
-    when asked for (metadata takes no gradient on the training path)."""
+    """K1-bwd: (dw, db, dx) for the flat packed weights/biases, from the
+    cotangent dy: the pair (dloc, draw) of (N,) with the head, else the
+    (N, out_w) cotangent of the last layer's activations. dx only when
+    asked for (metadata takes no gradient on the training path)."""
     dev = x.device
-    for t, name in ((x, "x"), (w, "w"), (b, "b"), (dloc, "dloc"),
-                    (draw, "draw")):
+    dys = tuple(dy) if head else (dy,)
+    for t, name in ((x, "x"), (w, "w"), (b, "b")) + tuple(
+            (t, f"dy[{i}]") for i, t in enumerate(dys)):
         _require(t, name, torch.float32, dev)
     n, d_in = x.shape
-    n_blocks = _trunk_bwd_blocks(n, d_in, width, n_layers, dev)
+    out_w = 0 if head else dy.shape[1]
+    if not head and (dy.shape[0] != n or not 1 <= out_w <= width):
+        raise ValueError(f"dy must have shape ({n}, <= {width}); got "
+                         f"{tuple(dy.shape)}")
+    tile = trunk_bwd_tile(d_in, width, n_layers, head)
+    n_blocks = _trunk_bwd_blocks(
+        n, trunk_smem(d_in, width, n_layers, head, tile), tile, dev)
     nw, nb = w.numel(), b.numel()
     part = torch.empty((n_blocks, nw + nb), dtype=torch.float32, device=dev)
     out = torch.empty(nw + nb, dtype=torch.float32, device=dev)
     dx = torch.empty_like(x) if need_dx else None
     with torch.cuda.device(dev):
         err = library().ct_trunk_bwd(
-            x.data_ptr(), w.data_ptr(), b.data_ptr(), dloc.data_ptr(),
-            draw.data_ptr(), None if dx is None else dx.data_ptr(),
-            part.data_ptr(), out.data_ptr(), n, d_in, width, n_layers,
-            n_blocks, leak, _stream(dev))
+            x.data_ptr(), w.data_ptr(), b.data_ptr(), dys[0].data_ptr(),
+            dys[1].data_ptr() if head else None,
+            None if dx is None else dx.data_ptr(), part.data_ptr(),
+            out.data_ptr(), n, d_in, width, n_layers, int(head), out_w,
+            int(bf16), tile, n_blocks, leak, _stream(dev))
     _check(err, "trunk backward")
-    LAUNCHES["trunk_bwd"] += 1
+    LAUNCHES[trunk_key("bwd", head, bf16)] += 1
     return out[:nw], out[nw:], dx
 
 

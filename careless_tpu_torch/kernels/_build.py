@@ -106,11 +106,12 @@ def library() -> "ctypes.CDLL":
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     U32, U64, I64 = ctypes.c_uint32, ctypes.c_uint64, ctypes.c_longlong
     signatures = {
-        # x, w, b, loc, raw, n, d_in, width, n_layers, leak, stream
-        "ct_trunk_fwd": [P, P, P, P, P, I, I, I, I, F, P],
-        # x, w, b, dloc, draw, dx, part, out, n, d_in, width, n_layers,
-        # n_blocks, leak, stream
-        "ct_trunk_bwd": [P, P, P, P, P, P, P, P, I, I, I, I, I, F, P],
+        # x, w, b, out0, out1, n, d_in, width, n_layers, head, out_w, bf16,
+        # leak, stream
+        "ct_trunk_fwd": [P, P, P, P, P, I, I, I, I, I, I, I, F, P],
+        # x, w, b, dy0, dy1, dx, part, out, n, d_in, width, n_layers, head,
+        # out_w, bf16, tile, n_blocks, leak, stream
+        "ct_trunk_bwd": [P] * 8 + [I] * 9 + [F, P],
         # table, ids, out, n, stream
         "ct_gather": [P, P, P, I, P],
         # table, t, ids, bases, out, n_tiles, tile, window, stream
@@ -131,8 +132,8 @@ def library() -> "ctypes.CDLL":
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-    # d_in, width, n_layers, backward
-    lib.ct_trunk_smem.argtypes = [I, I, I, I]
+    # d_in, width, n_layers, head, tile (0: the forward)
+    lib.ct_trunk_smem.argtypes = [I, I, I, I, I]
     lib.ct_trunk_smem.restype = ctypes.c_size_t
     lib.ct_error_string.argtypes = [I]
     lib.ct_error_string.restype = ctypes.c_char_p

@@ -3,7 +3,9 @@
 The port keeps the JAX package's parameter tree as nested dicts and lists
 of tensors, with dense weights (d_in, d_out): posterior.{loc_raw,
 scale_raw}, scaler.mlp.layers[i].{w, b}, scaler.mlp.out.{w, b},
-scaler.image.scales and, for the Ev11 likelihoods, the 0-d leaves
+scaler.image.scales, the --image-layers banks
+scaler.image_layers[i].{w (max_images, width, width), b (max_images,
+width)} and, for the Ev11 likelihoods, the 0-d leaves
 likelihood.{sdfac_raw, sdadd_raw, sdb_raw}. A JAX tree exported as numpy
 arrays (for example with jax.tree.map(np.asarray, params)) converts leaf
 for leaf, so both packages compute the same thing from the same numbers.

@@ -6,18 +6,22 @@
 Phases, each printed on its own lines:
   1. card: the card's name and power limit, torch/CUDA versions, and the
      time to build the kernels from csrc/ (nvcc, one process per source);
-  2. kernels: every kernel of the ported paths (K1-fwd, K1-bwd, K2, K3,
-     K4-fwd, K4-bwd) at the main path's shapes, held against its plain
-     PyTorch version on the same inputs and timed by CUDA events (median of
-     30 launches after warm-up) beside its plain version, the one PyTorch
-     call computing the same function where there is one, and its bound on
-     this card; K3 also passes a statistical gate at n = 2^22; K4 is held
-     for all five likelihood kinds, with and without supplied noise, and
-     its in-kernel normals bitwise against K3's; K5 on the JAX package's
-     300k swap permutation, bitwise against its plain version and x[perm];
+  2. kernels: every kernel of the ported paths (K1-fwd and K1-bwd in their
+     four instantiations: with the head or the trunk only, f32 or bf16
+     operands; K2, K3, K4-fwd, K4-bwd) at the main path's shapes, held
+     against its plain PyTorch version on the same inputs and timed by CUDA
+     events (median of 30 launches after warm-up) beside its plain version,
+     the one PyTorch call computing the same function where there is one,
+     and its bound on this card; K3 also passes a statistical gate at
+     n = 2^22; K4 is held for all five likelihood kinds, with and without
+     supplied noise, and its in-kernel normals bitwise against K3's; K5 on
+     the JAX package's 300k swap permutation, bitwise against its plain
+     version and x[perm]; K1 at 20 layers of width 28 (d_in 28) and width
+     32 (d_in 128), whose backward runs at a shorter tile;
   3. check: the port's loss and every parameter gradient at a small size on
      the card against the same computation on the CPU (plain versions), at
-     mc = 1 and at mc = 2 through K4 for the flag sets of slices (a) and
+     mc = 1 for the defaults, --image-layers 2, --mlp-dtype bfloat16 and
+     both, and at mc = 2 through K4 for the flag sets of slices (a) and
      (b); then the card's fused ELBO against its unfused ELBO; then Laue at
      50k observations with the VMEM cap lowered so that K5 runs, card
      against CPU, and the run-aligned ELBO against the plan_convolve one;
@@ -27,8 +31,12 @@ Phases, each printed on its own lines:
      dHKL,image_id ...`): the default merge (mc = 1, 300 steps); (a)
      --mc-samples=2, where --fused-kernel=auto takes K4 (300 steps); (b)
      (a) with --studentt-likelihood-dof=4 --refine-uncertainties (100
-     steps). Every loss finite, the loss falling, and each kernel of the
-     slice launched by that run (the counts are set to 0 just before it);
+     steps); the scaler slices --image-layers 2 (NeuralImageScaler through
+     K1 trunk-only), --mlp-dtype bfloat16 (K1 bf16) and both (K1 trunk-only
+     bf16), 100 steps each. Every loss finite, the loss falling, and each
+     kernel of the slice launched by that run (the counts are set to 0 just
+     before it), each slice's own K1 instantiation once per step and the
+     other three not at all;
   5. the Laue slice (`careless-tpu poly` defaults) at 10,000,000
      observations, 500,000 reflections and 20,000 images on the harmonic-
      chain layout: the host set-up timed step by step, every kernel of the
@@ -56,6 +64,7 @@ STEPS, CHUNK = 300, 50   # training steps of the slice phase, steps per chunk
 # the Laue slice: BASELINE.md's "chain + streaming windowed kernel" size
 LAUE_OBS, LAUE_REFL, LAUE_IMAGES = 10_000_000, 500_000, 20_000
 STEPS_LAUE = 100
+N_WIDE = 100_000   # observations of the width-28 and width-32 trunk checks
 
 # the mono defaults of the CLI, copied from careless_tpu/args/*.py
 MONO_DEFAULTS = dict(
@@ -71,10 +80,15 @@ MONO_DEFAULTS = dict(
     fused_kernel="auto", mlp_dtype="float32",                     # device_options.py
 )
 
-# TPU kernels each CUDA kernel replaces (the pallas_call sites)
+# the K1 instantiations (head, bf16), in the order of the kernels line
+TRUNK_VARIANTS = ((True, False), (True, True), (False, False), (False, True))
+# TPU kernels each CUDA kernel replaces (the pallas_call sites); every K1
+# instantiation replaces the same two
 REPLACES = {
-    "trunk_fwd": "careless_tpu/ops/fused_mlp.py:175",
-    "trunk_bwd": "careless_tpu/ops/fused_mlp.py:190",
+    **{f"{name}_{d}{suffix}": "careless_tpu/ops/fused_mlp.py:"
+       + ("175" if d == "fwd" else "190")
+       for name in ("trunk", "trunk_only") for d in ("fwd", "bwd")
+       for suffix in ("", "_bf16")},
     "gather": "careless_tpu/ops/table_gather.py:125",
     "philox_normal": "careless_tpu/ops/fused_elbo.py:66",
     "fused_ll_fwd": "careless_tpu/ops/fused_elbo.py:291",
@@ -82,8 +96,8 @@ REPLACES = {
     "gather_stream": "careless_tpu/ops/table_gather.py:85",
 }
 SOURCES = {
-    "trunk_fwd": "careless_tpu_torch/csrc/trunk.cu",
-    "trunk_bwd": "careless_tpu_torch/csrc/trunk.cu",
+    **{k: "careless_tpu_torch/csrc/trunk.cu" for k in REPLACES
+       if k.startswith("trunk")},
     "gather": "careless_tpu_torch/csrc/gather.cu",
     "philox_normal": "careless_tpu_torch/csrc/philox.cu",
     "fused_ll_fwd": "careless_tpu_torch/csrc/fused_ll.cu",
@@ -95,6 +109,13 @@ SLICE_A = dict(mc_samples=2)
 SLICE_B = dict(mc_samples=2, studentt_likelihood_dof=4.0,
                refine_uncertainties=True)
 STEPS_B = 100
+# the scaler slices: --image-layers 2 (K1 trunk-only), --mlp-dtype bfloat16
+# (K1 bf16) and both (K1 trunk-only bf16), on top of MONO_DEFAULTS
+SCALER_SLICES = {"image_layers": dict(image_layers=2),
+                 "bf16": dict(mlp_dtype="bfloat16"),
+                 "image_layers_bf16": dict(image_layers=2,
+                                           mlp_dtype="bfloat16")}
+STEPS_SCALER = 100
 # Philox and Box-Muller (~40 integer operations, log, sqrt, cos), the chain
 # and the likelihood: ~60 operations per observation in K4 (csrc/fused_ll.cu)
 K4_OPS_PER_OBS = 60
@@ -113,6 +134,12 @@ def peaks(name: str):
     if "PCIe" in name:
         return 51e12, 2.0e12
     return 67e12, 3.35e12
+
+
+def bf16_peak(name: str) -> float:
+    """Dense bf16 tensor-core FLOP/s from NVIDIA's data sheets: H100 SXM
+    989 TFLOP/s, PCIe 756."""
+    return 756e12 if "PCIe" in name else 989e12
 
 
 def time_ms(torch, fn, reps=30, warmup=5) -> float:
@@ -158,6 +185,14 @@ def bound(flops: float, nbytes: float, peak_flops: float, peak_bw: float):
             "operations" if t_ops > t_bytes else "bytes")
 
 
+def own_generator(torch, gen, k: int):
+    """A generator on gen's device seeded from gen's seed and k, leaving
+    gen's own stream untouched."""
+    own = torch.Generator(device=gen.device)
+    own.manual_seed(gen.initial_seed() + 1000 * k)
+    return own
+
+
 def check(ok: bool, what: str):
     if not ok:
         raise AssertionError(what)
@@ -166,9 +201,12 @@ def check(ok: bool, what: str):
 def kernel_phase(torch, dev, gen, peak_flops, peak_bw):
     """Hold each kernel against its plain version and time it."""
     n = N_OBS
-    rows = trunk_rows(torch, gen, torch.randn(n, D_META, generator=gen,
-                                              device=dev),
-                      peak_flops, peak_bw)
+    x = torch.randn(n, D_META, generator=gen, device=dev)
+    rows = trunk_rows(torch, gen, x, peak_flops, peak_bw)
+    # the other K1 instantiations draw from a generator of their own, so
+    # that the kernels below see the random inputs of earlier runs
+    rows.update(trunk_rows(torch, own_generator(torch, gen, 1), x,
+                           peak_flops, peak_bw, variants=TRUNK_VARIANTS[1:]))
     # K2: the z_f gather (sorted refl ids) and the image-scale gather
     cases = {}
     for label, size, sort in (("z_f", N_REFL, True),
@@ -189,20 +227,11 @@ def kernel_phase(torch, dev, gen, peak_flops, peak_bw):
     return rows
 
 
-def trunk_rows(torch, gen, x, peak_flops, peak_bw):
-    """K1-fwd and K1-bwd on metadata x (N, d): a random N_LAYERS-deep trunk
-    of width d (identity plus noise, so every layer matters), held against
-    the plain version and timed; returns their kernel rows."""
-    from careless_tpu_torch import kernels
-    from careless_tpu_torch.ops.fused_mlp import (fused_mlp_trunk_head,
-                                                   pack_params,
-                                                   plain_trunk_head)
-
-    rows = {}
-    dev = x.device
-    (n, d), w, L = x.shape, x.shape[1], N_LAYERS
+def random_trunk(torch, gen, d, w, n_layers, dev):
+    """An n_layers-deep trunk of width w over d columns (identity plus
+    noise, so every layer matters) and its head, as leaves needing grad."""
     layers = []
-    for i in range(L):
+    for i in range(n_layers):
         d_in = d if i == 0 else w
         layers.append({
             "w": (torch.eye(d_in, w, device=dev) + 0.1 / math.sqrt(w)
@@ -213,71 +242,135 @@ def trunk_rows(torch, gen, x, peak_flops, peak_bw):
     out = {"w": (torch.randn(w, 2, generator=gen, device=dev) / math.sqrt(w)
                  ).requires_grad_(True),
            "b": torch.zeros(2, device=dev).requires_grad_(True)}
-    leaves = [t for layer in layers for t in (layer["w"], layer["b"])] + \
-        [out["w"], out["b"]]
-    F = d * w + (L - 1) * w * w + 2 * w
+    return layers, out
 
-    # K1-fwd
-    with torch.no_grad():
-        loc_k, raw_k = fused_mlp_trunk_head(x, layers, out, 0.01)
-        loc_p, raw_p = plain_trunk_head(x, layers, out, 0.01)
-    scale = max(loc_p.abs().max().item(), raw_p.abs().max().item(), 1.0)
-    err = max((loc_k - loc_p).abs().max().item(),
-              (raw_k - raw_p).abs().max().item())
-    del loc_k, raw_k, loc_p, raw_p
-    tol = 1e-4 * scale   # f32, 20 layers summed in another order than cuBLAS
-    check(err <= tol, f"trunk_fwd at N = {n} differs from plain: {err} > "
-          f"{tol}")
+
+def trunk_rows(torch, gen, x, peak_flops, peak_bw, variants=((True, False),),
+               n_layers=N_LAYERS, width=None, reps=30):
+    """K1-fwd and K1-bwd on metadata x (N, d) for each (head, bf16)
+    instantiation in `variants`: a random n_layers-deep trunk of `width`
+    (default d), held against the plain version (the bf16 plain version
+    for bf16) at 1e-4 of the output scale and of each gradient tensor's
+    largest entry (20 layers summed in another order than cuBLAS), dW
+    bitwise repeatable, timed beside the plain version; returns the kernel
+    rows by LAUNCHES name. Bounds: f32 rows at the f32 peak; bf16 rows at
+    the bf16 tensor-core peak (the least time for bf16 products); the
+    trunk-only rows move (N, width) activations and cotangents."""
+    from careless_tpu_torch import kernels
+    from careless_tpu_torch.ops.fused_mlp import (
+        fused_mlp_trunk, fused_mlp_trunk_head, pack_params, plain_trunk,
+        plain_trunk_head)
+
+    rows = {}
+    dev = x.device
+    (n, d), L = x.shape, n_layers
+    w = width or d
+    layers, out = random_trunk(torch, gen, d, w, L, dev)
     kw = kernels.trunk_width(w)
-    wflat, bflat = (t.detach() for t in pack_params(layers, out, kw))
-    with torch.no_grad():
-        ms = time_ms(torch, lambda: kernels.trunk_fwd(x, wflat, bflat, kw, L,
-                                                      0.01))
-        plain_ms = time_ms(torch, lambda: plain_trunk_head(x, layers, out,
-                                                           0.01))
-        d_ms = device_ms(torch, lambda: kernels.trunk_fwd(x, wflat, bflat,
-                                                          kw, L, 0.01))
-    b_ms, b_by = bound(2.0 * n * F, 4.0 * (n * d + 2 * n + F + L * w + 2),
-                       peak_flops, peak_bw)
-    rows["trunk_fwd"] = dict(max_abs_err=err, tolerance=tol, ms=ms,
-                             device_ms=d_ms, plain_ms=plain_ms,
-                             bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    ops_peak = {False: peak_flops,
+                True: bf16_peak(torch.cuda.get_device_name(dev))}
+    for head, bf16 in variants:
+        fwd, bwd = (kernels.trunk_key(k, head, bf16) for k in ("fwd", "bwd"))
+        leaves = [t for layer in layers for t in (layer["w"], layer["b"])]
+        if head:
+            def kern(x):
+                return fused_mlp_trunk_head(x, layers, out, 0.01, bf16=bf16)
 
-    # K1-bwd through autograd, against autograd of the plain version
-    gl = torch.randn(n, generator=gen, device=dev)
-    gr = torch.randn(n, generator=gen, device=dev)
+            def plain(x):
+                return plain_trunk_head(x, layers, out, 0.01, bf16=bf16)
+            leaves += [out["w"], out["b"]]
+            cts = (torch.randn(n, generator=gen, device=dev),
+                   torch.randn(n, generator=gen, device=dev))
+        else:
+            def kern(x):
+                return (fused_mlp_trunk(x, layers, 0.01, bf16=bf16),)
 
-    def grads(fn):
-        loc, raw = fn(x, layers, out, 0.01)
-        return torch.autograd.grad((loc * gl).sum() + (raw * gr).sum(),
-                                   leaves)
-    g_k = grads(fused_mlp_trunk_head)
-    g_k2 = grads(fused_mlp_trunk_head)
-    g_p = grads(plain_trunk_head)
-    check(all(torch.equal(a, b) for a, b in zip(g_k, g_k2)),
-          f"trunk_bwd at N = {n} is not bitwise repeatable")
-    err = max((a - b).abs().max().item() for a, b in zip(g_k, g_p))
-    gscale = max(b.abs().max().item() for b in g_p)
-    tol = 1e-4 * gscale  # sums over N observations in another order
-    check(err <= tol, f"trunk_bwd at N = {n} differs from plain: {err} > "
-          f"{tol}")
-    ms = time_ms(torch, lambda: kernels.trunk_bwd(x, wflat, bflat, gl, gr,
-                                                  kw, L, 0.01, False))
-    loc, raw = plain_trunk_head(x, layers, out, 0.01)
-    obj = (loc * gl).sum() + (raw * gr).sum()
-    plain_ms = time_ms(torch, lambda: torch.autograd.grad(
-        obj, leaves, retain_graph=True))
-    del obj, loc, raw
-    b_ms, b_by = bound(2.0 * n * (3 * F - d * w),
-                       4.0 * (n * d + 2 * n + 2 * (F + L * w + 2)),
-                       peak_flops, peak_bw)
-    d_ms = device_ms(torch, lambda: kernels.trunk_bwd(x, wflat, bflat, gl,
-                                                      gr, kw, L, 0.01, False))
-    rows["trunk_bwd"] = dict(max_abs_err=err, tolerance=tol, ms=ms,
-                             device_ms=d_ms, plain_ms=plain_ms,
-                             bound_ms=b_ms, bound_by=b_by, library_ms=None,
-                             bitwise_repeatable=True)
+            def plain(x):
+                return (plain_trunk(x, layers, 0.01, bf16=bf16),)
+            cts = (torch.randn(n, w, generator=gen, device=dev),)
+        n_out = sum(c.numel() for c in cts)
+        F = d * w + (L - 1) * w * w + (2 * w if head else 0)
+        nb = L * w + (2 if head else 0)
+
+        # K1-fwd
+        with torch.no_grad():
+            ys_k, ys_p = kern(x), plain(x)
+        scale = max(max(y.abs().max().item() for y in ys_p), 1.0)
+        err = max((a - b).abs().max().item() for a, b in zip(ys_k, ys_p))
+        del ys_k, ys_p
+        tol = 1e-4 * scale
+        check(err <= tol, f"{fwd} at N = {n}, width {w}, differs from "
+              f"plain: {err} > {tol}")
+        wflat, bflat = (t.detach() for t in pack_params(
+            layers, out if head else None, kw))
+        cfg = dict(head=head, bf16=bf16)
+        if not head:
+            cfg["out_w"] = w
+        with torch.no_grad():
+            ms = time_ms(torch, lambda: kernels.trunk_fwd(
+                x, wflat, bflat, kw, L, 0.01, **cfg), reps=reps)
+            plain_ms = time_ms(torch, lambda: plain(x), reps=reps)
+            d_ms = device_ms(torch, lambda: kernels.trunk_fwd(
+                x, wflat, bflat, kw, L, 0.01, **cfg), reps=reps)
+        b_ms, b_by = bound(2.0 * n * F, 4.0 * (n * d + n_out + F + nb),
+                           ops_peak[bf16], peak_bw)
+        rows[fwd] = dict(max_abs_err=err, tolerance=tol, ms=ms,
+                         device_ms=d_ms, plain_ms=plain_ms, bound_ms=b_ms,
+                         bound_by=b_by, library_ms=None, n=n, d_in=d,
+                         width=w, n_layers=L)
+
+        # K1-bwd through autograd, against autograd of the plain version
+        def grads(fn):
+            obj = sum((y * c).sum() for y, c in zip(fn(x), cts))
+            return torch.autograd.grad(obj, leaves)
+        g_k = grads(kern)
+        g_k2 = grads(kern)
+        g_p = grads(plain)
+        check(all(torch.equal(a, b) for a, b in zip(g_k, g_k2)),
+              f"{bwd} at N = {n}, width {w}, is not bitwise repeatable")
+        err = max((a - b).abs().max().item() for a, b in zip(g_k, g_p))
+        gscale = max(b.abs().max().item() for b in g_p)
+        tol = 1e-4 * gscale  # sums over N observations in another order
+        check(err <= tol, f"{bwd} at N = {n}, width {w}, differs from "
+              f"plain: {err} > {tol}")
+        dy = cts if head else cts[0]
+        ms = time_ms(torch, lambda: kernels.trunk_bwd(
+            x, wflat, bflat, dy, kw, L, 0.01, False, head=head, bf16=bf16),
+            reps=reps)
+        obj = sum((y * c).sum() for y, c in zip(plain(x), cts))
+        plain_ms = time_ms(torch, lambda: torch.autograd.grad(
+            obj, leaves, retain_graph=True), reps=reps)
+        del obj
+        b_ms, b_by = bound(2.0 * n * (3 * F - d * w),
+                           4.0 * (n * d + n_out + 2 * (F + nb)),
+                           ops_peak[bf16], peak_bw)
+        d_ms = device_ms(torch, lambda: kernels.trunk_bwd(
+            x, wflat, bflat, dy, kw, L, 0.01, False, head=head, bf16=bf16),
+            reps=reps)
+        rows[bwd] = dict(max_abs_err=err, tolerance=tol, ms=ms,
+                         device_ms=d_ms, plain_ms=plain_ms, bound_ms=b_ms,
+                         bound_by=b_by, library_ms=None,
+                         bitwise_repeatable=True, n=n, d_in=d, width=w,
+                         n_layers=L,
+                         tile=kernels.trunk_bwd_tile(d, kw, L, head))
     return rows
+
+
+def wide_trunk_phase(torch, gen, dev, peak_flops, peak_bw):
+    """K1 (head, f32) at 20 layers of width 28 over 28 columns and of
+    width 32 over 128, which a 64-row backward tile cannot hold: held
+    against the plain version and timed as trunk_rows does, at
+    N_WIDE observations so that the short-tile backward stays quick."""
+    out = {}
+    gen = own_generator(torch, gen, 2)
+    for d, w in ((28, 28), (128, 32)):
+        x = torch.randn(N_WIDE, d, generator=gen, device=dev)
+        rows = trunk_rows(torch, gen, x, peak_flops, peak_bw, width=w,
+                          reps=10)
+        out[f"width {w}, d_in {d}"] = rows
+        print(f"trunk at width {w}, d_in {d}, {N_LAYERS} layers: "
+              + json.dumps(rows), flush=True)
+    return out
 
 
 def gather_row(torch, gen, size, ids, label, peak_flops, peak_bw):
@@ -592,10 +685,11 @@ def grad_rel_err(g_a, g_b):
                for a, b in zip(g_a, g_b))
 
 
-def check_phase(torch, dev, seed):
+def check_phase(torch, dev, seed, flags=None, label="default"):
     """Loss and every parameter gradient of the port at a small size on
     the card (kernels) against the same computation on the CPU (plain
-    versions), at the same parameters, uniforms and noise (mc = 1)."""
+    versions), at the same parameters, uniforms and noise (mc = 1), for
+    the CLI defaults with `flags` on top."""
     from careless_tpu_torch.models.merging.variational import (
         flatten_params, map_params)
     from careless_tpu_torch.utils.params import (params_from_jax,
@@ -607,7 +701,8 @@ def check_phase(torch, dev, seed):
     eps = rng.standard_normal(sizes[0]).astype(np.float32)
     results = []
     for device in ("cpu", dev):
-        model, params, _, inputs, _ = model_on(device, seed, *sizes)
+        model, params, _, inputs, _ = model_on(device, seed, *sizes,
+                                               flags=flags)
         if not results:
             # perturb the identity-initialised MLP so every layer matters
             start = map_params(lambda a: a + 0.05 * rng.standard_normal(
@@ -623,10 +718,13 @@ def check_phase(torch, dev, seed):
     (l_cpu, g_cpu), (l_dev, g_dev) = results
     rel = abs(l_dev - l_cpu) / abs(l_cpu)
     # f32 sums over 20k observations taken in another order
-    check(rel < 1e-4, f"loss on the card {l_dev} vs CPU {l_cpu}")
+    check(rel < 1e-4, f"check ({label}): loss on the card {l_dev} vs CPU "
+          f"{l_cpu}")
     g_err = grad_rel_err(g_dev, g_cpu)
-    check(g_err < 1e-3, f"gradients on the card vs CPU: rel err {g_err}")
-    print(f"check: loss {l_dev:.6f} vs CPU {l_cpu:.6f} (rel {rel:.2e}); "
+    check(g_err < 1e-3, f"check ({label}): gradients on the card vs CPU: "
+          f"rel err {g_err}")
+    print(f"check ({label}, {type(model.scaler).__name__}): loss "
+          f"{l_dev:.6f} vs CPU {l_cpu:.6f} (rel {rel:.2e}); "
           f"max per-tensor grad rel err {g_err:.2e} over {len(g_dev)} "
           "tensors", flush=True)
 
@@ -738,6 +836,7 @@ def train_slice(torch, dev, seed, model, params, trainer, inputs, f_true,
     corr = float(np.corrcoef(q.mean().detach().cpu().numpy(), f_true)[0, 1])
     out = dict(slice=label, flags=flags or {}, n_obs=inputs.n_obs,
                mc_samples=model.mc_samples, fused_kernel=model.fused_kernel,
+               scaler=type(model.scaler).__name__,
                likelihood=type(model.likelihood).__module__.rsplit(".")[-1]
                + "." + type(model.likelihood).__name__,
                steps=steps, chunk=chunk, steps_per_s=steps / wall,
@@ -940,7 +1039,7 @@ def laue_phase(torch, dev, gen, seed, peak_flops, peak_bw):
         torch, dev, seed, model, params, trainer, inputs, f_true, STEPS_LAUE,
         CHUNK, "laue", {}, setup_s, times)
     check_launches(launches, "laue", {
-        "trunk_fwd": STEPS_LAUE, "trunk_bwd": STEPS_LAUE, "gather": None,
+        **trunk_counts(STEPS_LAUE, True, False), "gather": None,
         "philox_normal": STEPS_LAUE, "fused_ll_fwd": 0, "fused_ll_bwd": 0,
         "gather_stream": STEPS_LAUE})
     return row, launches, held
@@ -982,6 +1081,38 @@ def laue_kernels(torch, dev, gen, inputs, peak_flops, peak_bw):
     held = {k: v["max_abs_err"] for k, v in rows.items()}
     held["gather"] = max(v["max_abs_err"] for v in gathers.values())
     return held
+
+
+def scaler_slices_phase(torch, dev, seed, steps=STEPS_SCALER):
+    """Train each of SCALER_SLICES at full width: each launches its own K1
+    instantiation once per step in each direction and no other, and the
+    image banks move; returns each instantiation's launches."""
+    trunk_launches = {}
+    for label, flags in SCALER_SLICES.items():
+        launches, _, start, trained = slice_phase(torch, dev, seed, steps,
+                                                  CHUNK, label, flags)
+        head = "image_layers" not in flags
+        mine = trunk_counts(steps, head, "mlp_dtype" in flags)
+        check_launches(launches, label, {
+            **mine, "gather": None, "philox_normal": steps,
+            "fused_ll_fwd": 0, "fused_ll_bwd": 0, "gather_stream": 0})
+        if not head:
+            moved = [float((b["w"] - a["w"]).abs().max()) for a, b in zip(
+                start["scaler"]["image_layers"],
+                trained["scaler"]["image_layers"])]
+            check(all(math.isfinite(m) and m > 0 for m in moved),
+                  f"slice {label}: the image banks did not move: {moved}")
+        trunk_launches.update({k: launches[k] for k, v in mine.items() if v})
+    return trunk_launches
+
+
+def trunk_counts(steps, head, bf16):
+    """The K1 launch counts of a slice that runs the (head, bf16)
+    instantiation once per step in each direction and no other."""
+    from careless_tpu_torch import kernels
+    mine = {kernels.trunk_key(d, head, bf16) for d in ("fwd", "bwd")}
+    return {k: steps if k in mine else 0 for k in kernels.LAUNCHES
+            if k.startswith("trunk")}
 
 
 def check_launches(launches, label, want):
@@ -1054,13 +1185,16 @@ def main():
     gen.manual_seed(args.seed)
     rows = kernel_phase(torch, dev, gen, peak_flops, peak_bw)
     swap_case(torch, dev, gen, peak_flops, peak_bw)
+    wide_trunk_phase(torch, gen, dev, peak_flops, peak_bw)
     check_phase(torch, dev, args.seed)
+    for label, flags in SCALER_SLICES.items():
+        check_phase(torch, dev, args.seed, flags, label)
     check_mc2_phase(torch, dev, args.seed)
     check_laue_phase(torch, dev, args.seed)
 
     launches, _, _, _ = slice_phase(torch, dev, args.seed, STEPS, CHUNK)
     check_launches(launches, "default", {
-        "trunk_fwd": None, "trunk_bwd": None, "gather": None,
+        **trunk_counts(STEPS, True, False), "gather": None,
         "philox_normal": None, "fused_ll_fwd": 0, "fused_ll_bwd": 0,
         "gather_stream": 0})
 
@@ -1069,7 +1203,7 @@ def main():
     check(model.fused_kernel, "slice (a): --fused-kernel=auto did not "
           "select K4 at mc = 2 and 1M observations")
     check_launches(launches_a, "a", {
-        "trunk_fwd": STEPS, "trunk_bwd": STEPS, "gather": None,
+        **trunk_counts(STEPS, True, False), "gather": None,
         "philox_normal": 0, "fused_ll_fwd": 2 * STEPS,
         "fused_ll_bwd": 2 * STEPS, "gather_stream": 0})
 
@@ -1077,7 +1211,7 @@ def main():
         torch, dev, args.seed, STEPS_B, CHUNK, "b", SLICE_B)
     check(model.fused_kernel, "slice (b) did not select K4")
     check_launches(launches_b, "b", {
-        "trunk_fwd": STEPS_B, "trunk_bwd": STEPS_B, "gather": None,
+        **trunk_counts(STEPS_B, True, False), "gather": None,
         "philox_normal": 0, "fused_ll_fwd": 2 * STEPS_B,
         "fused_ll_bwd": 2 * STEPS_B, "gather_stream": 0})
     ev11 = {k: (start["likelihood"][k].item(), v.item())
@@ -1087,14 +1221,17 @@ def main():
     print("slice b Ev11 raw parameters (start, trained): " + json.dumps(ev11),
           flush=True)
 
+    scaler_launches = scaler_slices_phase(torch, dev, args.seed)
+
     rows["gather_stream"], launches_laue, held = laue_phase(
         torch, dev, gen, args.seed, peak_flops, peak_bw)
     for k, err in held.items():
         rows[k]["laue_max_abs_err"] = err
 
-    # launches: K1-K3 from the default slice, K4 from slice (a), K5 from
-    # the Laue slice
-    counts = {**launches, "fused_ll_fwd": launches_a["fused_ll_fwd"],
+    # launches: K1-K3 from the default slice, the other K1 instantiations
+    # from the scaler slices, K4 from slice (a), K5 from the Laue slice
+    counts = {**launches, **scaler_launches,
+              "fused_ll_fwd": launches_a["fused_ll_fwd"],
               "fused_ll_bwd": launches_a["fused_ll_bwd"],
               "gather_stream": launches_laue["gather_stream"]}
     table = [dict(name=k, route="cuda", source=SOURCES[k],

@@ -8,7 +8,9 @@ it also runs where only PyTorch is installed:
 
 Tolerances: gathers (K2, K5) copy, so they are exact; the trunk sums in another
 order than cuBLAS (1e-5 of the output scale, and of each gradient
-tensor's largest entry); Philox words are exact and normals within 2e-5
+tensor's largest entry), in f32 and in bf16 against the bf16 plain version
+(each product of rounded operands is exact; a bf16 rounding straddle, see
+tests/test_torch_fused_mlp.py, would show as a failure here); Philox words are exact and normals within 2e-5
 (log/cos may round differently, |x| <= 5.8). K4 against its plain
 versions on the same inputs: the sum at rtol 1e-5 (f32 sums over 200k
 observations in another order), per-observation gradients within 1e-5 of
@@ -24,8 +26,10 @@ from careless_tpu_torch import kernels
 from careless_tpu_torch.ops.fused_elbo import (
     plain_fused_likelihood_grads, plain_fused_likelihood_sum,
     plain_prng_normal, studentt_log_norm)
-from careless_tpu_torch.ops.fused_mlp import (fused_mlp_trunk_head,
-                                              plain_trunk_head)
+from careless_tpu_torch.kernels._build import library
+from careless_tpu_torch.ops.fused_mlp import (fused_mlp_trunk,
+                                              fused_mlp_trunk_head,
+                                              plain_trunk, plain_trunk_head)
 from careless_tpu_torch.ops.plan_gather import (_plan_windows,
                                                 make_gather_plan, plan_gather)
 from careless_tpu_torch.ops.table_gather import (plain_gather,
@@ -66,27 +70,109 @@ def _trunk(n, d, w, n_layers, device, seed):
             t(rng.normal(size=n)), t(rng.normal(size=n)))
 
 
+def _run_trunk(fn, x, layers, out, cts, leaves, bf16):
+    """fn's outputs and the gradients of sum(outputs * cts) in `leaves`:
+    fn is a trunk + head (out given) or a trunk alone."""
+    ys = (fn(x, layers, out, 0.01, bf16=bf16) if out is not None
+          else (fn(x, layers, 0.01, bf16=bf16),))
+    obj = sum((y * c).sum() for y, c in zip(ys, cts))
+    return [y.detach() for y in ys], torch.autograd.grad(obj, leaves)
+
+
+def _hold_trunk(n, d, w, n_layers, head, bf16, device, seed):
+    """K1 (the head or the trunk alone, f32 or bf16) against its plain
+    version, values and every gradient, and dW bitwise repeatable."""
+    x, layers, out, leaves, gl, gr = _trunk(n, d, w, n_layers, device, seed)
+    if head:
+        fns, cts = (fused_mlp_trunk_head, plain_trunk_head), (gl, gr)
+    else:
+        fns = (fused_mlp_trunk, plain_trunk)
+        cts = (torch.randn(n, w, device=device,
+                           generator=torch.Generator(device).manual_seed(
+                               seed)),)
+        out, leaves = None, leaves[:-2]
+    kernels.reset_launches()
+    ys_k, g_k = _run_trunk(fns[0], x, layers, out, cts, leaves, bf16)
+    _, g_k2 = _run_trunk(fns[0], x, layers, out, cts, leaves, bf16)
+    torch.cuda.synchronize()
+    for direction in ("fwd", "bwd"):
+        assert kernels.LAUNCHES[kernels.trunk_key(direction, head, bf16)] \
+            == 2
+    ys_p, g_p = _run_trunk(fns[1], x, layers, out, cts, leaves, bf16)
+    assert [y.shape for y in ys_k] == [y.shape for y in ys_p]
+    scale = max(max(y.abs().max().item() for y in ys_p), 1.0)
+    for a, b in zip(ys_k, ys_p):
+        assert (a - b).abs().max().item() <= 1e-5 * scale
+    assert all(torch.equal(a, b) for a, b in zip(g_k, g_k2))
+    for a, b in zip(g_k, g_p):
+        assert (a - b).abs().max().item() <= 1e-5 * b.abs().max().item()
+
+
 @pytest.mark.parametrize("n,d,w,n_layers", [
     (100_003, 10, 10, 20),   # the main path's width and depth
     (5_001, 7, 17, 3),       # padded to the instantiated width 20
     (63, 3, 4, 1),           # less than one backward tile
 ])
 def test_trunk_kernel_matches_plain(cuda, n, d, w, n_layers):
-    x, layers, out, leaves, gl, gr = _trunk(n, d, w, n_layers, cuda, n)
+    _hold_trunk(n, d, w, n_layers, True, False, cuda, n)
 
-    def run(fn):
-        loc, raw = fn(x, layers, out, 0.01)
-        g = torch.autograd.grad((loc * gl).sum() + (raw * gr).sum(), leaves)
-        return loc.detach(), raw.detach(), g
 
-    loc_k, raw_k, g_k = run(fused_mlp_trunk_head)
-    _, _, g_k2 = run(fused_mlp_trunk_head)
-    loc_p, raw_p, g_p = run(plain_trunk_head)
-    scale = max(loc_p.abs().max().item(), raw_p.abs().max().item(), 1.0)
-    assert (loc_k - loc_p).abs().max().item() <= 1e-5 * scale
-    assert (raw_k - raw_p).abs().max().item() <= 1e-5 * scale
-    assert all(torch.equal(a, b) for a, b in zip(g_k, g_k2))
-    for a, b in zip(g_k, g_p):
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("head", [False, True])
+@pytest.mark.parametrize("n,d,w,n_layers", [
+    (100_003, 10, 10, 20),   # the main path's width and depth
+    (5_001, 7, 17, 3),       # padded to 20: the trunk-only output sliced
+])
+def test_trunk_variants_match_plain(cuda, n, d, w, n_layers, head, bf16):
+    """The trunk-only and bf16 instantiations of K1."""
+    _hold_trunk(n, d, w, n_layers, head, bf16, cuda, n + 1)
+
+
+@pytest.mark.parametrize("d,w,head,tile", [
+    (28, 28, True, 32),      # width 28 at d_in 28: refused before
+    (128, 32, True, 8),      # width 32 at d_in 128: the shortest tile
+    (128, 32, False, 8),
+])
+def test_trunk_wide_at_20_layers(cuda, d, w, head, tile):
+    """Widths the 64-row backward could not hold at 20 layers run at a
+    shorter tile, against the plain version."""
+    assert kernels.trunk_bwd_tile(d, w, 20, head) == tile
+    _hold_trunk(3_001, d, w, 20, head, False, cuda, d + w)
+
+
+@pytest.mark.parametrize("d,w,n_layers", [(10, 10, 20), (128, 32, 20),
+                                          (7, 20, 3)])
+@pytest.mark.parametrize("head", [True, False])
+def test_trunk_smem_matches_the_kernel(cuda, d, w, n_layers, head):
+    """kernels.trunk_smem, which picks the tile, is csrc/trunk.cu's sum."""
+    for tile in (0,) + kernels.TRUNK_BWD_TILES:
+        assert kernels.trunk_smem(d, w, n_layers, head, tile) == \
+            library().ct_trunk_smem(d, w, n_layers, int(head), tile)
+
+
+@pytest.mark.parametrize("n_layers", [0, 1])
+def test_mlp_without_the_kernel_on_the_card(cuda, n_layers):
+    """--mlp-layers 0 and 1 run on the card with plain products and no
+    trunk kernel, as on the CPU."""
+    from careless_tpu_torch.models.base import Inputs
+    from careless_tpu_torch.models.scaling.nn import MLPScaler
+    rng = np.random.default_rng(n_layers)
+    arrays = (rng.integers(0, 50, 4_000), rng.integers(0, 5, 4_000),
+              np.zeros(4_000), rng.normal(size=(4_000, 6)),
+              rng.gamma(2.0, 1.0, 4_000), np.ones(4_000))
+    m = MLPScaler(n_layers, 6, scale_bijector="exp")
+    outs = []
+    for device in ("cpu", cuda):
+        params = m.init(6, device)
+        leaves = [t.requires_grad_(True) for part in params["layers"]
+                  + [params["out"]] for t in part.values()]
+        kernels.reset_launches()
+        q = m.apply(params, Inputs.from_arrays(*arrays, device=device))
+        g = torch.autograd.grad((q.loc + q.scale).sum(), leaves)
+        outs.append((q.loc.cpu(), [t.cpu() for t in g]))
+        assert not any(kernels.LAUNCHES.values())
+    torch.testing.assert_close(outs[1][0], outs[0][0], rtol=1e-5, atol=1e-5)
+    for a, b in zip(outs[1][1], outs[0][1]):
         assert (a - b).abs().max().item() <= 1e-5 * b.abs().max().item()
 
 
@@ -137,9 +223,9 @@ def test_launch_counts_move_only_on_launch(cuda):
     table_gather(table, ids)
     plain_gather(table, ids)
     plain_prng_normal(8, 1, 0, cuda)
-    assert kernels.LAUNCHES == {"trunk_fwd": 0, "trunk_bwd": 0, "gather": 1,
-                                "philox_normal": 0, "fused_ll_fwd": 0,
-                                "fused_ll_bwd": 0, "gather_stream": 0}
+    assert kernels.LAUNCHES == {k: int(k == "gather")
+                                for k in kernels.LAUNCHES}
+    assert len(kernels.LAUNCHES) == 13
 
 
 K4_KINDS = [("normal", 0.0), ("studentt", 4.0), ("laplace", 0.0),

@@ -30,6 +30,8 @@ from careless_tpu.models.merging.variational import \
 from careless_tpu.models.priors.wilson import WilsonPrior as JWilson
 from careless_tpu.models.scaling.image import HybridImageScaler as JHybrid
 from careless_tpu.models.scaling.image import ImageScaler as JImage
+from careless_tpu.models.scaling.image import \
+    NeuralImageScaler as JNeural
 from careless_tpu.models.scaling.nn import MLPScaler as JMLP
 from careless_tpu.ops.plan_gather import plan_gather as jax_plan_gather
 from careless_tpu_torch.device import seeded_generator
@@ -278,8 +280,7 @@ def test_entry_points_default_to_the_card():
 
 
 @pytest.mark.parametrize("flag,value", [
-    ("image_layers", 2), ("analytic_kl", True), ("mlp_dtype", "bfloat16"),
-    ("parents", "None,0"),
+    ("analytic_kl", True), ("parents", "None,0"),
 ])
 def test_unported_options_raise(flag, value):
     arrays, centric, _ = _problem(200, 20, 3, 3, seed=6)
@@ -389,3 +390,86 @@ def test_short_mc2_ev11_training_run(fused):
     for k, v in trained["likelihood"].items():
         assert np.isfinite(v.item())
         assert v.item() != params["likelihood"][k].item()
+
+
+SCALER_FLAGS = [{"image_layers": 2}, {"mlp_dtype": "bfloat16"},
+                {"image_layers": 2, "mlp_dtype": "bfloat16"}]
+
+
+@pytest.mark.parametrize("flags", SCALER_FLAGS)
+def test_scaler_flags_elbo_matches_jax(flags):
+    """--image-layers 2 (NeuralImageScaler: K1 trunk-only, two per-image
+    banks, the f32 head) and --mlp-dtype bfloat16, built by build_model:
+    the loss and every gradient against the JAX pieces' ELBO (as above) at
+    the same parameters, uniforms and noise, with the same tolerances."""
+    n, n_refl, n_images, d, n_layers = 2000, 150, 12, 5, 4
+    arrays, centric, _ = _problem(n, n_refl, n_images, d, seed=20)
+    dm = DataManager(Inputs.from_arrays(*arrays, device="cpu"),
+                     _asu(centric), _parser(mlp_layers=n_layers, **flags),
+                     device="cpu")
+    model, params, _ = dm.build_model()
+    dtype = flags.get("mlp_dtype", "float32")
+    assert model.scaler.__class__.__name__ == (
+        "NeuralImageScaler" if "image_layers" in flags
+        else "HybridImageScaler")
+    jmlp = JMLP(n_layers, d, scale_bijector="exp", mlp_dtype=dtype)
+    scaler = (JNeural(2, n_images, jmlp) if "image_layers" in flags
+              else JHybrid(jmlp, JImage(n_images)))
+    prior = JWilson(centric, np.ones(n_refl, np.float32))
+    posterior = JPost(low=(1e-32 * ~centric).astype(np.float32))
+    rng = np.random.default_rng(21)
+    start = jax.tree.map(
+        lambda a: a + 0.05 * rng.normal(size=a.shape).astype(np.float32),
+        params_to_numpy(params))
+    inputs_j = JInputs.from_arrays(*arrays).sorted_by_refl().with_plans(
+        n_refl, n_images, mlp_width=d)
+    key_f = jax.random.PRNGKey(6)
+    u_f = np.asarray(jax.random.uniform(key_f, (n_refl,), jnp.float32))
+    eps = rng.standard_normal(n).astype(np.float32)
+
+    def jax_loss(params):
+        q = posterior.distribution(params["posterior"])
+        z_f = q.sample(key_f)
+        sd = scaler.apply(params["scaler"], inputs_j)
+        z_obs = jax_plan_gather(z_f, inputs_j.refl_id, inputs_j.plans.refl)
+        ipred = (sd.loc + sd.scale * eps) * jnp.square(z_obs)
+        ll = JLik().build({}, inputs_j).log_prob(ipred).sum()
+        return -ll + jnp.sum(q.log_prob(z_f) - prior.log_prob(z_f))
+
+    loss_j, grads_j = jax.value_and_grad(jax_loss)(
+        jax.tree.map(jnp.asarray, start))
+    inputs = dm.inputs.sorted_by_refl().with_plans(dm.n_refl, dm.n_images)
+    p = params_from_jax(start, "cpu")
+    leaves = [t.requires_grad_(True) for _, t in flatten_params(p)]
+    loss, _ = model.elbo(p, inputs, u_f=torch.tensor(u_f),
+                         eps=torch.tensor(eps))
+    grads = torch.autograd.grad(loss, leaves)
+    np.testing.assert_allclose(loss.item(), float(loss_j), rtol=1e-5)
+    want = jax.tree.leaves(grads_j)
+    assert len(want) == len(grads)
+    for g, w in zip(grads, want):
+        w = np.asarray(w)
+        assert np.abs(g.numpy() - w).max() <= 1e-4 * np.abs(w).max()
+
+
+@pytest.mark.parametrize("flags", SCALER_FLAGS)
+def test_scaler_flags_train(flags):
+    """A few steps of each flag set train: finite, falling losses, and the
+    image banks move (--image-layers)."""
+    arrays, centric, _ = _problem(1500, 100, 6, 4, seed=22)
+    dm = DataManager(Inputs.from_arrays(*arrays, device="cpu"),
+                     _asu(centric), _parser(mlp_layers=3, **flags),
+                     device="cpu")
+    model, params, trainer = dm.build_model()
+    inputs = dm.inputs.sorted_by_refl().with_plans(dm.n_refl, dm.n_images)
+    trained, history = trainer.train(params, seeded_generator(4, "cpu"),
+                                     inputs, 40, chunk_size=20,
+                                     device="cpu")
+    loss = np.asarray(history["loss"])
+    assert len(loss) == 40 and np.isfinite(loss).all()
+    assert loss[-10:].mean() < loss[:10].mean()
+    if "image_layers" in flags:
+        banks = trained["scaler"]["image_layers"]
+        assert len(banks) == 2 and banks[0]["w"].shape == (6, 4, 4)
+        assert not torch.equal(banks[0]["w"],
+                               params["scaler"]["image_layers"][0]["w"])

@@ -64,6 +64,7 @@ print(json.dumps(sorted(sys.modules)))
     for mod in ("io.manager", "kernels._build", "ops.fused_elbo",
                 "models.likelihoods.mono", "models.merging.variational",
                 "ops.chain_layout", "ops.conv_runs",
-                "models.likelihoods.laue"):
+                "models.likelihoods.laue", "ops.fused_mlp",
+                "models.scaling.nn", "models.scaling.image"):
         assert "careless_tpu_torch." + mod in loaded
     assert [m for m in loaded if forbidden(m)] == []

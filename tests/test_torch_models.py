@@ -4,9 +4,14 @@ over by params_from_jax.
 JAX parameters are built by the JAX classes' own init, perturbed with
 numpy noise so that no layer stays the identity, exported as numpy and
 converted. Tolerance rtol 1e-5: f32 closed forms, and the MLP's sums in
-another order (the JAX trunk runs its interpret-mode Pallas kernel).
+another order (the JAX trunk runs its interpret-mode Pallas kernel);
+gradients within 1e-5 of each tensor's largest entry. With --mlp-dtype
+bfloat16 the same tolerances hold at these narrow sizes, where no f32 sum
+lands on the two sides of a bf16 rounding midpoint in the two packages
+(tests/test_torch_fused_mlp.py explains the straddle).
 """
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -18,14 +23,18 @@ from careless_tpu.models.merging.surrogate import \
 from careless_tpu.models.priors.wilson import WilsonPrior as JWilson
 from careless_tpu.models.scaling.image import HybridImageScaler as JHybrid
 from careless_tpu.models.scaling.image import ImageScaler as JImage
+from careless_tpu.models.scaling.image import \
+    NeuralImageScaler as JNeural
 from careless_tpu.models.scaling.nn import MLPScaler as JMLP
 from careless_tpu_torch.models.base import Inputs
 from careless_tpu_torch.models.likelihoods.mono import NormalLikelihood
 from careless_tpu_torch.models.merging.surrogate import \
     TruncatedNormalPosterior
 from careless_tpu_torch.models.priors.wilson import WilsonPrior
+from careless_tpu_torch.models.merging.variational import flatten_params
 from careless_tpu_torch.models.scaling.image import (HybridImageScaler,
-                                                     ImageScaler)
+                                                     ImageScaler,
+                                                     NeuralImageScaler)
 from careless_tpu_torch.models.scaling.nn import MLPScaler
 from careless_tpu_torch.utils.params import params_from_jax, params_to_numpy
 
@@ -134,6 +143,95 @@ def test_hybrid_image_scaler():
     td = tm.apply(params_from_jax(params, "cpu"), t_in)
     _close(td.loc, jd.loc)
     _close(td.scale, jd.scale)
+
+
+def _scaler_grads(jm, tm, params, arrays, seed=11):
+    """Both scalers' (loc, scale) and the gradients of sum(loc c1 + scale
+    c2) in every parameter, JAX's as numpy leaves in tree order."""
+    n = len(arrays[0])
+    rng = np.random.default_rng(seed)
+    c1, c2 = rng.normal(size=(2, n)).astype(np.float32)
+    j_in = JInputs.from_arrays(*arrays)
+
+    def f(p):
+        q = jm.apply(p, j_in)
+        return jnp.sum(q.loc * c1) + jnp.sum(q.scale * c2), q
+    (_, jd), j_grads = jax.value_and_grad(f, has_aux=True)(
+        jax.tree.map(jnp.asarray, params))
+    p = params_from_jax(params, "cpu")
+    leaves = [t.requires_grad_(True) for _, t in flatten_params(p)]
+    td = tm.apply(p, Inputs.from_arrays(*arrays, device="cpu"))
+    grads = torch.autograd.grad((td.loc * torch.tensor(c1)).sum()
+                                + (td.scale * torch.tensor(c2)).sum(),
+                                leaves)
+    want = jax.tree.leaves(j_grads)
+    assert len(want) == len(grads)
+    _close(td.loc, jd.loc)
+    _close(td.scale, jd.scale)
+    for g, w in zip(grads, want):
+        w = np.asarray(w)
+        assert np.abs(g.numpy() - w).max() <= 1e-5 * np.abs(w).max()
+
+
+@pytest.mark.parametrize("n_layers,mlp_dtype", [
+    (3, "float32"), (3, "bfloat16"),   # K1 trunk-only, then the banks
+    (1, "float32"), (1, "bfloat16"),   # the unfused layer loop
+])
+def test_neural_image_scaler(n_layers, mlp_dtype):
+    """--image-layers 2: the shared trunk, two per-image banks gathered by
+    unsorted image ids over 9 images, then the f32 head; the banks are
+    perturbed from the identity so that each image's weights matter."""
+    arrays = _arrays()
+    n_images = 9
+    jm = JNeural(2, n_images, JMLP(n_layers, 6, scale_bijector="exp",
+                                   mlp_dtype=mlp_dtype))
+    tm = NeuralImageScaler(2, n_images, MLPScaler(
+        n_layers, 6, scale_bijector="exp", mlp_dtype=mlp_dtype))
+    j_params = jm.init(None, 6)
+    t_params = params_to_numpy(tm.init(6, "cpu"))
+    assert jax.tree.structure(t_params) == jax.tree.structure(j_params)
+    for a, b in zip(jax.tree.leaves(t_params), jax.tree.leaves(j_params)):
+        np.testing.assert_array_equal(a, np.asarray(b))
+    assert np.unique(arrays[1]).size == n_images
+    assert np.any(np.diff(arrays[1]) < 0)
+    _scaler_grads(jm, tm, _perturb(j_params, 13), arrays)
+
+
+@pytest.mark.parametrize("mlp_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n_layers", [0, 1])
+def test_mlp_scaler_without_the_kernel(n_layers, mlp_dtype):
+    """--mlp-layers 0 and 1: JAX runs no kernel there (the layer loop,
+    bf16 through `_mm`'s casts, then an f32 head); nor does the port."""
+    arrays = _arrays()
+    jm = JMLP(n_layers, 6, scale_bijector="exp", mlp_dtype=mlp_dtype)
+    tm = MLPScaler(n_layers, 6, scale_bijector="exp", mlp_dtype=mlp_dtype)
+    _scaler_grads(jm, tm, _perturb(jm.init(None, 6), 13), arrays)
+
+
+def test_mlp_scaler_bf16_differs_from_f32():
+    """bf16 products move the scales far past the tolerance above."""
+    arrays = _arrays()
+    params = params_from_jax(_perturb(JMLP(3, 6).init(None, 6), 14), "cpu")
+    inputs = Inputs.from_arrays(*arrays, device="cpu")
+    loc = [MLPScaler(3, 6, mlp_dtype=t).apply(params, inputs).loc
+           for t in ("float32", "bfloat16")]
+    assert (loc[0] - loc[1]).abs().max() > 1e-3 * loc[0].abs().max()
+
+
+def test_params_round_trip_image_layers():
+    """The --image-layers banks carry across from a JAX tree leaf for
+    leaf, beside the MLP's."""
+    jm = JNeural(2, 7, JMLP(4, 5))
+    tree = {"posterior": {"loc_raw": np.arange(3, dtype=np.float32),
+                          "scale_raw": -np.ones(3, np.float32)},
+            "scaler": _perturb(jm.init(None, 5), 15)}
+    p = params_from_jax(tree, "cpu")
+    assert p["scaler"]["image_layers"][1]["w"].shape == (7, 5, 5)
+    assert p["scaler"]["image_layers"][1]["b"].shape == (7, 5)
+    back = params_to_numpy(p)
+    assert jax.tree.structure(back) == jax.tree.structure(tree)
+    for a, b in zip(jax.tree.leaves(back), jax.tree.leaves(tree)):
+        np.testing.assert_array_equal(a, b)
 
 
 def test_params_round_trip():
