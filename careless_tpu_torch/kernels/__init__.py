@@ -185,21 +185,59 @@ def trunk_bwd(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, dy,
     return out[:nw], out[nw:], dx
 
 
+# The gathers' launch path. Their ids come from plans (ops/plan_gather.py),
+# which check once, when they are built, that the ids are int32, contiguous,
+# 16-byte aligned on the card and inside their table. So a gather launch
+# checks only what is cheap and what a caller could still get wrong: CUDA
+# f32 table, int32 ids on its device, both contiguous. The device context is
+# entered only when the table is not on the current device, and the stream
+# handle is read without building a Stream object.
+_F32, _I32 = torch.float32, torch.int32
+
+
+def _refuse(what: str, *named) -> None:
+    got = ", ".join(f"{name} {t.dtype} on {t.device}"
+                    + ("" if t.is_contiguous() else " (not contiguous)")
+                    for name, t in named)
+    raise ValueError(f"{what} takes contiguous CUDA tensors on one device: "
+                     f"a float32 table and int32 ids; got {got}")
+
+
+def _launch(fn, idx: int, *args) -> int:
+    """Call a kernel's C entry point on PyTorch's current stream of device
+    `idx`, entering that device's context only when it is not current."""
+    if idx == torch.cuda.current_device():
+        return fn(*args, torch._C._cuda_getCurrentRawStream(idx))
+    with torch.cuda.device(idx):
+        return fn(*args, torch._C._cuda_getCurrentRawStream(idx))
+
+
 def gather(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     """K2: table[ids] for a flat f32 table and int32 ids whose range the
     caller has validated (make_gather_plan does, once, on the host)."""
-    dev = table.device
-    _require(table, "table", torch.float32, dev)
-    _require(ids, "ids", torch.int32, dev)
-    if ids.data_ptr() % 16:
-        ids = ids.clone()  # the kernel loads ids 16 bytes at a time
-    out = torch.empty(ids.shape, dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        err = library().ct_gather(table.data_ptr(), ids.data_ptr(),
-                                  out.data_ptr(), ids.numel(), _stream(dev))
+    idx = table.get_device()
+    if (table.dtype is not _F32 or ids.dtype is not _I32 or idx < 0
+            or ids.get_device() != idx or not table.is_contiguous()
+            or not ids.is_contiguous()):
+        _refuse("gather", ("table", table), ("ids", ids))
+    if ids.data_ptr() & 15:
+        ids = ids.clone()  # a view off a plan: the kernel loads 16 bytes
+    n = ids.numel()
+    # a size as an int: torch.empty parses a torch.Size far more slowly
+    out = torch.empty(n, dtype=_F32, device=table.device)
+    err = _launch(library().ct_gather, idx, table.data_ptr(), ids.data_ptr(),
+                  out.data_ptr(), n)
     _check(err, "gather")
     LAUNCHES["gather"] += 1
-    return out
+    return out if ids.dim() == 1 else out.view(ids.shape)
+
+
+def stream_smem(window: int) -> int:
+    """Shared-memory bytes of K5 at a window of `window` rows of 128: the
+    same sum as csrc/gather_stream.cu's smem_bytes (ct_gather_stream_smem; a
+    card test holds the two equal): a 16-byte mbarrier slot, the window and
+    the up to 3 floats of its alignment shift, rounded to 16 bytes."""
+    return 16 + 4 * (window * 128 + 4)
 
 
 def gather_stream(table: torch.Tensor, ids2d: torch.Tensor,
@@ -209,27 +247,25 @@ def gather_stream(table: torch.Tensor, ids2d: torch.Tensor,
     id tiles, block_rows rows to a tile, tile i reading table rows
     [bases[i], bases[i] + window) of 128 entries (ops/table_gather.py,
     whose windowed_gather_stream checks the tile shapes)."""
-    dev = table.device
-    _require(table, "table", torch.float32, dev)
-    _require(ids2d, "ids2d", torch.int32, dev)
-    _require(bases, "bases", torch.int32, dev)
-    smem = window * 128 * 4
+    idx = table.get_device()
+    if (table.dtype is not _F32 or ids2d.dtype is not _I32
+            or bases.dtype is not _I32 or idx < 0
+            or ids2d.get_device() != idx or bases.get_device() != idx
+            or not table.is_contiguous() or not ids2d.is_contiguous()
+            or not bases.is_contiguous()):
+        _refuse("gather_stream", ("table", table), ("ids2d", ids2d),
+                ("bases", bases))
+    smem = stream_smem(window)
     if smem > MAX_SMEM_PER_BLOCK:
         raise ValueError(f"gather_stream: a window of {window} chunks needs "
                          f"{smem} bytes of shared memory; the card allows "
                          f"{MAX_SMEM_PER_BLOCK}")
-    # the kernel loads the table, ids and out 16 bytes at a time
-    if table.data_ptr() % 16:
-        table = table.clone()
-    if ids2d.data_ptr() % 16:
-        ids2d = ids2d.clone()
-    n_tiles = bases.shape[0]
-    out = torch.empty(ids2d.numel(), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        err = library().ct_gather_stream(
-            table.data_ptr(), table.shape[0], ids2d.data_ptr(),
-            bases.data_ptr(), out.data_ptr(), n_tiles, block_rows * 128,
-            window, _stream(dev))
+    if ids2d.data_ptr() & 15:
+        ids2d = ids2d.clone()  # the kernel loads ids 16 bytes at a time
+    out = torch.empty(ids2d.numel(), dtype=_F32, device=table.device)
+    err = _launch(library().ct_gather_stream, idx, table.data_ptr(),
+                  table.shape[0], ids2d.data_ptr(), bases.data_ptr(),
+                  out.data_ptr(), bases.shape[0], block_rows * 128, window)
     _check(err, "gather_stream")
     LAUNCHES["gather_stream"] += 1
     return out

@@ -135,6 +135,8 @@ def library() -> "ctypes.CDLL":
     # d_in, width, n_layers, head, tile (0: the forward)
     lib.ct_trunk_smem.argtypes = [I, I, I, I, I]
     lib.ct_trunk_smem.restype = ctypes.c_size_t
+    lib.ct_gather_stream_smem.argtypes = [I]   # window
+    lib.ct_gather_stream_smem.restype = ctypes.c_size_t
     lib.ct_error_string.argtypes = [I]
     lib.ct_error_string.restype = ctypes.c_char_p
     return lib

@@ -53,7 +53,7 @@ import numpy as np
 import torch
 
 from .chain_layout import chain_permutation
-from .table_gather import (BLOCK_ROWS, LANES, table_gather,
+from .table_gather import (BLOCK_ROWS, LANES, _check_tiles, table_gather,
                            windowed_gather_stream)
 
 _CHUNK = 512  # cumsum reset interval (see the module docstring)
@@ -66,6 +66,19 @@ PERM_WINDOW_CHUNKS = 160
 MAX_STREAM_TABLE_ROWS = 1 << 20  # table cap of the streaming kernel
 
 
+def _check_ids(name: str, t: torch.Tensor, bound: int) -> None:
+    """A plan's id tensor: int32, contiguous, 16-byte aligned on the card
+    (K2 and K5 load ids 16 bytes at a time) and inside [0, bound). Checked
+    once, when the plan is built, so that the gathers' launches need not."""
+    if t.dtype != torch.int32 or not t.is_contiguous() or (
+            t.is_cuda and t.data_ptr() % 16):
+        raise ValueError(f"plan ids {name} must be contiguous int32 (16-byte "
+                         f"aligned on the card); got {t.dtype}")
+    if t.numel() and (int(t.min()) < 0 or int(t.max()) >= bound):
+        raise ValueError(f"plan ids {name} must lie in [0, {bound}); found "
+                         f"[{int(t.min())}, {int(t.max())}]")
+
+
 @dataclass(frozen=True, eq=False)
 class WindowPlan:
     """A windowed gather's tiles (ops/table_gather.py, K5's contract).
@@ -75,6 +88,9 @@ class WindowPlan:
     window: window width in rows of 128 entries
     block_rows: tile height in rows of 128
     stream: past the VMEM cap: the gather runs through K5
+    table_size: entries of the table gathered from; every window lies
+            inside it, zero-padded to whole rows (or starts at row 0 when
+            it is wider than the table)
     """
 
     ids2d: torch.Tensor
@@ -82,6 +98,13 @@ class WindowPlan:
     window: int
     block_rows: int
     stream: bool
+    table_size: int
+
+    def __post_init__(self):
+        _check_ids("ids2d", self.ids2d, self.table_size)
+        rows = -(-self.table_size // LANES)
+        _check_ids("bases", self.bases, max(rows - self.window, 0) + 1)
+        _check_tiles(self.ids2d, self.bases, self.window, self.block_rows)
 
     def gather(self, table: torch.Tensor, n: int) -> torch.Tensor:
         """table[ids[:n]] through K5 (the plain version on the CPU)."""
@@ -117,6 +140,14 @@ class GatherPlan:
     window: Optional[WindowPlan] = None
     perm_plan: Optional[WindowPlan] = None
 
+    def __post_init__(self):
+        n = self.ids.numel()
+        _check_ids("ids", self.ids, self.table_size)
+        if self.perm is not None:
+            _check_ids("perm", self.perm, n)
+        _check_ids("pos", self.pos, n + 1)
+        _check_ids("cp_ids", self.cp_ids, 2 * ((n + _CHUNK) // _CHUNK))
+
     @property
     def stream(self) -> bool:
         return self.window is not None and self.window.stream
@@ -134,19 +165,24 @@ class ChainGatherPlan:
     inner: GatherPlan
     table_size: int
 
+    def __post_init__(self):
+        _check_ids("sigma", self.sigma, self.table_size)
+        _check_ids("sigma_inv", self.sigma_inv, self.table_size)
+
 
 def _i32(a, device) -> torch.Tensor:
     return torch.as_tensor(np.ascontiguousarray(a, dtype=np.int32),
                            device=device)
 
 
-def _window_plan(planned, block_rows: int, stream: bool,
+def _window_plan(planned, block_rows: int, stream: bool, table_size: int,
                  device) -> Optional[WindowPlan]:
     ids2d, bases, window = planned
     if ids2d is None:
         return None
     return WindowPlan(ids2d=_i32(ids2d, device), bases=_i32(bases, device),
-                      window=window, block_rows=block_rows, stream=stream)
+                      window=window, block_rows=block_rows, stream=stream,
+                      table_size=int(table_size))
 
 
 def _plan_windows(ids, table_size: int, max_chunks: int = MAX_WINDOW_CHUNKS,
@@ -206,9 +242,6 @@ def make_gather_plan(ids: torch.Tensor, table_size: int) -> GatherPlan:
     device = ids.device
     ids_np = ids.detach().cpu().numpy().reshape(-1).astype(np.int64)
     n = len(ids_np)
-    if n and (ids_np.min() < 0 or ids_np.max() >= table_size):
-        raise ValueError(f"ids must lie in [0, {table_size}); found "
-                         f"[{ids_np.min()}, {ids_np.max()}]")
     is_sorted = bool(np.all(ids_np[1:] >= ids_np[:-1])) if n > 1 else True
     if is_sorted:
         perm = None
@@ -220,7 +253,8 @@ def make_gather_plan(ids: torch.Tensor, table_size: int) -> GatherPlan:
     if -(-table_size // LANES) > MAX_TABLE_ROWS:
         planned = _plan_windows(ids_np, table_size,
                                 max_rows=MAX_STREAM_TABLE_ROWS)
-        window = _window_plan(planned, BLOCK_OBS // LANES, True, device)
+        window = _window_plan(planned, BLOCK_OBS // LANES, True, table_size,
+                              device)
     return GatherPlan(
         ids=_i32(ids_np, device), perm=None if perm is None else _i32(perm,
                                                                      device),
@@ -254,7 +288,7 @@ def make_chain_gather_plan(refl_id: torch.Tensor, harmonic_id: torch.Tensor,
         planned = _plan_windows(perm, n, max_chunks=PERM_WINDOW_CHUNKS,
                                 max_rows=MAX_STREAM_TABLE_ROWS,
                                 block_obs=block)
-        perm_plan = _window_plan(planned, block // LANES, stream, device)
+        perm_plan = _window_plan(planned, block // LANES, stream, n, device)
         if perm_plan is None:
             return None  # displacement too large for the windows
     inner = GatherPlan(ids=_i32(local, device),

@@ -5,8 +5,9 @@ Counterpart of careless_tpu/ops/table_gather.py.
 
 K2 (windowed_gather there): the TPU kernel's window/bases plan was a VMEM
 device and is not part of the contract; the CUDA kernel (csrc/gather.cu)
-takes the flat ids directly. The caller validates the id range once, on
-the host (ops/plan_gather.py).
+takes the flat ids directly. The caller validates the ids once, when it
+builds them (the plans of ops/plan_gather.py: int32, contiguous, aligned,
+inside the table), so a launch checks only type, device and contiguity.
 
 K5 (windowed_gather_stream there): the same gather for tables past the
 TPU's VMEM cap, with the TPU kernel's windowed contract kept. ids come as
@@ -14,7 +15,8 @@ TPU's VMEM cap, with the TPU kernel's windowed contract kept. ids come as
 only ids inside its window, table rows [bases[i], bases[i] + window) of
 128 entries; an id outside it gives 0. The table reads as if zero-padded
 past its end. The CUDA kernel (csrc/gather_stream.cu) stages each tile's
-window in shared memory and resolves the tile's ids from there.
+window in shared memory with one bulk asynchronous copy, loads the tile's
+ids while it runs, and resolves them from there.
 """
 from __future__ import annotations
 

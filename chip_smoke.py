@@ -12,12 +12,18 @@ Phases, each printed on its own lines:
      against its plain PyTorch version on the same inputs and timed by CUDA
      events (median of 30 launches after warm-up) beside its plain version,
      the one PyTorch call computing the same function where there is one,
-     and its bound on this card; K3 also passes a statistical gate at
-     n = 2^22; K4 is held for all five likelihood kinds, with and without
-     supplied noise, and its in-kernel normals bitwise against K3's; K5 on
-     the JAX package's 300k swap permutation, bitwise against its plain
-     version and x[perm]; K1 at 20 layers of width 28 (d_in 28) and width
-     32 (d_in 128), whose backward runs at a shorter tile;
+     and its bound on this card; the gathers (K2, K5) also bitwise against
+     index_select, with their host time per call over back-to-back calls
+     (host_us) and their device time with a warm L2 and after an L2 flush
+     (cold_device_ms), each beside index_select's, and K2's launch path
+     timed step by step; K3 also passes a statistical gate at n = 2^22; K4
+     is held for all five likelihood kinds, with and without supplied
+     noise, and its in-kernel normals bitwise against K3's, its Student-t
+     gradients per observation within the rounding of ipred and against
+     f64 at eight more seeds (studentt_check); K5 on the JAX package's 300k
+     swap permutation, bitwise against its plain version and x[perm]; K1
+     at 20 layers of width 28 (d_in 28) and width 32 (d_in 128), whose
+     backward runs at a shorter tile;
   3. check: the port's loss and every parameter gradient at a small size on
      the card against the same computation on the CPU (plain versions), at
      mc = 1 for the defaults, --image-layers 2, --mlp-dtype bfloat16 and
@@ -36,14 +42,15 @@ Phases, each printed on its own lines:
      bf16), 100 steps each. Every loss finite, the loss falling, and each
      kernel of the slice launched by that run (the counts are set to 0 just
      before it), each slice's own K1 instantiation once per step and the
-     other three not at all;
+     other three not at all, K2 as often as GATHERS_PER_STEP says;
   5. the Laue slice (`careless-tpu poly` defaults) at 10,000,000
      observations, 500,000 reflections and 20,000 images on the harmonic-
      chain layout: the host set-up timed step by step, every kernel of the
      step held against its plain version and timed at the step's shapes
      (K1 on the 10M metadata, K2 at each of its nine table and id pairs, K3
-     at 10M, K5 at the chain plan's own backward permute), then 100 steps
-     with K5 launched once per step.
+     at 10M, K5 at the chain plan's own backward permute; K2 at the image
+     cotangent's random 10M permute is a row of the kernels line of its
+     own), then 100 steps with K5 launched once per step and K2 nine times.
 The second-to-last line is the card's name and power limit; the last line is
 {"ok": true, "device": {...}}. Any failed check raises (exit code != 0), and
 without a CUDA device the script exits non-zero before printing a result.
@@ -65,6 +72,16 @@ STEPS, CHUNK = 300, 50   # training steps of the slice phase, steps per chunk
 LAUE_OBS, LAUE_REFL, LAUE_IMAGES = 10_000_000, 500_000, 20_000
 STEPS_LAUE = 100
 N_WIDE = 100_000   # observations of the width-28 and width-32 trunk checks
+# the Laue step's K2 launch at a random permute of a 10M-entry table, and
+# its row in the kernels line
+LAUE_PERM_PAIR = "image cotangent by perm"
+LAUE_PERM_ROW = "gather_laue_image_perm"
+# host_us calls at the Laue shapes: few enough that a device slower than
+# the host does not fill the launch queue
+LAUE_HOST_CALLS = 300
+# K2 launches per step of each slice (the gathers of ops/plan_gather.py)
+GATHERS_PER_STEP = {"default": 7, "a": 14, "b": 14, "image_layers": 3,
+                    "bf16": 7, "image_layers_bf16": 3, "laue": 9}
 
 # the mono defaults of the CLI, copied from careless_tpu/args/*.py
 MONO_DEFAULTS = dict(
@@ -158,25 +175,98 @@ def time_ms(torch, fn, reps=30, warmup=5) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in events)
 
 
-def device_ms(torch, fn, reps=30) -> float:
-    """Device time per call of fn: the kernels' own time, summed over the
-    device-side events of torch.profiler (CUPTI), without the host's launch
-    time that CUDA events around one call also hold when the host is the
-    slower side."""
+def _device_times(torch, fn, reps, attempts=5):
+    """{kernel name: device microseconds per call of fn} over `reps` calls,
+    from the device-side events of torch.profiler (CUPTI), or None. On the
+    card the profiler drops some kernel records of a capture, and now and
+    then holds a record from before it or none at all; so each kernel's
+    time per call is its mean over the launches captured times its
+    launches per call (the count captured over reps, rounded; a stray
+    record rounds to 0), and a capture without a device event is taken
+    again, up to `attempts` times."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    total = sum(e.self_device_time_total for e in prof.key_averages()
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        seen = [e for e in prof.key_averages()
                 if e.device_type == DeviceType.CUDA
-                and not getattr(e, "is_user_annotation", False))
-    return total / 1e3 / reps
+                and not getattr(e, "is_user_annotation", False)
+                and e.self_device_time_total > 0
+                and round(e.count / reps) >= 1]
+        for e in seen:
+            CAPTURED["records"] += e.count
+            CAPTURED["launches"] += reps * round(e.count / reps)
+        if seen:
+            return {e.key: e.self_device_time_total / e.count
+                    * round(e.count / reps) for e in seen}
+    return None
+
+
+# kernel records _device_times kept, against the launches they stand for
+CAPTURED = {"records": 0, "launches": 0}
+
+
+def device_ms(torch, fn, reps=30, flush=None):
+    """Device time per call of fn: the kernels' own time, summed over the
+    device-side events of torch.profiler (CUPTI), without the host's launch
+    time that CUDA events around one call also hold when the host is the
+    slower side. With `flush`, each call runs after flush() (an L2 flush:
+    COLD_L2_BYTES written), and only the kernels that flush() alone does
+    not launch are summed, so the flush is not counted. None (not
+    measured) where the profiler kept capturing nothing."""
+    if flush is None:
+        times = _device_times(torch, fn, reps)
+        return None if times is None else sum(times.values()) / 1e3
+    flush_keys = _device_times(torch, flush, reps)
+
+    def cold():
+        flush()
+        fn()
+    times = _device_times(torch, cold, reps)
+    if flush_keys is None or times is None:
+        return None
+    return sum(t for k, t in times.items() if k not in flush_keys) / 1e3
+
+
+COLD_L2_BYTES = 128 << 20   # written before each cold call: 2.5x the 50 MB L2
+
+
+def l2_flush(torch, dev):
+    """A function that evicts the card's L2 by writing COLD_L2_BYTES."""
+    buf = torch.empty(COLD_L2_BYTES // 4, device=dev)
+    return buf.zero_
+
+
+def host_us(torch, fns, calls=10_000, rounds=10):
+    """Host microseconds per call of each of fns ({name: fn}): `calls`
+    back-to-back calls of each, timed by time.perf_counter in `rounds`
+    rounds that take the functions in turn, so that a host whose speed
+    drifts during the run slows them alike; the median round of each. A
+    round starts synchronised and its clock stops at the return of its
+    last call, before the synchronise, so a device slower than the host
+    does not count unless the launch queue fills (the slow rows take few
+    enough calls)."""
+    per = max(1, calls // rounds)
+    for fn in fns.values():
+        for _ in range(10):
+            fn()
+    times = {name: [] for name in fns}
+    for _ in range(rounds):
+        for name, fn in fns.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(per):
+                fn()
+            times[name].append(1e6 * (time.perf_counter() - t0) / per)
+    torch.cuda.synchronize()
+    return {name: statistics.median(t) for name, t in times.items()}
 
 
 def bound(flops: float, nbytes: float, peak_flops: float, peak_bw: float):
@@ -201,6 +291,7 @@ def check(ok: bool, what: str):
 def kernel_phase(torch, dev, gen, peak_flops, peak_bw):
     """Hold each kernel against its plain version and time it."""
     n = N_OBS
+    launch_path = launch_phase(torch, dev, gen)   # before any profiling
     x = torch.randn(n, D_META, generator=gen, device=dev)
     rows = trunk_rows(torch, gen, x, peak_flops, peak_bw)
     # the other K1 instantiations draw from a generator of their own, so
@@ -216,7 +307,7 @@ def kernel_phase(torch, dev, gen, peak_flops, peak_bw):
             ids = torch.sort(ids).values
         cases[label] = gather_row(torch, gen, size, ids.to(torch.int32),
                                   label, peak_flops, peak_bw)
-    rows["gather"] = cases["z_f"]
+    rows["gather"] = dict(cases["z_f"], launch_path_host_us=launch_path)
     print("gather at the image table (2,000 entries, unsorted ids): "
           + json.dumps(cases["image"]))
     rows["philox_normal"] = philox_row(torch, dev, gen, n, 3 * n, peak_flops,
@@ -373,26 +464,129 @@ def wide_trunk_phase(torch, gen, dev, peak_flops, peak_bw):
     return out
 
 
-def gather_row(torch, gen, size, ids, label, peak_flops, peak_bw):
+def gather_timings(torch, fns, flush, calls):
+    """For each of `fns` ({prefix: fn}, the kernel under "" and
+    index_select under "library_"): host microseconds per call (host_us,
+    all of fns in turn), device milliseconds per call with a warm L2
+    (device_ms) and after an L2 flush (cold_device_ms)."""
+    out = {prefix + "host_us": us
+           for prefix, us in host_us(torch, fns, calls).items()}
+    for prefix, fn in fns.items():
+        out[prefix + "device_ms"] = device_ms(torch, fn)
+        out[prefix + "cold_device_ms"] = device_ms(torch, fn, flush=flush)
+    return out
+
+
+def gather_row(torch, gen, size, ids, label, peak_flops, peak_bw,
+               calls=10_000):
     """K2 over a random table of `size` entries by the int32 `ids`, held
-    bit for bit against its plain version and timed beside it and
-    index_select; returns its kernel row."""
+    bit for bit against its plain version and index_select, and timed
+    beside them: CUDA events (ms), host time per call over `calls`
+    back-to-back calls (host_us), device time warm and after an L2 flush,
+    for K2 and for index_select; returns its kernel row."""
     from careless_tpu_torch import kernels
     from careless_tpu_torch.ops.table_gather import plain_gather, table_gather
 
     table = torch.randn(size, generator=gen, device=ids.device)
-    err = (table_gather(table, ids) - plain_gather(table, ids)
-           ).abs().max().item()
-    check(err == 0.0, f"gather ({label}) differs from plain: {err}")
+    got = table_gather(table, ids)
+    err = (got - plain_gather(table, ids)).abs().max().item()
+    check(err == 0.0 and torch.equal(got, torch.index_select(table, 0, ids)),
+          f"gather ({label}) differs from plain or index_select: {err}")
+    del got
     b_ms, b_by = bound(0.0, 4.0 * (2 * ids.numel() + size), peak_flops,
                        peak_bw)
+    timed = gather_timings(
+        torch, {"": lambda: kernels.gather(table, ids),
+                "library_": lambda: torch.index_select(table, 0, ids)},
+        l2_flush(torch, ids.device), calls)
     return dict(
         max_abs_err=err, tolerance=0.0,
         ms=time_ms(torch, lambda: kernels.gather(table, ids)),
-        device_ms=device_ms(torch, lambda: kernels.gather(table, ids)),
         plain_ms=time_ms(torch, lambda: plain_gather(table, ids)),
         library_ms=time_ms(torch, lambda: torch.index_select(table, 0, ids)),
-        bound_ms=b_ms, bound_by=b_by, table=size, n_ids=ids.numel())
+        **timed, host_calls=calls, bound_ms=b_ms, bound_by=b_by, table=size,
+        n_ids=ids.numel())
+
+
+def launch_phase(torch, dev, gen, steps=True, calls=10_000):
+    """Host time of the gathers' launches, by host_us (less an empty call's
+    time), before the run's first profiler capture: profiling leaves
+    PyTorch's own calls in the process slower (PERF.md §6), so the
+    gathers' rows, measured later, compare kernel and index_select only
+    with each other. At the mono z_f shape (1M sorted ids into 50k
+    entries): K2's launcher whole and index_select, and with `steps` each
+    step of a K2 launch alone, those the launcher took on every call before
+    it relied on its plans (two dtype/device/contiguity checks by
+    kernels._require, the device context, torch.cuda.current_stream, an
+    output sized by ids.shape) beside those it takes now (one expression of
+    cheap checks, torch.cuda.current_device, the raw stream handle, an
+    output sized by an int), and the ctypes call, which launches. At the
+    300k swap permutation (swap_windows): K5's launcher whole beside
+    index_select and K2 on its flat ids. Draws from a generator of its own
+    seeded from gen's seed."""
+    from careless_tpu_torch import kernels
+    from careless_tpu_torch.kernels._build import library
+
+    gen = own_generator(torch, gen, 3)
+    table = torch.randn(N_REFL, generator=gen, device=dev)
+    ids = torch.sort(torch.randint(0, N_REFL, (N_OBS,), generator=gen,
+                                   device=dev)).values.to(torch.int32)
+    perm, ids2d, bases, window = swap_windows(torch, dev)
+    x = torch.randn(perm.shape[0], generator=gen, device=dev)
+    flat = ids2d.reshape(-1)
+    out = torch.empty(N_OBS, device=dev)
+    ct_gather, idx = library().ct_gather, dev.index
+    stream = torch._C._cuda_getCurrentRawStream(idx)
+    f32, i32 = torch.float32, torch.int32
+
+    def context():
+        with torch.cuda.device(dev):
+            pass
+
+    def checks():
+        return (table.dtype is not f32 or ids.dtype is not i32
+                or table.get_device() < 0 or ids.get_device() != idx
+                or not table.is_contiguous() or not ids.is_contiguous())
+
+    fns = {
+        "K2 launcher, whole": lambda: kernels.gather(table, ids),
+        "index_select": lambda: torch.index_select(table, 0, ids),
+        "K5 launcher at the swap permutation, whole": lambda:
+            kernels.gather_stream(x, ids2d, bases, window, 64),
+        "index_select at the swap permutation": lambda:
+            torch.index_select(x, 0, flat),
+        "K2 launcher at the swap permutation": lambda:
+            kernels.gather(x, flat),
+    }
+    if steps:
+        fns.update({
+            "before: one _require check (two per call)":
+                lambda: kernels._require(ids, "ids", i32, dev),
+            "before: torch.cuda.device context": context,
+            "before: torch.cuda.current_stream(dev).cuda_stream":
+                lambda: torch.cuda.current_stream(dev).cuda_stream,
+            "before: torch.empty of the output, sized by ids.shape": lambda:
+                torch.empty(ids.shape, dtype=f32, device=dev),
+            "now: type, device and contiguity checks": checks,
+            "now: torch.cuda.current_device()": torch.cuda.current_device,
+            "now: torch._C._cuda_getCurrentRawStream": lambda:
+                torch._C._cuda_getCurrentRawStream(idx),
+            "now: torch.empty of the output, sized by an int": lambda:
+                torch.empty(N_OBS, dtype=f32, device=dev),
+            "both: three data_ptr() calls": lambda: (
+                table.data_ptr(), ids.data_ptr(), out.data_ptr()),
+            "both: the ctypes call, which launches": lambda: ct_gather(
+                table.data_ptr(), ids.data_ptr(), out.data_ptr(), N_OBS,
+                stream)})
+    timed = host_us(torch, {"empty call (subtracted)": lambda: None, **fns},
+                    calls)
+    empty = timed["empty call (subtracted)"]
+    out_us = {k: v - empty for k, v in timed.items() if k in fns}
+    out_us["empty call (subtracted)"] = empty
+    print(("gather launch path" if steps else "gather launches again, after "
+           "the run's profiler captures") + ", host us per call: "
+          + json.dumps(out_us), flush=True)
+    return out_us
 
 
 def philox_row(torch, dev, gen, n, offset, peak_flops, peak_bw):
@@ -425,6 +619,139 @@ def philox_row(torch, dev, gen, n, offset, peak_flops, peak_bw):
         bound_ms=b_ms, bound_by=b_by)
 
 
+def k4_inputs(torch, gen, n, dev):
+    """K4's inputs (loc, scale, a, f, iobs, sig) for n observations, drawn
+    from gen: loc ~ 1 + 0.3 N(0, 1), scale in [0.05, 0.3), a ~ +-(1 + 0.1
+    N(0, 1)) with 5 % negative, f in [0.3, 2.5), iobs ~ f^2 (1 + 0.2
+    N(0, 1)), sig in [0.1, 1.0): at sig 0.1 and f 2.5 a Student-t
+    gradient is most sensitive to the rounding of ipred."""
+    f = 0.3 + 2.2 * torch.rand(n, generator=gen, device=dev)
+    return [1.0 + 0.3 * torch.randn(n, generator=gen, device=dev),   # loc
+            0.05 + 0.25 * torch.rand(n, generator=gen, device=dev),  # scale
+            torch.where(torch.rand(n, generator=gen, device=dev) < 0.05,
+                        -1.0, 1.0)
+            * (1.0 + 0.1 * torch.randn(n, generator=gen, device=dev)),  # a
+            f,
+            f * f * (1.0 + 0.2 * torch.randn(n, generator=gen,
+                                             device=dev)),          # iobs
+            0.1 + 0.9 * torch.rand(n, generator=gen, device=dev)]    # sig
+
+
+IPRED_ULPS = 4   # ulps of ipred the two versions' roundings may differ by
+# the generators of studentt_settle, and the one of the card test
+# (tests/test_torch_cuda.py): at seed 0 with supplied noise the studentt
+# dloc differs from the plain version by 6.6e-4, past 1e-5 of its largest
+# entry (1.16 times that)
+STUDENTT_SEEDS = tuple(range(8))
+STUDENTT_TEST_SEED = 0
+
+
+def studentt_check(torch, args, ev, eps, eps_kernel, ct, kind, dof, got,
+                   ref, label):
+    """K4-bwd's four gradients of a Student-t kind (got) against their
+    plain version (ref), held per observation; raises past the bound.
+
+    Why not 1e-5 of each tensor's largest entry, as for the other kinds:
+    the kernel rounds ipred = (a loc + |a| scale eps) f^2 with fused
+    multiply-adds where the plain version rounds every step, so the two
+    ipred differ by a few ulp; a Student-t d ll / d ipred is steep near
+    r = 0 (slope -(dof + 1) / (dof s^2), -125 at dof 4 and s = 0.1) and
+    flat at its largest value (r = sqrt(dof)), so a few ulp of ipred at
+    f = 2.5 move dloc by ~3e-4 where 1e-5 of its largest entry is ~6.5e-4.
+    The bound per observation and gradient X = ct g m_X (g = d ll / d
+    ipred, m_X its multiplier: a f^2, |a| eps f^2, (loc + sign(a) scale
+    eps) f^2, 2 z f) is |ct| |dg/dipred| delta |m_X| + 1e-5 max|X|, with
+    dg/dipred from autograd in f64 and delta = IPRED_ULPS 2^-23 (|a loc| +
+    |a scale eps|) f^2 (ulps of the terms, which a cancelling z can hide),
+    plus |a| scale |eps_kernel - eps| f^2 where the kernel draws its own
+    normals (K3's words, normals within a few ulp of the plain version's).
+    Also held: the kernel is no farther from the f64 gradient (computed
+    from the same f32 inputs) than the plain version is, plus that bound.
+    Returns the largest ratios: old (|got - ref| over 1e-5 max|ref|), new
+    (over the bound), f64 (the kernel's excess over the plain version's
+    f64 error, over the bound) and the worst dloc entries."""
+    from careless_tpu_torch.ops.fused_elbo import pointwise_grads
+
+    loc, scale, a, f, iobs, sig = (t.double() for t in args)
+    e = eps.double()
+    z = a * loc + a.abs() * scale * e
+    ipred = (z * f * f).requires_grad_(True)
+    g, _ = pointwise_grads(kind, dof, ev.double(), iobs, sig, ipred)
+    (slope,) = torch.autograd.grad(g.sum(), ipred)
+    g = g.detach()
+    delta = IPRED_ULPS * 2.0 ** -23 * ((a * loc).abs()
+                                       + (a * scale * e).abs()) * f * f
+    if eps_kernel is not None:
+        delta = delta + a.abs() * scale * (eps_kernel.double() - e).abs() \
+            * f * f
+    w = float(ct)
+    mults = (a * f * f, a.abs() * e * f * f,
+             (loc + torch.sign(a) * scale * e) * f * f, 2.0 * z * f)
+    out = dict(old=0.0, new=0.0, f64=0.0)
+    for name, m, k, p in zip(("dloc", "dscale", "da", "df"), mults, got, ref):
+        exact = w * g * m
+        bnd = abs(w) * slope.abs() * delta * m.abs() \
+            + 1e-5 * exact.abs().max()
+        diff = (k.double() - p.double()).abs()
+        excess = (k.double() - exact).abs() - (p.double() - exact).abs()
+        new, f64 = (diff / bnd).max().item(), (excess / bnd).max().item()
+        check(new <= 1.0 and f64 <= 1.0,
+              f"fused_ll_bwd {kind} {name} ({label}): past the ipred "
+              f"rounding bound: |kernel - plain| {new:.3g} and kernel's "
+              f"excess f64 error {f64:.3g} times the bound")
+        out["old"] = max(out["old"], diff.max().item()
+                         / (1e-5 * p.abs().max().item()))
+        out["new"], out["f64"] = max(out["new"], new), max(out["f64"], f64)
+        if name == "dloc":
+            top = torch.topk(diff, 3).indices
+            out["worst_dloc"] = [dict(
+                ipred=ipred[i].item(), f=f[i].item(), sig=sig[i].item(),
+                r_at_sig=((iobs[i] - ipred[i]) / sig[i]).item(),
+                kernel=k[i].item(), plain=p[i].item(),
+                f64=exact[i].item(), bound=bnd[i].item()) for i in top]
+    return out
+
+
+def studentt_settle(torch, dev, seeds=STUDENTT_SEEDS):
+    """K4-bwd's Student-t kinds at N = 1M on k4_inputs from a generator of
+    each seed, with supplied noise and with the kernel's own normals, held
+    by studentt_check; returns the largest ratios per kind and seed."""
+    from careless_tpu_torch import kernels
+    from careless_tpu_torch.ops.fused_elbo import (
+        plain_fused_likelihood_grads, plain_prng_normal, studentt_log_norm)
+
+    n = N_OBS
+    key, offset = 0x0FEDCBA987654321, n
+    ev = torch.tensor([1.3, 0.2, 0.7], device=dev)
+    ct = torch.tensor(0.75, device=dev)
+    eps_k3 = kernels.philox_normal(n, key, offset, dev)
+    eps_plain = plain_prng_normal(n, key, offset, dev)
+    found = {}
+    for s in seeds:
+        gen = torch.Generator(device=dev).manual_seed(s)
+        args = k4_inputs(torch, gen, n, dev)
+        noise = torch.randn(n, generator=gen, device=dev)
+        for kind in ("studentt", "studentt_ev11"):
+            cfg = dict(kind=kind, dof=4.0, seed=key, offset=offset,
+                       t_const=studentt_log_norm(4.0))
+            for supplied in (noise, None):
+                eps = noise if supplied is not None else eps_plain
+                got = kernels.fused_ll_bwd(*args, None, supplied, ev, ct,
+                                           **cfg)
+                ref = plain_fused_likelihood_grads(*args, None, ev, eps, ct,
+                                                   kind=kind, dof=4.0)
+                label = (f"seed {s}, "
+                         + ("noise" if supplied is not None else "philox"))
+                found[f"{kind}, {label}"] = studentt_check(
+                    torch, args, ev, eps,
+                    None if supplied is not None else eps_k3, ct, kind, 4.0,
+                    got[:4], ref[:4], label)
+    print("K4-bwd Student-t against the ipred rounding bound: "
+          + json.dumps(found), flush=True)
+    return {k: {r: v[r] for r in ("old", "new", "f64")}
+            for k, v in found.items()}
+
+
 def fused_ll_phase(torch, dev, gen, peak_flops, peak_bw):
     """K4-fwd and K4-bwd at N = 1M for all five kinds, with and without
     supplied noise, against their plain versions; the in-kernel normals
@@ -435,8 +762,12 @@ def fused_ll_phase(torch, dev, gen, peak_flops, peak_bw):
     largest entry (the kernel fuses multiply-adds where the plain version
     rounds each step, and da = dz loc + sign(a) scale eps dz cancels),
     except Laplace's where |iobs - ipred| is within 1e-5 of their size (its
-    gradient jumps there, and the two versions may land on either side);
-    the Ev11 sums within 1e-5 of the sum of their terms' magnitudes."""
+    gradient jumps there, and the two versions may land on either side),
+    and the Student-t kinds', held per observation within the rounding of
+    ipred (studentt_check says why, and holds the kernel against f64; at
+    other inputs, such as studentt_settle's seeds, 1e-5 of the largest
+    entry is exceeded by rounding alone); the Ev11 sums within 1e-5 of the
+    sum of their terms' magnitudes."""
     from careless_tpu_torch import kernels
     from careless_tpu_torch.ops.fused_elbo import (
         plain_fused_likelihood_grads, plain_fused_likelihood_sum,
@@ -444,16 +775,7 @@ def fused_ll_phase(torch, dev, gen, peak_flops, peak_bw):
 
     n = N_OBS
     seed, offset = 0x0FEDCBA987654321, n     # sample 1 of a step
-    f = 0.3 + 2.2 * torch.rand(n, generator=gen, device=dev)
-    args = [1.0 + 0.3 * torch.randn(n, generator=gen, device=dev),   # loc
-            0.05 + 0.25 * torch.rand(n, generator=gen, device=dev),  # scale
-            torch.where(torch.rand(n, generator=gen, device=dev) < 0.05,
-                        -1.0, 1.0)
-            * (1.0 + 0.1 * torch.randn(n, generator=gen, device=dev)),  # a
-            f,
-            f * f * (1.0 + 0.2 * torch.randn(n, generator=gen,
-                                             device=dev)),          # iobs
-            0.1 + 0.9 * torch.rand(n, generator=gen, device=dev)]    # sig
+    args = k4_inputs(torch, gen, n, dev)
     ev = torch.tensor([1.3, 0.2, 0.7], device=dev)
     noise = torch.randn(n, generator=gen, device=dev)
     eps_k3 = kernels.philox_normal(n, seed, offset, dev)
@@ -490,9 +812,14 @@ def fused_ll_phase(torch, dev, gen, peak_flops, peak_bw):
                 at_jump = (args[4] - ipred).abs() <= 1e-5 * (
                     args[4].abs() + ipred.abs())
                 jumps = max(jumps, int(at_jump.sum()))
+            if kind.startswith("studentt"):
+                studentt_check(torch, args, ev, eps,
+                               None if supplied is not None else eps_k3, ct,
+                               kind, dof, got[:4], ref[:4], "kernel phase")
             for name, g, r in zip(("dloc", "dscale", "da", "df"), got, ref):
                 e = torch.where(at_jump, 0.0, (g - r).abs()).max().item()
-                check(e <= 1e-5 * r.abs().max().item(),
+                check(kind.startswith("studentt")
+                      or e <= 1e-5 * r.abs().max().item(),
                       f"fused_ll_bwd {kind} {name}: max abs err {e}")
                 err_bwd = max(err_bwd, e)
             if kind.endswith("_ev11"):
@@ -552,6 +879,11 @@ def fused_ll_phase(torch, dev, gen, peak_flops, peak_bw):
                           kinds_checked=[k for k, _ in kinds],
                           philox_bitwise_k3=True)
     rows["fused_ll_bwd"]["laplace_obs_at_the_jump"] = jumps
+    settled = studentt_settle(torch, dev)
+    rows["fused_ll_bwd"]["studentt_settle"] = {
+        "seeds": len(STUDENTT_SEEDS),
+        **{f"max_{r}_ratio": max(v[r] for v in settled.values())
+           for r in ("old", "new", "f64")}}
     return rows
 
 
@@ -852,11 +1184,12 @@ def train_slice(torch, dev, seed, model, params, trainer, inputs, f_true,
 
 
 def k5_case(torch, dev, gen, x, ids2d, bases, window, block_rows, perm,
-            peak_flops, peak_bw, label):
-    """K5 at one case: held bit for bit against its plain version and
-    against x[perm], then timed beside its plain version, index_select and
-    K2 on the same flat ids (K5's windows are the plan's, padded with the
-    last id, so all three compute the same (R * 128,) values)."""
+            peak_flops, peak_bw, label, calls=10_000):
+    """K5 at one case: held bit for bit against its plain version, x[perm],
+    index_select and K2 on the same flat ids (K5's windows are the plan's,
+    padded with the last id, so all compute the same (R * 128,) values),
+    then timed beside them: CUDA events, host time per call over `calls`
+    back-to-back calls, device time warm and after an L2 flush."""
     from careless_tpu_torch import kernels
     from careless_tpu_torch.ops.table_gather import (plain_windowed_gather,
                                                      windowed_gather_stream)
@@ -869,22 +1202,27 @@ def k5_case(torch, dev, gen, x, ids2d, bases, window, block_rows, perm,
     check(torch.equal(got[:n], x[perm.long()]),
           f"gather_stream ({label}) differs from x[perm]")
     flat = ids2d.reshape(-1)
-    check(torch.equal(got, kernels.gather(x, flat)),
-          f"gather_stream ({label}) differs from K2 on the flat ids")
+    check(torch.equal(got, kernels.gather(x, flat))
+          and torch.equal(got, torch.index_select(x, 0, flat)),
+          f"gather_stream ({label}) differs from K2 or index_select on the "
+          "flat ids")
+    del got
     n_ids = flat.numel()
     b_ms, b_by = bound(0.0, 4.0 * (2 * n_ids + n), peak_flops, peak_bw)
+    timed = gather_timings(
+        torch, {"": lambda: kernels.gather_stream(*args),
+                "library_": lambda: torch.index_select(x, 0, flat),
+                "k2_": lambda: kernels.gather(x, flat)},
+        l2_flush(torch, dev), calls)
     row = dict(
         max_abs_err=0.0, tolerance=0.0,
         ms=time_ms(torch, lambda: kernels.gather_stream(*args)),
-        device_ms=device_ms(torch, lambda: kernels.gather_stream(*args)),
         plain_ms=time_ms(torch, lambda: plain_windowed_gather(*args),
                          reps=10),
         bound_ms=b_ms, bound_by=b_by,
         library_ms=time_ms(torch, lambda: torch.index_select(x, 0, flat)),
-        library_device_ms=device_ms(torch, lambda: torch.index_select(
-            x, 0, flat)),
         k2_ms=time_ms(torch, lambda: kernels.gather(x, flat)),
-        k2_device_ms=device_ms(torch, lambda: kernels.gather(x, flat)),
+        **timed, host_calls=calls,
         n=n, window=window, block_rows=block_rows,
         n_tiles=bases.shape[0],
         staged_bytes=bases.shape[0] * window * 128 * 4,
@@ -893,10 +1231,11 @@ def k5_case(torch, dev, gen, x, ids2d, bases, window, block_rows, perm,
     return row
 
 
-def swap_case(torch, dev, gen, peak_flops, peak_bw):
-    """K5 at the JAX package's hardware test (tests/ops/test_chain_layout.py
-    :249-269): a 300k quasi-identity permutation with swaps at offsets 3,
-    17 and 111, windowed as that test windows it."""
+def swap_windows(torch, dev):
+    """The JAX package's hardware test of the stream kernel (tests/ops/
+    test_chain_layout.py:249-269): a 300k quasi-identity permutation with
+    swaps at offsets 3, 17 and 111, windowed as that test windows it;
+    (perm, ids2d, bases, window) on dev."""
     from careless_tpu_torch.ops.plan_gather import _plan_windows
 
     n = 300_000
@@ -907,12 +1246,17 @@ def swap_case(torch, dev, gen, peak_flops, peak_bw):
     ids2d, bases, window = _plan_windows(perm.astype(np.int32), n,
                                          max_chunks=160, max_rows=1 << 20)
     check(window > 0, "the swap permutation does not window")
-    x = torch.randn(n, generator=gen, device=dev)
-    return k5_case(torch, dev, gen, x,
-                   torch.as_tensor(ids2d, device=dev),
-                   torch.as_tensor(bases, device=dev), window, 64,
-                   torch.as_tensor(perm, device=dev), peak_flops, peak_bw,
-                   "swap permutation, 300k")
+    return (torch.as_tensor(perm, device=dev),
+            torch.as_tensor(ids2d, device=dev),
+            torch.as_tensor(bases, device=dev), window)
+
+
+def swap_case(torch, dev, gen, peak_flops, peak_bw):
+    """K5 at the JAX package's 300k swap permutation (swap_windows)."""
+    perm, ids2d, bases, window = swap_windows(torch, dev)
+    x = torch.randn(perm.shape[0], generator=gen, device=dev)
+    return k5_case(torch, dev, gen, x, ids2d, bases, window, 64, perm,
+                   peak_flops, peak_bw, "swap permutation, 300k")
 
 
 def elbo_and_grads(torch, model, start, inputs, device, **kw):
@@ -1028,21 +1372,24 @@ def laue_phase(torch, dev, gen, seed, peak_flops, peak_bw):
     pp = refl.inner.perm_plan
     check(pp is not None and pp.stream,
           "Laue slice: the chain plan's backward permute does not stream")
-    held = laue_kernels(torch, dev, gen, inputs, peak_flops, peak_bw)
+    held, perm_row = laue_kernels(torch, dev, gen, inputs, peak_flops,
+                                  peak_bw)
     x = torch.randn(inputs.n_obs, generator=gen, device=dev)
     row = k5_case(torch, dev, gen, x, pp.ids2d, pp.bases, pp.window,
                   pp.block_rows, refl.inner.perm, peak_flops, peak_bw,
-                  f"chain permute, {inputs.n_obs} observations")
+                  f"chain permute, {inputs.n_obs} observations",
+                  calls=LAUE_HOST_CALLS)
     del x
     held["gather_stream"] = row["max_abs_err"]
     launches, _, _, _ = train_slice(
         torch, dev, seed, model, params, trainer, inputs, f_true, STEPS_LAUE,
         CHUNK, "laue", {}, setup_s, times)
     check_launches(launches, "laue", {
-        **trunk_counts(STEPS_LAUE, True, False), "gather": None,
+        **trunk_counts(STEPS_LAUE, True, False),
+        "gather": GATHERS_PER_STEP["laue"] * STEPS_LAUE,
         "philox_normal": STEPS_LAUE, "fused_ll_fwd": 0, "fused_ll_bwd": 0,
         "gather_stream": STEPS_LAUE})
-    return row, launches, held
+    return row, launches, held, perm_row
 
 
 def laue_kernels(torch, dev, gen, inputs, peak_flops, peak_bw):
@@ -1051,7 +1398,9 @@ def laue_kernels(torch, dev, gen, inputs, peak_flops, peak_bw):
     kernel_phase's tolerances: K1 on the inputs' metadata, K3 for the
     step's N normals, and K2 at each (table, ids) pair of the step, on
     random tables of the step's sizes by the plans' own ids. Returns each
-    kernel's largest error."""
+    kernel's largest error, and K2's row at the image cotangent's random
+    permute (LAUE_PERM_PAIR), the step's one K2 launch whose table is
+    too large to stay in L2 beside its ids and output."""
     import careless_tpu_torch.ops.plan_gather as pg
 
     n, plans = inputs.n_obs, inputs.plans
@@ -1067,12 +1416,14 @@ def laue_kernels(torch, dev, gen, inputs, peak_flops, peak_bw):
         "cotangent by sigma_inv (backward permute)": (n_refl,
                                                       refl.sigma_inv),
         "image scales by image_id": (n_images, image.ids),
-        "image cotangent by perm": (n, image.perm),
+        LAUE_PERM_PAIR: (n, image.perm),
         "image segment-sum boundaries": (m * pg._CHUNK, image.pos),
         "image chunk prefixes": (2 * m, image.cp_ids),
     }
+    check(image.perm is not None, "Laue: the image ids are sorted; the "
+          "step has no image cotangent permute")
     gathers = {label: gather_row(torch, gen, size, ids, label, peak_flops,
-                                 peak_bw)
+                                 peak_bw, calls=LAUE_HOST_CALLS)
                for label, (size, ids) in pairs.items() if ids is not None}
     rows["philox_normal"] = philox_row(torch, dev, gen, n, 0, peak_flops,
                                        peak_bw)
@@ -1080,7 +1431,10 @@ def laue_kernels(torch, dev, gen, inputs, peak_flops, peak_bw):
         {**rows, "gather": gathers}), flush=True)
     held = {k: v["max_abs_err"] for k, v in rows.items()}
     held["gather"] = max(v["max_abs_err"] for v in gathers.values())
-    return held
+    return held, dict(gathers[LAUE_PERM_PAIR], launch_site=(
+        f"{LAUE_PERM_PAIR}: one of the Laue step's "
+        f"{GATHERS_PER_STEP['laue']} K2 launches; launches counts all K2 "
+        "launches of the Laue run"))
 
 
 def scaler_slices_phase(torch, dev, seed, steps=STEPS_SCALER):
@@ -1094,7 +1448,8 @@ def scaler_slices_phase(torch, dev, seed, steps=STEPS_SCALER):
         head = "image_layers" not in flags
         mine = trunk_counts(steps, head, "mlp_dtype" in flags)
         check_launches(launches, label, {
-            **mine, "gather": None, "philox_normal": steps,
+            **mine, "gather": GATHERS_PER_STEP[label] * steps,
+            "philox_normal": steps,
             "fused_ll_fwd": 0, "fused_ll_bwd": 0, "gather_stream": 0})
         if not head:
             moved = [float((b["w"] - a["w"]).abs().max()) for a, b in zip(
@@ -1194,16 +1549,17 @@ def main():
 
     launches, _, _, _ = slice_phase(torch, dev, args.seed, STEPS, CHUNK)
     check_launches(launches, "default", {
-        **trunk_counts(STEPS, True, False), "gather": None,
-        "philox_normal": None, "fused_ll_fwd": 0, "fused_ll_bwd": 0,
-        "gather_stream": 0})
+        **trunk_counts(STEPS, True, False),
+        "gather": GATHERS_PER_STEP["default"] * STEPS, "philox_normal": None,
+        "fused_ll_fwd": 0, "fused_ll_bwd": 0, "gather_stream": 0})
 
     launches_a, model, _, _ = slice_phase(torch, dev, args.seed, STEPS,
                                           CHUNK, "a", SLICE_A)
     check(model.fused_kernel, "slice (a): --fused-kernel=auto did not "
           "select K4 at mc = 2 and 1M observations")
     check_launches(launches_a, "a", {
-        **trunk_counts(STEPS, True, False), "gather": None,
+        **trunk_counts(STEPS, True, False),
+        "gather": GATHERS_PER_STEP["a"] * STEPS,
         "philox_normal": 0, "fused_ll_fwd": 2 * STEPS,
         "fused_ll_bwd": 2 * STEPS, "gather_stream": 0})
 
@@ -1211,7 +1567,8 @@ def main():
         torch, dev, args.seed, STEPS_B, CHUNK, "b", SLICE_B)
     check(model.fused_kernel, "slice (b) did not select K4")
     check_launches(launches_b, "b", {
-        **trunk_counts(STEPS_B, True, False), "gather": None,
+        **trunk_counts(STEPS_B, True, False),
+        "gather": GATHERS_PER_STEP["b"] * STEPS_B,
         "philox_normal": 0, "fused_ll_fwd": 2 * STEPS_B,
         "fused_ll_bwd": 2 * STEPS_B, "gather_stream": 0})
     ev11 = {k: (start["likelihood"][k].item(), v.item())
@@ -1223,19 +1580,27 @@ def main():
 
     scaler_launches = scaler_slices_phase(torch, dev, args.seed)
 
-    rows["gather_stream"], launches_laue, held = laue_phase(
-        torch, dev, gen, args.seed, peak_flops, peak_bw)
+    rows["gather_stream"], launches_laue, held, rows[LAUE_PERM_ROW] = \
+        laue_phase(torch, dev, gen, args.seed, peak_flops, peak_bw)
     for k, err in held.items():
         rows[k]["laue_max_abs_err"] = err
+    rows["gather"]["launch_path_host_us_after_profiling"] = launch_phase(
+        torch, dev, gen, steps=False)
+    print("profiler: kernel records captured of the launches device_ms "
+          "timed: " + json.dumps(CAPTURED), flush=True)
 
     # launches: K1-K3 from the default slice, the other K1 instantiations
-    # from the scaler slices, K4 from slice (a), K5 from the Laue slice
+    # from the scaler slices, K4 from slice (a), K5 and K2's Laue row from
+    # the Laue slice
     counts = {**launches, **scaler_launches,
               "fused_ll_fwd": launches_a["fused_ll_fwd"],
               "fused_ll_bwd": launches_a["fused_ll_bwd"],
-              "gather_stream": launches_laue["gather_stream"]}
-    table = [dict(name=k, route="cuda", source=SOURCES[k],
-                  replaces=REPLACES[k], launches=counts[k], **v)
+              "gather_stream": launches_laue["gather_stream"],
+              LAUE_PERM_ROW: launches_laue["gather"]}
+    kernel_of = {LAUE_PERM_ROW: "gather"}
+    table = [dict(name=k, route="cuda", source=SOURCES[kernel_of.get(k, k)],
+                  replaces=REPLACES[kernel_of.get(k, k)], launches=counts[k],
+                  **v)
              for k, v in rows.items()]
     print(json.dumps({"kernels": table}))
     print(card_line())

@@ -119,6 +119,103 @@ def test_gather_launcher_refuses_cpu_tensors():
         kernels.gather(torch.zeros(4), torch.zeros(2, dtype=torch.int32))
 
 
+_TABLE, _IDS = torch.zeros(512), torch.zeros(256, dtype=torch.int32)
+
+
+@pytest.mark.parametrize("table,ids", [
+    (_TABLE, _IDS.long()), (_TABLE.double(), _IDS), (_TABLE[::2], _IDS),
+    (_TABLE, _IDS[::2])], ids=["int64_ids", "f64_table", "strided_table",
+                               "strided_ids"])
+def test_gather_launchers_refuse_wrong_inputs(table, ids):
+    """K2's and K5's launchers check type and contiguity on every call
+    (and the device: these are CPU tensors) and raise before building or
+    launching anything."""
+    from careless_tpu_torch import kernels
+    with pytest.raises(ValueError, match="contiguous"):
+        kernels.gather(table, ids)
+    ids2d = ids.reshape(-1, 128 if ids.is_contiguous() else 64)
+    with pytest.raises(ValueError, match="contiguous"):
+        kernels.gather_stream(table, ids2d, torch.zeros(2, dtype=torch.int32),
+                              2, 1)
+
+
+def _plan_id_fields(plan):
+    """(name, tensor, bound) of every id tensor a plan gathers by."""
+    n = plan.ids.numel()
+    out = [("ids", plan.ids, plan.table_size),
+           ("pos", plan.pos, n + 1),
+           ("cp_ids", plan.cp_ids, 2 * ((n + _CHUNK) // _CHUNK))]
+    if plan.perm is not None:
+        out.append(("perm", plan.perm, n))
+    for w, size in ((plan.window, plan.table_size), (plan.perm_plan, n)):
+        if w is not None:
+            rows = -(-size // 128)
+            out += [("ids2d", w.ids2d, size),
+                    ("bases", w.bases, max(rows - w.window, 0) + 1)]
+    return out
+
+
+def _chain_plan_id_fields(plan):
+    return [("sigma", plan.sigma, plan.table_size),
+            ("sigma_inv", plan.sigma_inv, plan.table_size)] + \
+        _plan_id_fields(plan.inner)
+
+
+@pytest.mark.parametrize("sort", [True, False])
+def test_plan_ids_are_int32_contiguous_and_in_range(sort, monkeypatch):
+    """The plans own the gathers' ids and check them once, when built, so
+    that the launchers need not: int32, contiguous, inside their tables
+    (with the stream window, at a lowered VMEM cap)."""
+    monkeypatch.setattr(tpg, "MAX_TABLE_ROWS", 2)
+    rng = np.random.default_rng(3)
+    plan = make_gather_plan(torch.tensor(_ids(rng, 5000, 700, sort, False)),
+                            700)
+    assert plan.stream and (plan.perm is None) == sort
+    for name, t, bound in _plan_id_fields(plan):
+        assert t.dtype == torch.int32 and t.is_contiguous(), name
+        assert 0 <= int(t.min()) and int(t.max()) < bound, name
+
+
+def test_chain_plan_ids_are_int32_contiguous_and_in_range(stream):
+    refl_id, hid, n_refl = _chain_inputs()
+    plan = tpg.make_chain_gather_plan(torch.tensor(refl_id),
+                                      torch.tensor(hid), n_refl)
+    assert plan.inner.perm_plan.stream == stream
+    for name, t, bound in _chain_plan_id_fields(plan):
+        assert t.dtype == torch.int32 and t.is_contiguous(), name
+        assert 0 <= int(t.min()) and int(t.max()) < bound, name
+
+
+def test_window_plan_rejects_bases_past_the_table():
+    """A window plan whose windows run past its table, or whose ids do,
+    raises when it is built."""
+    ids2d = torch.zeros((64, 128), dtype=torch.int32)
+    ok = dict(ids2d=ids2d, bases=torch.tensor([4], dtype=torch.int32),
+              window=6, block_rows=64, stream=True, table_size=10 * 128)
+    tpg.WindowPlan(**ok)
+    with pytest.raises(ValueError, match="bases"):
+        tpg.WindowPlan(**{**ok, "bases": torch.tensor([5],
+                                                      dtype=torch.int32)})
+    with pytest.raises(ValueError, match="bases"):
+        tpg.WindowPlan(**{**ok, "bases": torch.tensor([-1],
+                                                      dtype=torch.int32)})
+    with pytest.raises(ValueError, match="ids2d"):
+        tpg.WindowPlan(**{**ok, "ids2d": ids2d + 10 * 128})
+    with pytest.raises(ValueError, match="ids2d"):
+        tpg.WindowPlan(**{**ok, "ids2d": ids2d.long()})
+
+
+def test_plans_reject_ids_of_another_type_or_range():
+    ids = torch.tensor([0, 2, 2, 5], dtype=torch.int32)
+    plan = make_gather_plan(ids, 6)
+    with pytest.raises(ValueError, match="perm"):
+        tpg.GatherPlan(**{**plan.__dict__,
+                          "perm": torch.tensor([0, 1, 2, 4],
+                                               dtype=torch.int32)})
+    with pytest.raises(ValueError, match="ids"):
+        tpg.GatherPlan(**{**plan.__dict__, "ids": ids.long()})
+
+
 def test_table_gather_on_cpu_is_the_plain_version():
     table = torch.arange(7, dtype=torch.float32)
     ids = torch.tensor([6, 0, 0, 3], dtype=torch.int32)
