@@ -54,29 +54,12 @@
 // a short tile and a small, slow block rather than a refusal.
 #include <cuda_bf16.h>
 
-#include "common.cuh"
+#include "trunk_common.cuh"
 
 namespace {
 
 constexpr int FWD_THREADS = 128;
 constexpr int MAX_BWD_T = 64;       // the tallest backward tile
-constexpr int REDUCE_THREADS = 256;
-
-// number of weight / bias floats in the flat parameter layout:
-// W_0 (d_in, W), W_1..W_{L-1} (W, W)[, head (W, 2)]; b_0..b_{L-1} (W)[, (2)]
-__host__ __device__ inline int n_weights(int d_in, int W, int L, bool head) {
-  return d_in * W + (L - 1) * W * W + (head ? 2 * W : 0);
-}
-__host__ __device__ inline int n_biases(int W, int L, bool head) {
-  return L * W + (head ? 2 : 0);
-}
-__host__ __device__ inline int w_offset(int l, int d_in, int W) {
-  return l == 0 ? 0 : d_in * W + (l - 1) * W * W;
-}
-
-__device__ inline float leaky(float v, float leak) {
-  return v >= 0.f ? v : leak * v;
-}
 
 // the nearest bf16 value (ties to even), as an f32
 __device__ inline float bf16_round(float v) {
@@ -342,18 +325,6 @@ trunk_bwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
   for (int i = threadIdx.x; i < nw + nb; i += blockDim.x) out[i] = acc_w[i];
 }
 
-// out[i] = sum over blocks, in block order, of part[blk][i]
-__global__ void reduce_blocks_kernel(const float* __restrict__ part,
-                                     float* __restrict__ out, int n_blocks,
-                                     int size) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= size) return;
-  float s = 0.f;
-  for (int blk = 0; blk < n_blocks; ++blk)
-    s += part[static_cast<size_t>(blk) * size + i];
-  out[i] = s;
-}
-
 size_t fwd_smem(int d_in, int W, int L, bool head) {
   return sizeof(float) * (n_weights(d_in, W, L, head) + n_biases(W, L, head));
 }
@@ -396,18 +367,12 @@ cudaError_t launch_bwd(const float* x, const float* w, const float* b,
       x, w, b, dy0, dy1, dx, part, n, d_in, L, out_w, head, bf16, leak);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const int size = n_weights(d_in, W, L, head) + n_biases(W, L, head);
-  reduce_blocks_kernel<<<ct_blocks(size, REDUCE_THREADS), REDUCE_THREADS, 0,
-                         stream>>>(part, out, n_blocks, size);
-  return cudaGetLastError();
+  return reduce_blocks(part, out, n_blocks,
+                       n_weights(d_in, W, L, head) + n_biases(W, L, head),
+                       stream);
 }
 
 }  // namespace
-
-// the widths with an instantiated kernel; the wrapper pads others upward
-#define CT_TRUNK_WIDTHS(X)                                                   \
-  X(1) X(2) X(3) X(4) X(5) X(6) X(7) X(8) X(9) X(10) X(11) X(12) X(13)     \
-  X(14) X(15) X(16) X(20) X(24) X(28) X(32)
 
 // head: out0 = loc, out1 = raw, each (n,); trunk only: out0 is (n, out_w),
 // the first out_w of the kernel's `width` columns, and out1 is unused

@@ -6,9 +6,14 @@ current stream and raises if the launch was refused. `LAUNCHES[name]` grows
 by one for every call that launches its kernel; nothing else touches it.
 The ops modules decide between these launchers and the plain versions by
 the device of the tensors they are given.
+
+K1-bwd has two kernels: csrc/trunk_bwd.cu for f32 (head or trunk only) and
+csrc/trunk.cu's backward for bf16, and for the f32 shapes whose shared
+memory fits no tile of the first (`trunk_bwd_route` decides, by shape).
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -27,8 +32,13 @@ FUSED_KINDS = ("normal", "studentt", "laplace", "normal_ev11",
 
 # widths with an instantiated trunk kernel (csrc/trunk.cu CT_TRUNK_WIDTHS)
 TRUNK_WIDTHS = tuple(range(1, 17)) + (20, 24, 28, 32)
-# the trunk backward's tile heights (its block sizes), tallest first
+# csrc/trunk.cu's backward's tile heights (its block sizes), tallest first
 TRUNK_BWD_TILES = (64, 32, 16, 8)
+# csrc/trunk_bwd.cu's (the f32 backward) block rows, most first: each warp
+# of a block walks tiles of 32 rows of its own
+TRUNK_BWD_F32_TILES = (128, 64, 32)
+# the two K1-bwd kernels, as trunk_bwd_route names them
+TRUNK_BWD_F32, TRUNK_BWD_GENERAL = "csrc/trunk_bwd.cu", "csrc/trunk.cu"
 MAX_SMEM_PER_BLOCK = 232448    # H100: 227 KB of dynamic shared memory
 SMEM_PER_SM = 233472           # H100: 228 KB per SM, 1 KB reserved per block
 
@@ -55,6 +65,7 @@ def trunk_width(width: int) -> int:
                      f"{TRUNK_WIDTHS[-1]}")
 
 
+@functools.cache
 def trunk_smem(d_in: int, width: int, n_layers: int, head: bool,
                tile: int = 0) -> int:
     """Shared-memory bytes of K1 at a kernel width: the forward's (tile 0)
@@ -84,6 +95,51 @@ def trunk_bwd_tile(d_in: int, width: int, n_layers: int, head: bool) -> int:
         f"{MAX_SMEM_PER_BLOCK}")
 
 
+def _quads(n: int) -> int:
+    return -(-n // 4)
+
+
+@functools.cache
+def trunk_bwd_f32_smem(d_in: int, width: int, n_layers: int, head: bool,
+                       tile: int) -> int:
+    """Shared-memory bytes of the f32 K1-bwd (csrc/trunk_bwd.cu) for a block
+    of `tile` rows (tile / 32 warps) at a kernel width: the same sum as its
+    bwd_f32_smem (ct_trunk_bwd_f32_smem; a card test holds the two equal).
+    The weights and biases flat (rounded up to a quad of floats), shared by
+    the block; then for each warp its dW partial at 16 floats per 4x4 item
+    of every layer, its db partial at a quad per 4 columns of every layer,
+    and its 32-row stash: x
+    and a_1..a_L, each row at a stride of an odd number of quads, and one
+    quad for the head's cotangent."""
+    q = _quads(width)
+
+    def stride(k: int) -> int:
+        return 4 * (_quads(k) | 1)
+    params = (d_in * width + (n_layers - 1) * width * width
+              + n_layers * width + ((2 * width + 2) if head else 0))
+    items = _quads(d_in) * q + (n_layers - 1) * q * q + (q if head else 0)
+    stash = stride(d_in) + n_layers * stride(width) + (4 if head else 0)
+    warp = (16 * items + 4 * (n_layers * q + (1 if head else 0))
+            + 32 * stash)
+    return 4 * (4 * _quads(params) + tile // 32 * warp)
+
+
+@functools.cache
+def trunk_bwd_route(d_in: int, width: int, n_layers: int, head: bool,
+                    bf16: bool) -> Tuple[str, int]:
+    """The K1-bwd kernel for a shape at a kernel width, and its tile:
+    f32 takes csrc/trunk_bwd.cu (TRUNK_BWD_F32) at the tallest of
+    TRUNK_BWD_F32_TILES whose shared memory fits a block; bf16, and an f32
+    shape that fits none of them, take csrc/trunk.cu's backward
+    (TRUNK_BWD_GENERAL) at trunk_bwd_tile's tile."""
+    if not bf16:
+        for tile in TRUNK_BWD_F32_TILES:
+            if (trunk_bwd_f32_smem(d_in, width, n_layers, head, tile)
+                    <= MAX_SMEM_PER_BLOCK):
+                return TRUNK_BWD_F32, tile
+    return TRUNK_BWD_GENERAL, trunk_bwd_tile(d_in, width, n_layers, head)
+
+
 def _check(err: int, what: str) -> None:
     if err != 0:
         msg = library().ct_error_string(err).decode()
@@ -102,105 +158,30 @@ def _stream(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def trunk_fwd(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
-              width: int, n_layers: int, leak: float, *, head: bool = True,
-              out_w: Optional[int] = None, bf16: bool = False):
-    """K1-fwd from metadata x (N, d_in) and the flat packed weights/biases
-    of csrc/trunk.cu at an instantiated width: flat (N,) loc and raw with
-    the head; else the (N, out_w) activations of the last layer (out_w,
-    the model's width, defaults to the kernel's). bf16 rounds both
-    operands of every product to bf16."""
-    dev = x.device
-    _require(x, "x", torch.float32, dev)
-    _require(w, "w", torch.float32, dev)
-    _require(b, "b", torch.float32, dev)
-    n, d_in = x.shape
-    out_w = width if out_w is None else out_w
-    smem = trunk_smem(d_in, width, n_layers, head)
-    if smem > MAX_SMEM_PER_BLOCK:
-        raise ValueError(f"trunk of {n_layers} layers at width {width} "
-                         f"(d_in {d_in}) needs {smem} bytes of shared memory "
-                         f"in the forward; the card allows "
-                         f"{MAX_SMEM_PER_BLOCK}")
-    if head:
-        outs = (torch.empty(n, dtype=torch.float32, device=dev),
-                torch.empty(n, dtype=torch.float32, device=dev))
-    else:
-        outs = (torch.empty((n, out_w), dtype=torch.float32, device=dev),)
-    with torch.cuda.device(dev):
-        err = library().ct_trunk_fwd(
-            x.data_ptr(), w.data_ptr(), b.data_ptr(), outs[0].data_ptr(),
-            outs[-1].data_ptr() if head else None, n, d_in, width, n_layers,
-            int(head), out_w, int(bf16), leak, _stream(dev))
-    _check(err, "trunk forward")
-    LAUNCHES[trunk_key("fwd", head, bf16)] += 1
-    return outs if head else outs[0]
-
-
-def _trunk_bwd_blocks(n: int, smem: int, tile: int,
-                      device: torch.device) -> int:
-    """The backward's fixed grid: as many blocks as fit on the card at once,
-    never more than there are tiles. Fixed for a given shape and card, so
-    the reduction order, and with it dW, is repeatable bit for bit."""
-    per_sm = max(1, SMEM_PER_SM // (smem + 1024))
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    tiles = -(-n // tile)
-    return max(1, min(tiles, per_sm * sms))
-
-
-def trunk_bwd(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, dy,
-              width: int, n_layers: int, leak: float, need_dx: bool, *,
-              head: bool = True, bf16: bool = False
-              ) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
-    """K1-bwd: (dw, db, dx) for the flat packed weights/biases, from the
-    cotangent dy: the pair (dloc, draw) of (N,) with the head, else the
-    (N, out_w) cotangent of the last layer's activations. dx only when
-    asked for (metadata takes no gradient on the training path)."""
-    dev = x.device
-    dys = tuple(dy) if head else (dy,)
-    for t, name in ((x, "x"), (w, "w"), (b, "b")) + tuple(
-            (t, f"dy[{i}]") for i, t in enumerate(dys)):
-        _require(t, name, torch.float32, dev)
-    n, d_in = x.shape
-    out_w = 0 if head else dy.shape[1]
-    if not head and (dy.shape[0] != n or not 1 <= out_w <= width):
-        raise ValueError(f"dy must have shape ({n}, <= {width}); got "
-                         f"{tuple(dy.shape)}")
-    tile = trunk_bwd_tile(d_in, width, n_layers, head)
-    n_blocks = _trunk_bwd_blocks(
-        n, trunk_smem(d_in, width, n_layers, head, tile), tile, dev)
-    nw, nb = w.numel(), b.numel()
-    part = torch.empty((n_blocks, nw + nb), dtype=torch.float32, device=dev)
-    out = torch.empty(nw + nb, dtype=torch.float32, device=dev)
-    dx = torch.empty_like(x) if need_dx else None
-    with torch.cuda.device(dev):
-        err = library().ct_trunk_bwd(
-            x.data_ptr(), w.data_ptr(), b.data_ptr(), dys[0].data_ptr(),
-            dys[1].data_ptr() if head else None,
-            None if dx is None else dx.data_ptr(), part.data_ptr(),
-            out.data_ptr(), n, d_in, width, n_layers, int(head), out_w,
-            int(bf16), tile, n_blocks, leak, _stream(dev))
-    _check(err, "trunk backward")
-    LAUNCHES[trunk_key("bwd", head, bf16)] += 1
-    return out[:nw], out[nw:], dx
-
-
-# The gathers' launch path. Their ids come from plans (ops/plan_gather.py),
-# which check once, when they are built, that the ids are int32, contiguous,
-# 16-byte aligned on the card and inside their table. So a gather launch
-# checks only what is cheap and what a caller could still get wrong: CUDA
-# f32 table, int32 ids on its device, both contiguous. The device context is
-# entered only when the table is not on the current device, and the stream
-# handle is read without building a Stream object.
+# The launch path of every kernel but K4's: one expression of cheap checks
+# (type, device, contiguity), outputs sized by ints, and _launch, which
+# enters the device context only when the tensors are not on the current
+# device and reads the raw stream handle without building a Stream object.
 _F32, _I32 = torch.float32, torch.int32
 
 
-def _refuse(what: str, *named) -> None:
+def _f32_card(*ts: torch.Tensor) -> int:
+    """The device index of ts when all are contiguous float32 tensors on one
+    CUDA device, else -1."""
+    idx = ts[0].get_device()
+    for t in ts:
+        if (t.dtype is not _F32 or t.get_device() != idx
+                or not t.is_contiguous()):
+            return -1
+    return idx
+
+
+def _refuse(what: str, takes: str, *named) -> None:
     got = ", ".join(f"{name} {t.dtype} on {t.device}"
                     + ("" if t.is_contiguous() else " (not contiguous)")
                     for name, t in named)
     raise ValueError(f"{what} takes contiguous CUDA tensors on one device: "
-                     f"a float32 table and int32 ids; got {got}")
+                     f"{takes}; got {got}")
 
 
 def _launch(fn, idx: int, *args) -> int:
@@ -212,6 +193,109 @@ def _launch(fn, idx: int, *args) -> int:
         return fn(*args, torch._C._cuda_getCurrentRawStream(idx))
 
 
+def trunk_fwd(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+              width: int, n_layers: int, leak: float, *, head: bool = True,
+              out_w: Optional[int] = None, bf16: bool = False):
+    """K1-fwd from metadata x (N, d_in) and the flat packed weights/biases
+    of csrc/trunk.cu at an instantiated width: flat (N,) loc and raw with
+    the head; else the (N, out_w) activations of the last layer (out_w,
+    the model's width, defaults to the kernel's). bf16 rounds both
+    operands of every product to bf16."""
+    idx = _f32_card(x, w, b)
+    if idx < 0:
+        _refuse("trunk forward", "float32 x, w and b", ("x", x), ("w", w),
+                ("b", b))
+    n, d_in = x.shape
+    out_w = width if out_w is None else out_w
+    smem = trunk_smem(d_in, width, n_layers, head)
+    if smem > MAX_SMEM_PER_BLOCK:
+        raise ValueError(f"trunk of {n_layers} layers at width {width} "
+                         f"(d_in {d_in}) needs {smem} bytes of shared memory "
+                         f"in the forward; the card allows "
+                         f"{MAX_SMEM_PER_BLOCK}")
+    dev = x.device
+    if head:
+        outs = (torch.empty(n, dtype=_F32, device=dev),
+                torch.empty(n, dtype=_F32, device=dev))
+    else:
+        outs = (torch.empty((n, out_w), dtype=_F32, device=dev),)
+    err = _launch(library().ct_trunk_fwd, idx, x.data_ptr(), w.data_ptr(),
+                  b.data_ptr(), outs[0].data_ptr(),
+                  outs[-1].data_ptr() if head else None, n, d_in, width,
+                  n_layers, int(head), out_w, int(bf16), leak)
+    _check(err, "trunk forward")
+    LAUNCHES[trunk_key("fwd", head, bf16)] += 1
+    return outs if head else outs[0]
+
+
+@functools.cache
+def _sm_count(idx: int) -> int:
+    return torch.cuda.get_device_properties(idx).multi_processor_count
+
+
+def _trunk_bwd_blocks(n: int, smem: int, tile: int, idx: int) -> int:
+    """The backward's fixed grid: as many blocks as fit on the card at once,
+    never more than there are tiles. Fixed for a given shape and card, so
+    the reduction order, and with it dW, is repeatable bit for bit."""
+    per_sm = max(1, SMEM_PER_SM // (smem + 1024))
+    tiles = -(-n // tile)
+    return max(1, min(tiles, per_sm * _sm_count(idx)))
+
+
+def trunk_bwd(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, dy,
+              width: int, n_layers: int, leak: float, need_dx: bool, *,
+              head: bool = True, bf16: bool = False
+              ) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
+    """K1-bwd: (dw, db, dx) for the flat packed weights/biases, from the
+    cotangent dy: the pair (dloc, draw) of (N,) with the head, else the
+    (N, out_w) cotangent of the last layer's activations. dx only when
+    asked for (metadata takes no gradient on the training path). The
+    kernel is trunk_bwd_route's: csrc/trunk_bwd.cu for f32 where it fits,
+    csrc/trunk.cu's backward otherwise."""
+    dys = tuple(dy) if head else (dy,)
+    idx = _f32_card(x, w, b, *dys)
+    if idx < 0:
+        _refuse("trunk backward", "float32 x, w, b and dy",
+                ("x", x), ("w", w), ("b", b),
+                *((f"dy[{i}]", t) for i, t in enumerate(dys)))
+    n, d_in = x.shape
+    out_w = 0 if head else dy.shape[1]
+    if not head and (dy.shape[0] != n or not 1 <= out_w <= width):
+        raise ValueError(f"dy must have shape ({n}, <= {width}); got "
+                         f"{tuple(dy.shape)}")
+    kernel, tile = trunk_bwd_route(d_in, width, n_layers, head, bf16)
+    f32 = kernel == TRUNK_BWD_F32
+    smem = (trunk_bwd_f32_smem if f32 else trunk_smem)(
+        d_in, width, n_layers, head, tile)
+    n_blocks = _trunk_bwd_blocks(n, smem, tile, idx)
+    nw, nb = w.numel(), b.numel()
+    dev = x.device
+    part = torch.empty((n_blocks, nw + nb), dtype=_F32, device=dev)
+    out = torch.empty(nw + nb, dtype=_F32, device=dev)
+    dx = torch.empty_like(x) if need_dx else None
+    args = (x.data_ptr(), w.data_ptr(), b.data_ptr(), dys[0].data_ptr(),
+            dys[1].data_ptr() if head else None,
+            None if dx is None else dx.data_ptr(), part.data_ptr(),
+            out.data_ptr(), n, d_in, width, n_layers, int(head), out_w)
+    if f32:
+        err = _launch(library().ct_trunk_bwd_f32, idx, *args, tile,
+                      n_blocks, leak)
+    else:
+        err = _launch(library().ct_trunk_bwd, idx, *args, int(bf16), tile,
+                      n_blocks, leak)
+    _check(err, "trunk backward")
+    LAUNCHES[trunk_key("bwd", head, bf16)] += 1
+    return out[:nw], out[nw:], dx
+
+
+# The gathers' ids come from plans (ops/plan_gather.py), which check once,
+# when they are built, that the ids are int32, contiguous, 16-byte aligned
+# on the card and inside their table. So a gather launch checks only what is
+# cheap and what a caller could still get wrong: CUDA f32 table, int32 ids
+# on its device, both contiguous.
+_GATHER_TAKES = "a float32 table and int32 ids"
+
+
 def gather(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     """K2: table[ids] for a flat f32 table and int32 ids whose range the
     caller has validated (make_gather_plan does, once, on the host)."""
@@ -219,7 +303,7 @@ def gather(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     if (table.dtype is not _F32 or ids.dtype is not _I32 or idx < 0
             or ids.get_device() != idx or not table.is_contiguous()
             or not ids.is_contiguous()):
-        _refuse("gather", ("table", table), ("ids", ids))
+        _refuse("gather", _GATHER_TAKES, ("table", table), ("ids", ids))
     if ids.data_ptr() & 15:
         ids = ids.clone()  # a view off a plan: the kernel loads 16 bytes
     n = ids.numel()
@@ -253,8 +337,8 @@ def gather_stream(table: torch.Tensor, ids2d: torch.Tensor,
             or ids2d.get_device() != idx or bases.get_device() != idx
             or not table.is_contiguous() or not ids2d.is_contiguous()
             or not bases.is_contiguous()):
-        _refuse("gather_stream", ("table", table), ("ids2d", ids2d),
-                ("bases", bases))
+        _refuse("gather_stream", _GATHER_TAKES, ("table", table),
+                ("ids2d", ids2d), ("bases", bases))
     smem = stream_smem(window)
     if smem > MAX_SMEM_PER_BLOCK:
         raise ValueError(f"gather_stream: a window of {window} chunks needs "
@@ -274,18 +358,19 @@ def gather_stream(table: torch.Tensor, ids2d: torch.Tensor,
 def philox_normal(n: int, seed: int, offset: int, device: torch.device,
                   with_bits: bool = False):
     """K3: (n,) standard normals for counters offset .. offset + n - 1 under
-    the 64-bit key `seed`; with_bits also returns the (n, 2) raw words
-    (r0, r1) as int32 for bitwise comparison with the plain version."""
-    if device.type != "cuda":
-        raise ValueError(f"the Philox kernel runs on a CUDA device, not {device}")
-    out = torch.empty(n, dtype=torch.float32, device=device)
-    bits = (torch.empty((n, 2), dtype=torch.int32, device=device)
-            if with_bits else None)
-    with torch.cuda.device(device):
-        err = library().ct_philox_normal(
-            out.data_ptr(), None if bits is None else bits.data_ptr(), n,
-            seed & 0xFFFFFFFF, (seed >> 32) & 0xFFFFFFFF, offset,
-            _stream(device))
+    the 64-bit key `seed` on a CUDA device; with_bits also returns the
+    (n, 2) raw words (r0, r1) as int32 for bitwise comparison with the
+    plain version."""
+    if device.type != "cuda" or type(n) is not int:
+        raise ValueError(f"the Philox kernel takes an int count and a CUDA "
+                         f"device; got {type(n).__name__} {n} and {device}")
+    idx = torch.cuda.current_device() if device.index is None else device.index
+    out = torch.empty(n, dtype=_F32, device=device)
+    bits = (torch.empty((n, 2), dtype=_I32, device=device) if with_bits
+            else None)
+    err = _launch(library().ct_philox_normal, idx, out.data_ptr(),
+                  None if bits is None else bits.data_ptr(), n,
+                  seed & 0xFFFFFFFF, (seed >> 32) & 0xFFFFFFFF, offset)
     _check(err, "philox normal")
     LAUNCHES["philox_normal"] += 1
     return (out, bits) if with_bits else out

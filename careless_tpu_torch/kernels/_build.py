@@ -112,6 +112,9 @@ def library() -> "ctypes.CDLL":
         # x, w, b, dy0, dy1, dx, part, out, n, d_in, width, n_layers, head,
         # out_w, bf16, tile, n_blocks, leak, stream
         "ct_trunk_bwd": [P] * 8 + [I] * 9 + [F, P],
+        # x, w, b, dy0, dy1, dx, part, out, n, d_in, width, n_layers, head,
+        # out_w, tile, n_blocks, leak, stream
+        "ct_trunk_bwd_f32": [P] * 8 + [I] * 8 + [F, P],
         # table, ids, out, n, stream
         "ct_gather": [P, P, P, I, P],
         # table, t, ids, bases, out, n_tiles, tile, window, stream
@@ -135,6 +138,9 @@ def library() -> "ctypes.CDLL":
     # d_in, width, n_layers, head, tile (0: the forward)
     lib.ct_trunk_smem.argtypes = [I, I, I, I, I]
     lib.ct_trunk_smem.restype = ctypes.c_size_t
+    # d_in, width, n_layers, head, tile
+    lib.ct_trunk_bwd_f32_smem.argtypes = [I, I, I, I, I]
+    lib.ct_trunk_bwd_f32_smem.restype = ctypes.c_size_t
     lib.ct_gather_stream_smem.argtypes = [I]   # window
     lib.ct_gather_stream_smem.restype = ctypes.c_size_t
     lib.ct_error_string.argtypes = [I]

@@ -23,7 +23,13 @@ Phases, each printed on its own lines:
      f64 at eight more seeds (studentt_check); K5 on the JAX package's 300k
      swap permutation, bitwise against its plain version and x[perm]; K1
      at 20 layers of width 28 (d_in 28) and width 32 (d_in 128), whose
-     backward runs at a shorter tile;
+     backward runs at a shorter tile; each f32 K1-bwd row names the kernel
+     kernels.trunk_bwd_route took (csrc/trunk_bwd.cu, or csrc/trunk.cu's
+     backward for a shape whose shared memory fits no tile of the first)
+     and, where it took csrc/trunk_bwd.cu, times csrc/trunk.cu's backward
+     on the same inputs beside it; the K1 and K3 launchers' host time per
+     call, measured before any profiler capture, sits in their rows
+     (host_us; K3's beside torch.randn's, with randn's device time);
   3. check: the port's loss and every parameter gradient at a small size on
      the card against the same computation on the CPU (plain versions), at
      mc = 1 for the defaults, --image-layers 2, --mlp-dtype bfloat16 and
@@ -115,6 +121,9 @@ REPLACES = {
 SOURCES = {
     **{k: "careless_tpu_torch/csrc/trunk.cu" for k in REPLACES
        if k.startswith("trunk")},
+    # the f32 backward has a kernel of its own (kernels.trunk_bwd_route)
+    "trunk_bwd": "careless_tpu_torch/csrc/trunk_bwd.cu",
+    "trunk_only_bwd": "careless_tpu_torch/csrc/trunk_bwd.cu",
     "gather": "careless_tpu_torch/csrc/gather.cu",
     "philox_normal": "careless_tpu_torch/csrc/philox.cu",
     "fused_ll_fwd": "careless_tpu_torch/csrc/fused_ll.cu",
@@ -292,12 +301,15 @@ def kernel_phase(torch, dev, gen, peak_flops, peak_bw):
     """Hold each kernel against its plain version and time it."""
     n = N_OBS
     launch_path = launch_phase(torch, dev, gen)   # before any profiling
+    launchers = k1_k3_host_us(torch, dev, gen)    # the same
     x = torch.randn(n, D_META, generator=gen, device=dev)
     rows = trunk_rows(torch, gen, x, peak_flops, peak_bw)
     # the other K1 instantiations draw from a generator of their own, so
     # that the kernels below see the random inputs of earlier runs
     rows.update(trunk_rows(torch, own_generator(torch, gen, 1), x,
                            peak_flops, peak_bw, variants=TRUNK_VARIANTS[1:]))
+    for name in ("trunk_fwd", "trunk_bwd"):
+        rows[name]["host_us"] = launchers[name]
     # K2: the z_f gather (sorted refl ids) and the image-scale gather
     cases = {}
     for label, size, sort in (("z_f", N_REFL, True),
@@ -312,6 +324,8 @@ def kernel_phase(torch, dev, gen, peak_flops, peak_bw):
           + json.dumps(cases["image"]))
     rows["philox_normal"] = philox_row(torch, dev, gen, n, 3 * n, peak_flops,
                                        peak_bw)
+    rows["philox_normal"].update(host_us=launchers["philox_normal"],
+                                 library_host_us=launchers["randn"])
     from careless_tpu_torch import kernels
     rows["philox_normal"]["stats"] = prng_gate(torch, kernels, dev)
     rows.update(fused_ll_phase(torch, dev, gen, peak_flops, peak_bw))
@@ -346,7 +360,11 @@ def trunk_rows(torch, gen, x, peak_flops, peak_bw, variants=((True, False),),
     bitwise repeatable, timed beside the plain version; returns the kernel
     rows by LAUNCHES name. Bounds: f32 rows at the f32 peak; bf16 rows at
     the bf16 tensor-core peak (the least time for bf16 products); the
-    trunk-only rows move (N, width) activations and cotangents."""
+    trunk-only rows move (N, width) activations and cotangents. Each
+    backward row names the kernel kernels.trunk_bwd_route took and its
+    tile; where that is the f32 kernel (csrc/trunk_bwd.cu), the row also
+    times csrc/trunk.cu's backward on the same inputs (trunk_cu_device_ms,
+    trunk_cu_ms) and gives its largest difference from the f32 kernel."""
     from careless_tpu_torch import kernels
     from careless_tpu_torch.ops.fused_mlp import (
         fused_mlp_trunk, fused_mlp_trunk_head, pack_params, plain_trunk,
@@ -438,13 +456,52 @@ def trunk_rows(torch, gen, x, peak_flops, peak_bw, variants=((True, False),),
         d_ms = device_ms(torch, lambda: kernels.trunk_bwd(
             x, wflat, bflat, dy, kw, L, 0.01, False, head=head, bf16=bf16),
             reps=reps)
+        kernel, tile = kernels.trunk_bwd_route(d, kw, L, head, bf16)
         rows[bwd] = dict(max_abs_err=err, tolerance=tol, ms=ms,
                          device_ms=d_ms, plain_ms=plain_ms, bound_ms=b_ms,
                          bound_by=b_by, library_ms=None,
                          bitwise_repeatable=True, n=n, d_in=d, width=w,
-                         n_layers=L,
-                         tile=kernels.trunk_bwd_tile(d, kw, L, head))
+                         n_layers=L, kernel=kernel, tile=tile)
+        if kernel == kernels.TRUNK_BWD_F32:
+            general = general_bwd(torch, x, wflat, bflat, dy, kw, L, head)
+            mine = torch.cat(kernels.trunk_bwd(x, wflat, bflat, dy, kw, L,
+                                               0.01, False, head=head)[:2])
+            rows[bwd].update(
+                trunk_cu_tile=kernels.trunk_bwd_tile(d, kw, L, head),
+                trunk_cu_ms=time_ms(torch, general, reps=reps),
+                trunk_cu_device_ms=device_ms(torch, general, reps=reps),
+                trunk_cu_max_abs_diff=(general() - mine).abs().max().item())
+            del mine
     return rows
+
+
+def general_bwd(torch, x, wflat, bflat, dy, kw, n_layers, head):
+    """A function that launches csrc/trunk.cu's backward with bf16 off (the
+    kernel every f32 K1-bwd ran on before csrc/trunk_bwd.cu) on these
+    inputs, as kernels.trunk_bwd would at its tile, without counting a
+    launch; the function returns the (nw + nb) output, [dW flat, db flat]."""
+    from careless_tpu_torch import kernels
+    from careless_tpu_torch.kernels._build import library
+
+    (n, d), idx = x.shape, x.get_device()
+    tile = kernels.trunk_bwd_tile(d, kw, n_layers, head)
+    n_blocks = kernels._trunk_bwd_blocks(
+        n, kernels.trunk_smem(d, kw, n_layers, head, tile), tile, idx)
+    dys = dy if head else (dy,)
+    size = wflat.numel() + bflat.numel()
+    part = torch.empty((n_blocks, size), device=x.device)
+    out = torch.empty(size, device=x.device)
+    args = (x.data_ptr(), wflat.data_ptr(), bflat.data_ptr(),
+            dys[0].data_ptr(), dys[1].data_ptr() if head else None, None,
+            part.data_ptr(), out.data_ptr(), n, d, kw, n_layers, int(head),
+            0 if head else dy.shape[1], 0, tile, n_blocks, 0.01)
+
+    def run():
+        err = library().ct_trunk_bwd(
+            *args, torch._C._cuda_getCurrentRawStream(idx))
+        check(err == 0, f"csrc/trunk.cu's backward refused: CUDA error {err}")
+        return out
+    return run
 
 
 def wide_trunk_phase(torch, gen, dev, peak_flops, peak_bw):
@@ -589,10 +646,45 @@ def launch_phase(torch, dev, gen, steps=True, calls=10_000):
     return out_us
 
 
+K1_HOST_CALLS = 300   # K1 launches per host_us: the queue never fills
+
+
+def k1_k3_host_us(torch, dev, gen):
+    """Host microseconds per call of the K1 and K3 launchers at the main
+    path's shapes (chip_smoke's host_us; call before any profiler capture,
+    as launch_phase): K1-fwd and K1-bwd (f32, head) at N_OBS observations
+    of D_META columns over N_LAYERS layers of width D_META, K1_HOST_CALLS
+    calls each; K3 for N_OBS normals beside torch.randn, 10,000 calls each.
+    Draws from a generator of its own seeded from gen's seed."""
+    from careless_tpu_torch import kernels
+    from careless_tpu_torch.ops.fused_mlp import pack_params
+
+    gen = own_generator(torch, gen, 4)
+    x = torch.randn(N_OBS, D_META, generator=gen, device=dev)
+    layers, out = random_trunk(torch, gen, D_META, D_META, N_LAYERS, dev)
+    w, b = (t.detach() for t in pack_params(layers, out, D_META))
+    dy = (torch.randn(N_OBS, generator=gen, device=dev),
+          torch.randn(N_OBS, generator=gen, device=dev))
+    k1 = host_us(torch, {
+        "trunk_fwd": lambda: kernels.trunk_fwd(x, w, b, D_META, N_LAYERS,
+                                               0.01),
+        "trunk_bwd": lambda: kernels.trunk_bwd(x, w, b, dy, D_META,
+                                               N_LAYERS, 0.01, False)},
+        calls=K1_HOST_CALLS)
+    k3 = host_us(torch, {
+        "philox_normal": lambda: kernels.philox_normal(N_OBS, 7, 0, dev),
+        "randn": lambda: torch.randn(N_OBS, generator=gen, device=dev)})
+    out = {**k1, **k3}
+    print("K1 and K3 launchers, host us per call, before any profiler "
+          "capture: " + json.dumps(out), flush=True)
+    return out
+
+
 def philox_row(torch, dev, gen, n, offset, peak_flops, peak_bw):
     """K3 for n normals at counters offset .. offset + n - 1: raw words
     bitwise, normals within a few ulp of the plain version; timed beside it
-    and randn; returns its kernel row."""
+    and randn (CUDA events, and device time warm for both); returns its
+    kernel row."""
     from careless_tpu_torch import kernels
     from careless_tpu_torch.ops.fused_elbo import plain_prng_normal
 
@@ -616,6 +708,8 @@ def philox_row(torch, dev, gen, n, offset, peak_flops, peak_bw):
                          reps=20),
         library_ms=time_ms(torch, lambda: torch.randn(n, generator=gen,
                                                       device=dev)),
+        library_device_ms=device_ms(torch, lambda: torch.randn(
+            n, generator=gen, device=dev)),
         bound_ms=b_ms, bound_by=b_by)
 
 

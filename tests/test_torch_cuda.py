@@ -81,10 +81,15 @@ def _run_trunk(fn, x, layers, out, cts, leaves, bf16):
     return [y.detach() for y in ys], torch.autograd.grad(obj, leaves)
 
 
-def _hold_trunk(n, d, w, n_layers, head, bf16, device, seed):
+def _hold_trunk(n, d, w, n_layers, head, bf16, device, seed, dx=False,
+                grad_tol=1e-5):
     """K1 (the head or the trunk alone, f32 or bf16) against its plain
-    version, values and every gradient, and dW bitwise repeatable."""
+    version, values and every gradient (dx too when asked) within grad_tol
+    of each gradient's largest entry, and dW bitwise repeatable."""
     x, layers, out, leaves, gl, gr = _trunk(n, d, w, n_layers, device, seed)
+    if dx:
+        x.requires_grad_(True)
+        leaves = [x] + leaves
     if head:
         fns, cts = (fused_mlp_trunk_head, plain_trunk_head), (gl, gr)
     else:
@@ -107,7 +112,7 @@ def _hold_trunk(n, d, w, n_layers, head, bf16, device, seed):
         assert (a - b).abs().max().item() <= 1e-5 * scale
     assert all(torch.equal(a, b) for a, b in zip(g_k, g_k2))
     for a, b in zip(g_k, g_p):
-        assert (a - b).abs().max().item() <= 1e-5 * b.abs().max().item()
+        assert (a - b).abs().max().item() <= grad_tol * b.abs().max().item()
 
 
 @pytest.mark.parametrize("n,d,w,n_layers", [
@@ -187,6 +192,67 @@ def test_trunk_kernel_dx_when_asked(cuda):
         (g,) = torch.autograd.grad((loc * gl).sum() + (raw * gr).sum(), xr)
         grads.append(g)
     torch.testing.assert_close(grads[0], grads[1], rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("dx", [False, True])
+@pytest.mark.parametrize("head", [True, False])
+@pytest.mark.parametrize("w", [1, 4, 10, 13, 16, 20, 32])
+@pytest.mark.parametrize("n", [1, 63, 100_003])
+def test_f32_backward_kernel_matches_plain(cuda, n, w, head, dx):
+    """The f32 K1-bwd (csrc/trunk_bwd.cu) at ragged N (one row, less than
+    a tile, many tiles with a ragged last one), at widths that fill whole
+    quads and widths that do not, with the head and without, with and
+    without dx. Gradients within chip_smoke.trunk_rows' 1e-4 of each
+    one's largest entry: at width 1 a weight's gradient is one sum over
+    all N rows, and at N = 100,003 it cancels to ~14 from terms of order
+    1, where f32 rounding alone parts two summation orders by 2e-5 of it
+    (the kernel's per-tile order against cuBLAS's)."""
+    d = 7
+    assert kernels.trunk_bwd_route(d, kernels.trunk_width(w), 4, head,
+                                   False)[0] == kernels.TRUNK_BWD_F32
+    _hold_trunk(n, d, w, 4, head, False, cuda, n + w, dx=dx, grad_tol=1e-4)
+
+
+@pytest.mark.parametrize("d,w,n_layers", [(10, 10, 20), (28, 28, 20),
+                                          (5, 8, 3), (128, 32, 3),
+                                          (7, 1, 1)])
+@pytest.mark.parametrize("head", [True, False])
+def test_f32_backward_smem_matches_the_kernel(cuda, d, w, n_layers, head):
+    """kernels.trunk_bwd_f32_smem, which picks the f32 kernel's tile and
+    the route, is csrc/trunk_bwd.cu's sum."""
+    for tile in kernels.TRUNK_BWD_F32_TILES + (96,):
+        assert kernels.trunk_bwd_f32_smem(d, w, n_layers, head, tile) == \
+            library().ct_trunk_bwd_f32_smem(d, w, n_layers, int(head), tile)
+
+
+@pytest.mark.parametrize("d,w,n_layers,head", [(32, 32, 20, True),
+                                               (128, 32, 20, False)])
+def test_f32_shapes_past_the_f32_kernel_run_the_general_one(cuda, d, w,
+                                                            n_layers, head):
+    """An f32 shape whose shared memory fits no tile of csrc/trunk_bwd.cu
+    runs csrc/trunk.cu's backward, under the same launch name, against the
+    plain version."""
+    kernel, tile = kernels.trunk_bwd_route(d, w, n_layers, head, False)
+    assert kernel == kernels.TRUNK_BWD_GENERAL and tile <= 16
+    _hold_trunk(1_001, d, w, n_layers, head, False, cuda, n_layers)
+
+
+@pytest.mark.parametrize("with_bits", [False, True])
+@pytest.mark.parametrize("index", [None, 0])
+def test_philox_launcher_on_the_current_device(cuda, with_bits, index):
+    """K3 through its trimmed launcher, with the device named by type alone
+    or by index: words bit for bit and normals within 2e-5 of the plain
+    version; one launch per call."""
+    n, seed, offset = 300_007, 0x0FEDCBA987654321, 2 ** 33 + 5
+    kernels.reset_launches()
+    got = kernels.philox_normal(n, seed, offset, torch.device("cuda", index),
+                                with_bits=with_bits)
+    assert kernels.LAUNCHES["philox_normal"] == 1
+    want = plain_prng_normal(n, seed, offset, cuda, with_bits=True)
+    if with_bits:
+        assert torch.equal(got[1], want[1])
+        got = got[0]
+    torch.testing.assert_close(got, want[0], rtol=0, atol=2e-5)
 
 
 @pytest.mark.parametrize("n", [1, 5, 1_000_003])

@@ -1,7 +1,8 @@
-"""careless_tpu_torch and chip_smoke.py import neither JAX, optax nor the
-JAX package (careless_tpu itself or any careless_tpu.* module). Checked
-twice: statically over every import statement, and by importing every
-module in a fresh interpreter and inspecting sys.modules.
+"""careless_tpu_torch, chip_smoke.py and the port's tools (tools/*.py, which
+run on the card beside it) import neither JAX, optax nor the JAX package
+(careless_tpu itself or any careless_tpu.* module). Checked twice:
+statically over every import statement, and by importing every module in a
+fresh interpreter and inspecting sys.modules.
 
 Note "careless_tpu_torch".startswith("careless_tpu"): the JAX package is
 matched as the exact name or the prefix "careless_tpu.", never as a bare
@@ -14,8 +15,9 @@ import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
+TOOLS = sorted((ROOT / "tools").glob("*.py"))
 PORT_FILES = sorted((ROOT / "careless_tpu_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py"] + TOOLS
 
 
 def forbidden(module: str) -> bool:
@@ -50,16 +52,21 @@ def test_no_forbidden_import_statements():
 
 def test_importing_the_port_loads_no_jax():
     code = """
-import importlib, json, pkgutil, sys
+import importlib, importlib.util, json, pkgutil, sys
 import careless_tpu_torch
 for mod in pkgutil.walk_packages(careless_tpu_torch.__path__,
                                  "careless_tpu_torch."):
     importlib.import_module(mod.name)
 import chip_smoke
+for path in sys.argv[1:]:
+    spec = importlib.util.spec_from_file_location(path, path)
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
 print(json.dumps(sorted(sys.modules)))
 """
-    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
-                         capture_output=True, text=True, check=True)
+    assert ROOT / "tools" / "trunk_bwd_probe.py" in TOOLS
+    out = subprocess.run([sys.executable, "-c", code, *map(str, TOOLS)],
+                         cwd=ROOT, capture_output=True, text=True,
+                         check=True)
     loaded = json.loads(out.stdout.strip().splitlines()[-1])
     for mod in ("io.manager", "kernels._build", "ops.fused_elbo",
                 "models.likelihoods.mono", "models.merging.variational",
