@@ -6,8 +6,9 @@
 // _make_bwd_kernel). Per observation i, with a = image scale and F = the
 // reflection's sample, both gathered outside the kernel:
 //
-//     eps   = N(0, 1) at Philox counter offset + i (philox.cuh, as K3)
-//             or noise[i] when the caller supplies it
+//     eps   = N(0, 1) of index offset + i (philox.cuh: slot (offset + i)
+//             & 3 of a Philox block, bitwise K3's) or noise[i] when the
+//             caller supplies it
 //     z     = a loc + |a| scale eps
 //     ipred = z F^2
 //     fwd:  sum_i mask_i ll(iobs_i, sig_i, ipred_i)
@@ -20,7 +21,7 @@
 //
 // What bounds it on the H100: bytes. At 1M observations the forward reads
 // six f32 arrays (24 MB, ~7 us at 3.35 TB/s), the backward reads the same
-// and writes four (40 MB, ~12 us). Philox, log, sqrt and cos are ~60
+// and writes four (40 MB, ~12 us). Philox, log, sqrt and sincos are ~60
 // operations per observation, ~1 us of the card's f32 rate.
 //
 // Design: one thread per observation; the TPU's (R, 128) lane layout and
@@ -88,9 +89,9 @@ __device__ __forceinline__ Chain chain(const Args& p, int i) {
   if (NOISE) {
     c.eps = p.noise[i];
   } else {
-    uint32_t r0, r1;
+    uint32_t ra, rb;
     c.eps = ct_philox_normal(p.offset + static_cast<uint64_t>(i), p.k0, p.k1,
-                             &r0, &r1);
+                             &ra, &rb);
   }
   c.a = p.a[i];
   c.loc = p.loc[i];

@@ -93,32 +93,25 @@ __global__ void trunk_fwd_kernel(const float* __restrict__ x,
   const int row = blockIdx.x * blockDim.x + threadIdx.x;
   if (row >= n) return;
 
+  // the products in order of k, then the bias (trunk_common.cuh), the
+  // order every backward's recompute follows
   float h[W];
-#pragma unroll
-  for (int j = 0; j < W; ++j) h[j] = 0.f;
-  const float* xr = x + static_cast<size_t>(row) * d_in;
-  for (int k = 0; k < d_in; ++k) {
-    const float xk = bf16 ? bf16_round(xr[k]) : xr[k];
-#pragma unroll
-    for (int j = 0; j < W; ++j) h[j] = fmaf(xk, sw[k * W + j], h[j]);
-  }
-#pragma unroll
-  for (int j = 0; j < W; ++j) h[j] = leaky(h[j] + sb[j], leak);
-
-  for (int l = 1; l < L; ++l) {
-    const float* wl = sw + w_offset(l, d_in, W);
-    const float* bl = sb + l * W;
-    if (bf16) round_all(h);
+  {
     float acc[W];
 #pragma unroll
     for (int j = 0; j < W; ++j) acc[j] = 0.f;
-#pragma unroll
-    for (int k = 0; k < W; ++k) {
-#pragma unroll
-      for (int j = 0; j < W; ++j) acc[j] = fmaf(h[k], wl[k * W + j], acc[j]);
-    }
-#pragma unroll
-    for (int j = 0; j < W; ++j) h[j] = leaky(acc[j] + bl[j], leak);
+    const float* xr = x + static_cast<size_t>(row) * d_in;
+    const auto w0 = [&](int k, int j) { return sw[k * W + j]; };
+    for (int k = 0; k < d_in; ++k)
+      axpy_k<W>(acc, bf16 ? bf16_round(xr[k]) : xr[k], k, w0);
+    bias_leaky<W>(h, acc, sb, leak);
+  }
+  for (int l = 1; l < L; ++l) {
+    const float* wl = sw + w_offset(l, d_in, W);
+    if (bf16) round_all(h);
+    // h is read whole into the sums before it is overwritten
+    dense_layer<W>(h, h, [&](int k, int j) { return wl[k * W + j]; },
+                   sb + l * W, leak);
   }
 
   if (!head) {

@@ -1,6 +1,7 @@
-// What K1's two backward kernels share (csrc/trunk.cu, csrc/trunk_bwd.cu):
-// the flat parameter layout, the leaky ReLU, and the block-order sum of the
-// backward's per-block partials.
+// What K1's kernels share (csrc/trunk.cu, csrc/trunk_bwd.cu,
+// csrc/trunk_bwd_bf16.cu): the flat parameter layout, the leaky ReLU, the
+// per-row layer product in K1-fwd's summation order, and the block-order
+// sum of the backward's per-block partials.
 #pragma once
 
 #include "common.cuh"
@@ -28,6 +29,43 @@ __host__ __device__ inline int w_offset(int l, int d_in, int W) {
 
 __device__ inline float leaky(float v, float leak) {
   return v >= 0.f ? v : leak * v;
+}
+
+// K1-fwd's order for one row's layer product: acc[j] += in_k * wt(k, j) for
+// j < W, called for k = 0, 1, ... in order from acc = 0; then
+// h[j] = leaky(acc[j] + b[j]). Every kernel that recomputes the forward for
+// its backward sums in this order, so that each activation, and with it
+// each slope of the leaky ReLU, is bit for bit the one the loss saw (a
+// pre-activation within an ulp of zero takes the other slope under another
+// order, and its row's gradient moves by 1 / leak). wt(k, j) returns the
+// weight as an f32 (bf16-rounded where the operands are).
+template <int W, class WeightAt>
+__device__ __forceinline__ void axpy_k(float (&acc)[W], float in_k, int k,
+                                       const WeightAt& wt) {
+#pragma unroll
+  for (int j = 0; j < W; ++j) acc[j] = fmaf(in_k, wt(k, j), acc[j]);
+}
+
+template <int W>
+__device__ __forceinline__ void bias_leaky(float (&h)[W],
+                                           const float (&acc)[W],
+                                           const float* b, float leak) {
+#pragma unroll
+  for (int j = 0; j < W; ++j) h[j] = leaky(acc[j] + b[j], leak);
+}
+
+// a hidden layer of width W on a width-W input `in`, in K1-fwd's order
+template <int W, class WeightAt>
+__device__ __forceinline__ void dense_layer(float (&h)[W],
+                                            const float (&in)[W],
+                                            const WeightAt& wt,
+                                            const float* b, float leak) {
+  float acc[W];
+#pragma unroll
+  for (int j = 0; j < W; ++j) acc[j] = 0.f;
+#pragma unroll
+  for (int k = 0; k < W; ++k) axpy_k<W>(acc, in[k], k, wt);
+  bias_leaky<W>(h, acc, b, leak);
 }
 
 // out[i] = sum over blocks, in block order, of part[blk][i]

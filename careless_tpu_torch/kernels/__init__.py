@@ -7,9 +7,11 @@ by one for every call that launches its kernel; nothing else touches it.
 The ops modules decide between these launchers and the plain versions by
 the device of the tensors they are given.
 
-K1-bwd has two kernels: csrc/trunk_bwd.cu for f32 (head or trunk only) and
-csrc/trunk.cu's backward for bf16, and for the f32 shapes whose shared
-memory fits no tile of the first (`trunk_bwd_route` decides, by shape).
+K1-bwd has three kernels: csrc/trunk_bwd.cu for f32 and
+csrc/trunk_bwd_bf16.cu (tensor-core mma) for bf16 operands, each head or
+trunk only, and csrc/trunk.cu's backward for the shapes whose shared memory
+fits not even one warp of the other two (`trunk_bwd_route` decides, by
+shape).
 """
 from __future__ import annotations
 
@@ -34,11 +36,15 @@ FUSED_KINDS = ("normal", "studentt", "laplace", "normal_ev11",
 TRUNK_WIDTHS = tuple(range(1, 17)) + (20, 24, 28, 32)
 # csrc/trunk.cu's backward's tile heights (its block sizes), tallest first
 TRUNK_BWD_TILES = (64, 32, 16, 8)
-# csrc/trunk_bwd.cu's (the f32 backward) block rows, most first: each warp
-# of a block walks tiles of 32 rows of its own
+# csrc/trunk_bwd.cu's and csrc/trunk_bwd_bf16.cu's block rows, most first:
+# each warp of a block walks tiles of 32 rows of its own
 TRUNK_BWD_F32_TILES = (128, 64, 32)
-# the two K1-bwd kernels, as trunk_bwd_route names them
+# the three K1-bwd kernels, as trunk_bwd_route names them
 TRUNK_BWD_F32, TRUNK_BWD_GENERAL = "csrc/trunk_bwd.cu", "csrc/trunk.cu"
+TRUNK_BWD_BF16 = "csrc/trunk_bwd_bf16.cu"
+# csrc/trunk_bwd_bf16.cu's block rows, most first: 8 to 1 warps, each
+# walking tiles of 32 rows of its own
+TRUNK_BWD_BF16_TILES = tuple(32 * w for w in range(8, 0, -1))
 MAX_SMEM_PER_BLOCK = 232448    # H100: 227 KB of dynamic shared memory
 SMEM_PER_SM = 233472           # H100: 228 KB per SM, 1 KB reserved per block
 
@@ -125,18 +131,45 @@ def trunk_bwd_f32_smem(d_in: int, width: int, n_layers: int, head: bool,
 
 
 @functools.cache
+def trunk_bwd_bf16_smem(d_in: int, width: int, n_layers: int, head: bool,
+                        tile: int) -> int:
+    """Shared-memory bytes of the bf16 K1-bwd (csrc/trunk_bwd_bf16.cu) for a
+    block of `tile` rows (tile / 32 warps) at a kernel width: the same sum
+    as its bwd_bf16_smem (ct_trunk_bwd_bf16_smem; a card test holds the two
+    equal). The width pads to kw = 16 or 32 and d_in to dx, a multiple of
+    16. Shared by the block: the biases (f32) and the weights as bf16 pairs
+    ((width + 1) // 2 words a row, one a row for the head), each rounded up
+    to a quad. For each warp, whose tile has 32 rows: its partial of dW and
+    db (f32, flat, rounded up to a quad); a 32-bit mask per row and layer;
+    the stash, its rows of bf16 x (dx) and a_1..a_L (kw each); the dpre
+    buffer, its rows of kw bf16."""
+    kw, dx = (16 if width <= 16 else 32), -(-d_in // 16) * 16
+    rows = 32
+    nw = (d_in * width + (n_layers - 1) * width * width
+          + (2 * width if head else 0))
+    nb = n_layers * width + (2 if head else 0)
+    words = ((d_in + (n_layers - 1) * width) * ((width + 1) // 2)
+             + (width if head else 0))
+    warp = (16 * _quads(nw + nb) + 4 * rows * n_layers
+            + 2 * rows * (dx + n_layers * kw) + 2 * rows * kw)
+    return 16 * (_quads(nb) + _quads(words)) + tile // rows * warp
+
+
+@functools.cache
 def trunk_bwd_route(d_in: int, width: int, n_layers: int, head: bool,
                     bf16: bool) -> Tuple[str, int]:
-    """The K1-bwd kernel for a shape at a kernel width, and its tile:
-    f32 takes csrc/trunk_bwd.cu (TRUNK_BWD_F32) at the tallest of
-    TRUNK_BWD_F32_TILES whose shared memory fits a block; bf16, and an f32
-    shape that fits none of them, take csrc/trunk.cu's backward
-    (TRUNK_BWD_GENERAL) at trunk_bwd_tile's tile."""
-    if not bf16:
-        for tile in TRUNK_BWD_F32_TILES:
-            if (trunk_bwd_f32_smem(d_in, width, n_layers, head, tile)
-                    <= MAX_SMEM_PER_BLOCK):
-                return TRUNK_BWD_F32, tile
+    """The K1-bwd kernel for a shape at a kernel width, and its tile: f32
+    takes csrc/trunk_bwd.cu (TRUNK_BWD_F32) at the tallest of
+    TRUNK_BWD_F32_TILES, bf16 csrc/trunk_bwd_bf16.cu (TRUNK_BWD_BF16) at
+    the tallest of TRUNK_BWD_BF16_TILES, whose shared memory fits a block; a shape that fits none of them takes
+    csrc/trunk.cu's backward (TRUNK_BWD_GENERAL) at trunk_bwd_tile's
+    tile."""
+    kernel, smem, tiles = (
+        (TRUNK_BWD_BF16, trunk_bwd_bf16_smem, TRUNK_BWD_BF16_TILES) if bf16
+        else (TRUNK_BWD_F32, trunk_bwd_f32_smem, TRUNK_BWD_F32_TILES))
+    for tile in tiles:
+        if smem(d_in, width, n_layers, head, tile) <= MAX_SMEM_PER_BLOCK:
+            return kernel, tile
     return TRUNK_BWD_GENERAL, trunk_bwd_tile(d_in, width, n_layers, head)
 
 
@@ -146,19 +179,7 @@ def _check(err: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
 
 
-def _require(t: torch.Tensor, name: str, dtype: torch.dtype,
-             device: torch.device) -> None:
-    if (device.type != "cuda" or t.device != device or t.dtype != dtype
-            or not t.is_contiguous()):
-        raise ValueError(f"{name} must be a contiguous {dtype} tensor on "
-                         f"{device}; got {t.dtype} on {t.device}")
-
-
-def _stream(device: torch.device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
-
-
-# The launch path of every kernel but K4's: one expression of cheap checks
+# The launch path of every kernel: one expression of cheap checks
 # (type, device, contiguity), outputs sized by ints, and _launch, which
 # enters the device context only when the tensors are not on the current
 # device and reads the raw stream handle without building a Stream object.
@@ -242,6 +263,13 @@ def _trunk_bwd_blocks(n: int, smem: int, tile: int, idx: int) -> int:
     return max(1, min(tiles, per_sm * _sm_count(idx)))
 
 
+_BWD_SMEM = {TRUNK_BWD_F32: trunk_bwd_f32_smem,
+             TRUNK_BWD_BF16: trunk_bwd_bf16_smem,
+             TRUNK_BWD_GENERAL: trunk_smem}
+_BWD_ENTRY = {TRUNK_BWD_F32: "ct_trunk_bwd_f32",
+              TRUNK_BWD_BF16: "ct_trunk_bwd_bf16"}
+
+
 def trunk_bwd(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, dy,
               width: int, n_layers: int, leak: float, need_dx: bool, *,
               head: bool = True, bf16: bool = False
@@ -250,8 +278,9 @@ def trunk_bwd(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, dy,
     cotangent dy: the pair (dloc, draw) of (N,) with the head, else the
     (N, out_w) cotangent of the last layer's activations. dx only when
     asked for (metadata takes no gradient on the training path). The
-    kernel is trunk_bwd_route's: csrc/trunk_bwd.cu for f32 where it fits,
-    csrc/trunk.cu's backward otherwise."""
+    kernel is trunk_bwd_route's: csrc/trunk_bwd.cu for f32 and
+    csrc/trunk_bwd_bf16.cu for bf16 where they fit, csrc/trunk.cu's
+    backward otherwise."""
     dys = tuple(dy) if head else (dy,)
     idx = _f32_card(x, w, b, *dys)
     if idx < 0:
@@ -264,9 +293,7 @@ def trunk_bwd(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, dy,
         raise ValueError(f"dy must have shape ({n}, <= {width}); got "
                          f"{tuple(dy.shape)}")
     kernel, tile = trunk_bwd_route(d_in, width, n_layers, head, bf16)
-    f32 = kernel == TRUNK_BWD_F32
-    smem = (trunk_bwd_f32_smem if f32 else trunk_smem)(
-        d_in, width, n_layers, head, tile)
+    smem = _BWD_SMEM[kernel](d_in, width, n_layers, head, tile)
     n_blocks = _trunk_bwd_blocks(n, smem, tile, idx)
     nw, nb = w.numel(), b.numel()
     dev = x.device
@@ -277,9 +304,9 @@ def trunk_bwd(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, dy,
             dys[1].data_ptr() if head else None,
             None if dx is None else dx.data_ptr(), part.data_ptr(),
             out.data_ptr(), n, d_in, width, n_layers, int(head), out_w)
-    if f32:
-        err = _launch(library().ct_trunk_bwd_f32, idx, *args, tile,
-                      n_blocks, leak)
+    if kernel != TRUNK_BWD_GENERAL:
+        err = _launch(getattr(library(), _BWD_ENTRY[kernel]), idx, *args,
+                      tile, n_blocks, leak)
     else:
         err = _launch(library().ct_trunk_bwd, idx, *args, int(bf16), tile,
                       n_blocks, leak)
@@ -357,10 +384,10 @@ def gather_stream(table: torch.Tensor, ids2d: torch.Tensor,
 
 def philox_normal(n: int, seed: int, offset: int, device: torch.device,
                   with_bits: bool = False):
-    """K3: (n,) standard normals for counters offset .. offset + n - 1 under
+    """K3: (n,) standard normals of indices offset .. offset + n - 1 under
     the 64-bit key `seed` on a CUDA device; with_bits also returns the
-    (n, 2) raw words (r0, r1) as int32 for bitwise comparison with the
-    plain version."""
+    (n, 2) raw words each element used, (r0, r1) or (r2, r3) of its Philox
+    block, as int32 for bitwise comparison with the plain version."""
     if device.type != "cuda" or type(n) is not int:
         raise ValueError(f"the Philox kernel takes an int count and a CUDA "
                          f"device; got {type(n).__name__} {n} and {device}")
@@ -376,25 +403,40 @@ def philox_normal(n: int, seed: int, offset: int, device: torch.device,
     return (out, bits) if with_bits else out
 
 
-def _fused_ll_inputs(loc, scale, a, f, iobs, sig, mask, noise, ev, kind):
-    """Checks K4's inputs; returns (n, kind index, the optional pointers)."""
-    dev = loc.device
+_FUSED_TAKES = "float32 loc, scale, a, f, iobs, sig, ev[, mask, noise, ct]"
+_FUSED_THREADS = 256   # csrc/fused_ll.cu's THREADS: one partial a block
+
+
+def fused_ll_parts(n: int) -> int:
+    """K4's partial sums for n observations: csrc/fused_ll.cu's
+    ct_fused_ll_parts (a card test holds the two equal), at least 1."""
+    return max(1, -(-n // _FUSED_THREADS))
+
+
+def _fused_ll_inputs(what, loc, scale, a, f, iobs, sig, mask, noise, ev,
+                     kind, *more):
+    """Checks K4's inputs (and `more`, the backward's cotangent) as the
+    gathers' launchers do, in one expression of cheap checks; returns (the
+    device index, n, kind index, the optional pointers)."""
+    named = [(name, t) for name, t in zip(
+        ("loc", "scale", "a", "f", "iobs", "sig", "ev", "mask", "noise",
+         "ct"), (loc, scale, a, f, iobs, sig, ev, mask, noise, *more))
+        if t is not None]
+    opt = tuple(t for t in (mask, noise) if t is not None)
+    idx = _f32_card(*(t for _, t in named))
+    if idx < 0:
+        _refuse(what, _FUSED_TAKES, *named)
     n = loc.shape[0]
-    named = [(loc, "loc"), (scale, "scale"), (a, "a"), (f, "f"),
-             (iobs, "iobs"), (sig, "sig")]
-    named += [(t, name) for t, name in ((mask, "mask"), (noise, "noise"))
-              if t is not None]
-    for t, name in named:
-        _require(t, name, torch.float32, dev)
+    for t in (loc, scale, a, f, iobs, sig) + opt:
         if t.shape != (n,):
-            raise ValueError(f"{name} must have shape ({n},); got "
-                             f"{tuple(t.shape)}")
-    _require(ev, "ev", torch.float32, dev)
+            raise ValueError(f"{what}: every per-observation input must have "
+                             f"shape ({n},); got {tuple(t.shape)}")
     if ev.shape != (3,):
-        raise ValueError(f"ev must have shape (3,); got {tuple(ev.shape)}")
+        raise ValueError(f"{what}: ev must have shape (3,); got "
+                         f"{tuple(ev.shape)}")
     if kind not in FUSED_KINDS:
         raise ValueError(f"unsupported fused likelihood kind: {kind}")
-    return (n, FUSED_KINDS.index(kind),
+    return (idx, n, FUSED_KINDS.index(kind),
             None if mask is None else mask.data_ptr(),
             None if noise is None else noise.data_ptr())
 
@@ -404,23 +446,22 @@ def fused_ll_fwd(loc, scale, a, f, iobs, sig, mask, noise, ev, *, kind: str,
                  ) -> torch.Tensor:
     """K4-fwd: the 0-d sum over observations of mask * ll(kind) at
     ipred = (a loc + |a| scale eps) f^2, with eps = noise or, when noise is
-    None, the Philox normals of K3 at counters offset .. offset + n - 1
+    None, the Philox normals of K3 of indices offset .. offset + n - 1
     under the 64-bit key `seed`. mask may be None (ones); ev holds the
     three Ev11 scalars (read by the Ev11 kinds only); t_const is the
     Student-t log normaliser of `dof`."""
+    idx, n, k, mask_p, noise_p = _fused_ll_inputs(
+        "fused likelihood forward", loc, scale, a, f, iobs, sig, mask, noise,
+        ev, kind)
     dev = loc.device
-    n, k, mask_p, noise_p = _fused_ll_inputs(loc, scale, a, f, iobs, sig,
-                                             mask, noise, ev, kind)
-    part = torch.empty(max(1, library().ct_fused_ll_parts(n)),
-                       dtype=torch.float32, device=dev)
-    out = torch.empty((), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        err = library().ct_fused_ll_fwd(
-            loc.data_ptr(), scale.data_ptr(), a.data_ptr(), f.data_ptr(),
-            iobs.data_ptr(), sig.data_ptr(), mask_p, noise_p, ev.data_ptr(),
-            part.data_ptr(), out.data_ptr(), n, k, dof, t_const,
-            seed & 0xFFFFFFFF, (seed >> 32) & 0xFFFFFFFF, offset,
-            _stream(dev))
+    part = torch.empty(fused_ll_parts(n), dtype=_F32, device=dev)
+    out = torch.empty((), dtype=_F32, device=dev)
+    err = _launch(library().ct_fused_ll_fwd, idx, loc.data_ptr(),
+                  scale.data_ptr(), a.data_ptr(), f.data_ptr(),
+                  iobs.data_ptr(), sig.data_ptr(), mask_p, noise_p,
+                  ev.data_ptr(), part.data_ptr(), out.data_ptr(), n, k, dof,
+                  t_const, seed & 0xFFFFFFFF, (seed >> 32) & 0xFFFFFFFF,
+                  offset)
     _check(err, "fused likelihood forward")
     LAUNCHES["fused_ll_fwd"] += 1
     return out
@@ -433,28 +474,26 @@ def fused_ll_bwd(loc, scale, a, f, iobs, sig, mask, noise, ev,
     kinds ct * the (3,) gradient of the sum in the Ev11 scalars (else
     None), for the inputs of fused_ll_fwd. ct is the 0-d cotangent on the
     card; nothing crosses to the host."""
-    dev = loc.device
-    n, k, mask_p, noise_p = _fused_ll_inputs(loc, scale, a, f, iobs, sig,
-                                             mask, noise, ev, kind)
-    _require(ct, "ct", torch.float32, dev)
+    idx, n, k, mask_p, noise_p = _fused_ll_inputs(
+        "fused likelihood backward", loc, scale, a, f, iobs, sig, mask,
+        noise, ev, kind, ct)
     if ct.numel() != 1:
         raise ValueError(f"ct must hold one value; got {tuple(ct.shape)}")
-    grads = torch.empty((4, n), dtype=torch.float32, device=dev)
+    dev = loc.device
+    grads = torch.empty((4, n), dtype=_F32, device=dev)
     dev_grad = part = None
     if kind.endswith("_ev11"):
-        part = torch.empty((max(1, library().ct_fused_ll_parts(n)), 3),
-                           dtype=torch.float32, device=dev)
-        dev_grad = torch.empty(3, dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        err = library().ct_fused_ll_bwd(
-            loc.data_ptr(), scale.data_ptr(), a.data_ptr(), f.data_ptr(),
-            iobs.data_ptr(), sig.data_ptr(), mask_p, noise_p, ev.data_ptr(),
-            ct.data_ptr(), grads[0].data_ptr(), grads[1].data_ptr(),
-            grads[2].data_ptr(), grads[3].data_ptr(),
-            None if part is None else part.data_ptr(),
-            None if dev_grad is None else dev_grad.data_ptr(), n, k, dof,
-            t_const, seed & 0xFFFFFFFF, (seed >> 32) & 0xFFFFFFFF, offset,
-            _stream(dev))
+        part = torch.empty((fused_ll_parts(n), 3), dtype=_F32, device=dev)
+        dev_grad = torch.empty(3, dtype=_F32, device=dev)
+    g = grads.data_ptr()
+    err = _launch(library().ct_fused_ll_bwd, idx, loc.data_ptr(),
+                  scale.data_ptr(), a.data_ptr(), f.data_ptr(),
+                  iobs.data_ptr(), sig.data_ptr(), mask_p, noise_p,
+                  ev.data_ptr(), ct.data_ptr(), g, g + 4 * n, g + 8 * n,
+                  g + 12 * n, None if part is None else part.data_ptr(),
+                  None if dev_grad is None else dev_grad.data_ptr(), n, k,
+                  dof, t_const, seed & 0xFFFFFFFF, (seed >> 32) & 0xFFFFFFFF,
+                  offset)
     _check(err, "fused likelihood backward")
     LAUNCHES["fused_ll_bwd"] += 1
     dloc, dscale, da, df = grads.unbind(0)

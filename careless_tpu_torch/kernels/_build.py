@@ -115,6 +115,8 @@ def library() -> "ctypes.CDLL":
         # x, w, b, dy0, dy1, dx, part, out, n, d_in, width, n_layers, head,
         # out_w, tile, n_blocks, leak, stream
         "ct_trunk_bwd_f32": [P] * 8 + [I] * 8 + [F, P],
+        # as ct_trunk_bwd_f32
+        "ct_trunk_bwd_bf16": [P] * 8 + [I] * 8 + [F, P],
         # table, ids, out, n, stream
         "ct_gather": [P, P, P, I, P],
         # table, t, ids, bases, out, n_tiles, tile, window, stream
@@ -141,6 +143,8 @@ def library() -> "ctypes.CDLL":
     # d_in, width, n_layers, head, tile
     lib.ct_trunk_bwd_f32_smem.argtypes = [I, I, I, I, I]
     lib.ct_trunk_bwd_f32_smem.restype = ctypes.c_size_t
+    lib.ct_trunk_bwd_bf16_smem.argtypes = [I, I, I, I, I]
+    lib.ct_trunk_bwd_bf16_smem.restype = ctypes.c_size_t
     lib.ct_gather_stream_smem.argtypes = [I]   # window
     lib.ct_gather_stream_smem.restype = ctypes.c_size_t
     lib.ct_error_string.argtypes = [I]

@@ -96,7 +96,7 @@ class VariationalMergingModel:
 
         The reflection samples come from standard uniforms u_f (S, n_refl)
         (drawn from `generator` when not given); the scale noise eps (S, N)
-        (when not given) from Philox with key `seed`, sample s at counters
+        (when not given) from Philox with key `seed`, sample s at indices
         [s N, (s + 1) N). At S = 1 u_f may be (n_refl,) and eps (N,). A
         fused-eligible model runs _elbo_fused, the same estimate through
         K4 (variational.py:179-234)."""

@@ -19,13 +19,16 @@ CPU the plain versions below, with explicit gradients, as the kernel has.
 
 Noise streams. The Philox stream is counter-based: element i of a call with
 64-bit key `seed` and `offset` o is a function of (seed, o + i) alone, so
-calls with one key and disjoint counter ranges never share a number, and
-any range can be regenerated. Of Philox's four output words, r0 and r1 give
-two uniforms on (0, 1], u = ((r >> 8) + 1) * 2^-24, and one Box-Muller
-normal sqrt(-2 log u1) cos(2 pi u2). The plain version implements the same
-Philox bit for bit in int64 arithmetic, so the card can compare the
-kernel's raw words exactly and its normals to a few ulp. The ELBO's step
-key is base | (step << 32) and sample s of a step uses counters
+calls with one key and disjoint index ranges never share a number, a call
+split in two gives the same stream, and any range can be regenerated.
+Index e lies in Philox block e >> 2 (the counter) at slot e & 3: the
+block's four output words give two pairs of uniforms on (0, 1],
+u = ((r >> 8) + 1) * 2^-24, and each pair, (r0, r1) and (r2, r3), two
+Box-Muller normals: slot 0 is sqrt(-2 log u(r0)) cos(2 pi u(r1)), slot 1
+the same with sin, slots 2 and 3 the same of (r2, r3). The plain version
+implements the same Philox bit for bit in int64 arithmetic, so the card can
+compare the kernel's raw words exactly and its normals to a few ulp. The
+ELBO's step key is base | (step << 32) and sample s of a step uses indices
 [s N, (s + 1) N): the unfused path draws all S N normals with one K3
 launch, and K4 regenerates sample s's range in forward and backward, so the
 fused and unfused ELBO are one estimator. This layout, with the reflection
@@ -86,20 +89,25 @@ def _uniform(word: torch.Tensor) -> torch.Tensor:
 
 def plain_prng_normal(n: int, seed: int, offset: int, device,
                       with_bits: bool = False):
-    """The plain PyTorch version of K3 (same words, same arithmetic)."""
-    counter = offset + torch.arange(n, dtype=torch.int64, device=device)
-    r0, r1, _, _ = philox4x32_10(counter, int(seed))
-    u1, u2 = _uniform(r0), _uniform(r1)
-    out = torch.sqrt(-2.0 * torch.log(u1)) * torch.cos(TWO_PI_F32 * u2)
+    """The plain PyTorch version of K3 (same words, same arithmetic); with
+    with_bits also the (n, 2) words each element used, as int32."""
+    e = offset + torch.arange(n, dtype=torch.int64, device=device)
+    r0, r1, r2, r3 = philox4x32_10(e >> 2, int(seed))
+    slot = e & 3
+    high = slot >= 2
+    ra, rb = torch.where(high, r2, r0), torch.where(high, r3, r1)
+    angle = TWO_PI_F32 * _uniform(rb)
+    trig = torch.where((slot & 1) == 1, torch.sin(angle), torch.cos(angle))
+    out = torch.sqrt(-2.0 * torch.log(_uniform(ra))) * trig
     if not with_bits:
         return out
-    bits = torch.stack([r0, r1], dim=1)
+    bits = torch.stack([ra, rb], dim=1)
     bits = torch.where(bits >= 2 ** 31, bits - 2 ** 32, bits).to(torch.int32)
     return out, bits
 
 
 def prng_normal(n: int, seed: int, offset: int, device) -> torch.Tensor:
-    """(n,) standard normals for counters offset .. offset + n - 1 under the
+    """(n,) standard normals of indices offset .. offset + n - 1 under the
     64-bit key `seed`. On the CPU this is the plain version; on the card K3
     (csrc/philox.cu)."""
     device = torch.device(device)
@@ -262,7 +270,7 @@ def fused_likelihood_sum(loc, scale, image_scales, z_f, refl_id, image_id,
     variants 'normal_ev11' / 'studentt_ev11', which need `ev11` = (sdfac,
     sdadd, sdb) after softplus (0-d tensors); their gradients flow back
     through the caller's softplus. eps is `noise` (N,) when given, else the
-    Philox normals at counters offset .. offset + N - 1 under the 64-bit key
+    Philox normals of indices offset .. offset + N - 1 under the 64-bit key
     `seed`. The gathers use the plans; image_plan may be None only for a
     one-entry image_scales (the MLP scaler alone), which is broadcast.
     CPU tensors run the plain versions, CUDA tensors K4 or raise."""

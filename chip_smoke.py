@@ -23,13 +23,15 @@ Phases, each printed on its own lines:
      f64 at eight more seeds (studentt_check); K5 on the JAX package's 300k
      swap permutation, bitwise against its plain version and x[perm]; K1
      at 20 layers of width 28 (d_in 28) and width 32 (d_in 128), whose
-     backward runs at a shorter tile; each f32 K1-bwd row names the kernel
-     kernels.trunk_bwd_route took (csrc/trunk_bwd.cu, or csrc/trunk.cu's
-     backward for a shape whose shared memory fits no tile of the first)
-     and, where it took csrc/trunk_bwd.cu, times csrc/trunk.cu's backward
-     on the same inputs beside it; the K1 and K3 launchers' host time per
+     backward runs at a shorter tile; each K1-bwd row names the kernel
+     kernels.trunk_bwd_route took (csrc/trunk_bwd.cu for f32,
+     csrc/trunk_bwd_bf16.cu for bf16, or csrc/trunk.cu's backward for a
+     shape whose shared memory fits not even one warp of those) and, where
+     it took one of the first two, times csrc/trunk.cu's backward on the
+     same inputs beside it; the K1, K3 and K4 launchers' host time per
      call, measured before any profiler capture, sits in their rows
-     (host_us; K3's beside torch.randn's, with randn's device time);
+     (host_us; K3's beside torch.randn's, with randn's device time; K3 is
+     also held at an offset that is not a multiple of 4);
   3. check: the port's loss and every parameter gradient at a small size on
      the card against the same computation on the CPU (plain versions), at
      mc = 1 for the defaults, --image-layers 2, --mlp-dtype bfloat16 and
@@ -118,12 +120,11 @@ REPLACES = {
     "fused_ll_bwd": "careless_tpu/ops/fused_elbo.py:311",
     "gather_stream": "careless_tpu/ops/table_gather.py:85",
 }
+# a K1-bwd row's source is the kernel kernels.trunk_bwd_route took for its
+# shape (the row's `kernel`)
 SOURCES = {
     **{k: "careless_tpu_torch/csrc/trunk.cu" for k in REPLACES
        if k.startswith("trunk")},
-    # the f32 backward has a kernel of its own (kernels.trunk_bwd_route)
-    "trunk_bwd": "careless_tpu_torch/csrc/trunk_bwd.cu",
-    "trunk_only_bwd": "careless_tpu_torch/csrc/trunk_bwd.cu",
     "gather": "careless_tpu_torch/csrc/gather.cu",
     "philox_normal": "careless_tpu_torch/csrc/philox.cu",
     "fused_ll_fwd": "careless_tpu_torch/csrc/fused_ll.cu",
@@ -329,6 +330,8 @@ def kernel_phase(torch, dev, gen, peak_flops, peak_bw):
     from careless_tpu_torch import kernels
     rows["philox_normal"]["stats"] = prng_gate(torch, kernels, dev)
     rows.update(fused_ll_phase(torch, dev, gen, peak_flops, peak_bw))
+    for name, key in K4_HOST.items():
+        rows[name]["host_us"] = launch_path[key]
     return rows
 
 
@@ -362,9 +365,10 @@ def trunk_rows(torch, gen, x, peak_flops, peak_bw, variants=((True, False),),
     the bf16 tensor-core peak (the least time for bf16 products); the
     trunk-only rows move (N, width) activations and cotangents. Each
     backward row names the kernel kernels.trunk_bwd_route took and its
-    tile; where that is the f32 kernel (csrc/trunk_bwd.cu), the row also
-    times csrc/trunk.cu's backward on the same inputs (trunk_cu_device_ms,
-    trunk_cu_ms) and gives its largest difference from the f32 kernel."""
+    tile; where that is csrc/trunk_bwd.cu (f32) or csrc/trunk_bwd_bf16.cu
+    (bf16), the row also times csrc/trunk.cu's backward, with the same
+    bf16 flag, on the same inputs (trunk_cu_device_ms, trunk_cu_ms) and
+    gives its largest difference from the routed kernel."""
     from careless_tpu_torch import kernels
     from careless_tpu_torch.ops.fused_mlp import (
         fused_mlp_trunk, fused_mlp_trunk_head, pack_params, plain_trunk,
@@ -462,10 +466,12 @@ def trunk_rows(torch, gen, x, peak_flops, peak_bw, variants=((True, False),),
                          bound_by=b_by, library_ms=None,
                          bitwise_repeatable=True, n=n, d_in=d, width=w,
                          n_layers=L, kernel=kernel, tile=tile)
-        if kernel == kernels.TRUNK_BWD_F32:
-            general = general_bwd(torch, x, wflat, bflat, dy, kw, L, head)
+        if kernel != kernels.TRUNK_BWD_GENERAL:
+            general = general_bwd(torch, x, wflat, bflat, dy, kw, L, head,
+                                  bf16)
             mine = torch.cat(kernels.trunk_bwd(x, wflat, bflat, dy, kw, L,
-                                               0.01, False, head=head)[:2])
+                                               0.01, False, head=head,
+                                               bf16=bf16)[:2])
             rows[bwd].update(
                 trunk_cu_tile=kernels.trunk_bwd_tile(d, kw, L, head),
                 trunk_cu_ms=time_ms(torch, general, reps=reps),
@@ -475,11 +481,12 @@ def trunk_rows(torch, gen, x, peak_flops, peak_bw, variants=((True, False),),
     return rows
 
 
-def general_bwd(torch, x, wflat, bflat, dy, kw, n_layers, head):
-    """A function that launches csrc/trunk.cu's backward with bf16 off (the
-    kernel every f32 K1-bwd ran on before csrc/trunk_bwd.cu) on these
-    inputs, as kernels.trunk_bwd would at its tile, without counting a
-    launch; the function returns the (nw + nb) output, [dW flat, db flat]."""
+def general_bwd(torch, x, wflat, bflat, dy, kw, n_layers, head, bf16):
+    """A function that launches csrc/trunk.cu's backward (the kernel every
+    K1-bwd ran on before csrc/trunk_bwd.cu and csrc/trunk_bwd_bf16.cu) on
+    these inputs with the bf16 flag given, as kernels.trunk_bwd would at
+    its tile, without counting a launch; the function returns the
+    (nw + nb) output, [dW flat, db flat]."""
     from careless_tpu_torch import kernels
     from careless_tpu_torch.kernels._build import library
 
@@ -494,7 +501,7 @@ def general_bwd(torch, x, wflat, bflat, dy, kw, n_layers, head):
     args = (x.data_ptr(), wflat.data_ptr(), bflat.data_ptr(),
             dys[0].data_ptr(), dys[1].data_ptr() if head else None, None,
             part.data_ptr(), out.data_ptr(), n, d, kw, n_layers, int(head),
-            0 if head else dy.shape[1], 0, tile, n_blocks, 0.01)
+            0 if head else dy.shape[1], int(bf16), tile, n_blocks, 0.01)
 
     def run():
         err = library().ct_trunk_bwd(
@@ -573,13 +580,14 @@ def launch_phase(torch, dev, gen, steps=True, calls=10_000):
     with each other. At the mono z_f shape (1M sorted ids into 50k
     entries): K2's launcher whole and index_select, and with `steps` each
     step of a K2 launch alone, those the launcher took on every call before
-    it relied on its plans (two dtype/device/contiguity checks by
-    kernels._require, the device context, torch.cuda.current_stream, an
+    it relied on its plans (two dtype/device/contiguity checks, the
+    device context, torch.cuda.current_stream, an
     output sized by ids.shape) beside those it takes now (one expression of
     cheap checks, torch.cuda.current_device, the raw stream handle, an
     output sized by an int), and the ctypes call, which launches. At the
     300k swap permutation (swap_windows): K5's launcher whole beside
-    index_select and K2 on its flat ids. Draws from a generator of its own
+    index_select and K2 on its flat ids. K4's two launchers whole at
+    slice (a)'s shape (K4_HOST names them). Draws from a generator of its own
     seeded from gen's seed."""
     from careless_tpu_torch import kernels
     from careless_tpu_torch.kernels._build import library
@@ -600,6 +608,13 @@ def launch_phase(torch, dev, gen, steps=True, calls=10_000):
         with torch.cuda.device(dev):
             pass
 
+    def require(t, name, dtype):
+        # the check the launchers made of each tensor before they relied on
+        # their plans
+        if (dev.type != "cuda" or t.device != dev or t.dtype != dtype
+                or not t.is_contiguous()):
+            raise ValueError(f"{name} must be a contiguous {dtype} tensor")
+
     def checks():
         return (table.dtype is not f32 or ids.dtype is not i32
                 or table.get_device() < 0 or ids.get_device() != idx
@@ -617,8 +632,8 @@ def launch_phase(torch, dev, gen, steps=True, calls=10_000):
     }
     if steps:
         fns.update({
-            "before: one _require check (two per call)":
-                lambda: kernels._require(ids, "ids", i32, dev),
+            "before: one dtype/device/contiguity check (two per call)":
+                lambda: require(ids, "ids", i32),
             "before: torch.cuda.device context": context,
             "before: torch.cuda.current_stream(dev).cuda_stream":
                 lambda: torch.cuda.current_stream(dev).cuda_stream,
@@ -640,6 +655,18 @@ def launch_phase(torch, dev, gen, steps=True, calls=10_000):
     empty = timed["empty call (subtracted)"]
     out_us = {k: v - empty for k, v in timed.items() if k in fns}
     out_us["empty call (subtracted)"] = empty
+    # K4's launchers at slice (a)'s shape, in-kernel normals, kind normal;
+    # K1_HOST_CALLS calls, so that its device time never fills the queue
+    args = k4_inputs(torch, gen, N_OBS, dev)
+    ev = torch.tensor([1.3, 0.2, 0.7], device=dev)
+    ct = torch.tensor(0.75, device=dev)
+    cfg = dict(kind="normal", dof=0.0, t_const=0.0, seed=7, offset=N_OBS)
+    k4 = host_us(torch, {
+        K4_HOST["fused_ll_fwd"]: lambda: kernels.fused_ll_fwd(
+            *args, None, None, ev, **cfg),
+        K4_HOST["fused_ll_bwd"]: lambda: kernels.fused_ll_bwd(
+            *args, None, None, ev, ct, **cfg)}, K1_HOST_CALLS)
+    out_us.update({k: v - empty for k, v in k4.items()})
     print(("gather launch path" if steps else "gather launches again, after "
            "the run's profiler captures") + ", host us per call: "
           + json.dumps(out_us), flush=True)
@@ -647,6 +674,9 @@ def launch_phase(torch, dev, gen, steps=True, calls=10_000):
 
 
 K1_HOST_CALLS = 300   # K1 launches per host_us: the queue never fills
+# launch_phase's names of K4's launchers, by kernel
+K4_HOST = {"fused_ll_fwd": "K4-fwd launcher, whole (1M, kind normal)",
+           "fused_ll_bwd": "K4-bwd launcher, whole (1M, kind normal)"}
 
 
 def k1_k3_host_us(torch, dev, gen):
@@ -681,21 +711,24 @@ def k1_k3_host_us(torch, dev, gen):
 
 
 def philox_row(torch, dev, gen, n, offset, peak_flops, peak_bw):
-    """K3 for n normals at counters offset .. offset + n - 1: raw words
-    bitwise, normals within a few ulp of the plain version; timed beside it
-    and randn (CUDA events, and device time warm for both); returns its
-    kernel row."""
+    """K3 for n normals of indices offset .. offset + n - 1, and again at
+    offset + 1 (a range that starts and ends inside a Philox block): raw
+    words bitwise, normals within a few ulp of the plain version; timed
+    beside it and randn (CUDA events, and device time warm for both);
+    returns its kernel row."""
     from careless_tpu_torch import kernels
     from careless_tpu_torch.ops.fused_elbo import plain_prng_normal
 
     seed = 0x1234567890ABCDEF
-    e_k, bits_k = kernels.philox_normal(n, seed, offset, dev, with_bits=True)
-    e_p, bits_p = plain_prng_normal(n, seed, offset, dev, with_bits=True)
-    check(torch.equal(bits_k, bits_p),
-          f"philox words at n = {n} differ from plain")
-    err = (e_k - e_p).abs().max().item()
-    del e_k, bits_k, e_p, bits_p
-    tol = 2e-5  # log/sqrt/cos may round differently; |x| <= 5.8
+    tol = 2e-5  # log/sqrt/sincos may round differently; |x| <= 5.8
+    err = 0.0
+    for at in (offset, offset + 1):
+        e_k, bits_k = kernels.philox_normal(n, seed, at, dev, with_bits=True)
+        e_p, bits_p = plain_prng_normal(n, seed, at, dev, with_bits=True)
+        check(torch.equal(bits_k, bits_p),
+              f"philox words at n = {n}, offset {at} differ from plain")
+        err = max(err, (e_k - e_p).abs().max().item())
+        del e_k, bits_k, e_p, bits_p
     check(err <= tol, f"philox normals at n = {n} differ from plain: {err} "
           f"> {tol}")
     b_ms, b_by = bound(0.0, 4.0 * n, peak_flops, peak_bw)
@@ -1678,8 +1711,10 @@ def main():
         laue_phase(torch, dev, gen, args.seed, peak_flops, peak_bw)
     for k, err in held.items():
         rows[k]["laue_max_abs_err"] = err
-    rows["gather"]["launch_path_host_us_after_profiling"] = launch_phase(
-        torch, dev, gen, steps=False)
+    again = launch_phase(torch, dev, gen, steps=False)
+    rows["gather"]["launch_path_host_us_after_profiling"] = again
+    for kname, key in K4_HOST.items():
+        rows[kname]["host_us_after_profiling"] = again[key]
     print("profiler: kernel records captured of the launches device_ms "
           "timed: " + json.dumps(CAPTURED), flush=True)
 
@@ -1692,7 +1727,9 @@ def main():
               "gather_stream": launches_laue["gather_stream"],
               LAUE_PERM_ROW: launches_laue["gather"]}
     kernel_of = {LAUE_PERM_ROW: "gather"}
-    table = [dict(name=k, route="cuda", source=SOURCES[kernel_of.get(k, k)],
+    table = [dict(name=k, route="cuda",
+                  source=("careless_tpu_torch/" + v["kernel"] if "kernel" in v
+                          else SOURCES[kernel_of.get(k, k)]),
                   replaces=REPLACES[kernel_of.get(k, k)], launches=counts[k],
                   **v)
              for k, v in rows.items()]

@@ -10,8 +10,10 @@ Tolerances: gathers (K2, K5) copy, so they are exact; the trunk sums in another
 order than cuBLAS (1e-5 of the output scale, and of each gradient
 tensor's largest entry), in f32 and in bf16 against the bf16 plain version
 (each product of rounded operands is exact; a bf16 rounding straddle, see
-tests/test_torch_fused_mlp.py, would show as a failure here); Philox words are exact and normals within 2e-5
-(log/cos may round differently, |x| <= 5.8). K4 against its plain
+tests/test_torch_fused_mlp.py, would show as a failure here), the f32 and
+bf16 backward kernels of their own within 1e-4 (their docstrings say
+why); Philox words are exact and normals within 2e-5 (log/sincos may
+round differently, |x| <= 5.8). K4 against its plain
 versions on the same inputs: the sum at rtol 1e-5 (f32 sums over 200k
 observations in another order), per-observation gradients within 1e-5 of
 each tensor's largest entry (the kernel fuses multiply-adds), the Ev11
@@ -31,7 +33,8 @@ from careless_tpu_torch.ops.fused_elbo import (
 from careless_tpu_torch.kernels._build import library
 from careless_tpu_torch.ops.fused_mlp import (fused_mlp_trunk,
                                               fused_mlp_trunk_head,
-                                              plain_trunk, plain_trunk_head)
+                                              plain_trunk, plain_trunk_head,
+                                              round_bf16)
 from careless_tpu_torch.ops.plan_gather import (_plan_windows,
                                                 make_gather_plan, plan_gather)
 from careless_tpu_torch.ops.table_gather import (plain_gather,
@@ -235,6 +238,130 @@ def test_f32_shapes_past_the_f32_kernel_run_the_general_one(cuda, d, w,
     kernel, tile = kernels.trunk_bwd_route(d, w, n_layers, head, False)
     assert kernel == kernels.TRUNK_BWD_GENERAL and tile <= 16
     _hold_trunk(1_001, d, w, n_layers, head, False, cuda, n_layers)
+
+
+def _bf16_terms_summed_in_f64(x, layers, out, cts, leak=0.01):
+    """The bf16 plain version's gradients, from its own f32 forward and
+    dpre chain (the operations of plain_trunk and _BF16Matmul, so the same
+    values and the same bf16 roundings), with each weight's and bias's sum
+    over the rows taken in f64: the exact sum of the plain version's terms.
+    Its own f32 sums over 100k rows part from that by more than 1e-4 of a
+    gradient that cancels (at width 1, a 1 x 1 weight summing to ~0.07
+    from terms of order 1)."""
+    with torch.no_grad():
+        hs, pres, h = [x], [], x
+        for layer in layers:
+            pre = round_bf16(h) @ round_bf16(layer["w"]) + layer["b"]
+            h = torch.where(pre >= 0, pre, leak * pre)
+            pres.append(pre)
+            hs.append(h)
+        grads = []
+        if out is not None:
+            dp = torch.stack(cts, 1)
+            grads = [round_bf16(h).double().T @ round_bf16(dp).double(),
+                     dp.double().sum(0)]
+            dh = round_bf16(dp) @ round_bf16(out["w"]).T
+        else:
+            dh = cts[0]
+        for i in reversed(range(len(layers))):
+            dp = torch.where(pres[i] >= 0, dh, leak * dh)
+            grads = [round_bf16(hs[i]).double().T @ round_bf16(dp).double(),
+                     dp.double().sum(0)] + grads
+            if i:
+                dh = round_bf16(dp) @ round_bf16(layers[i]["w"]).T
+        return grads
+
+
+@pytest.mark.parametrize("head", [True, False])
+@pytest.mark.parametrize("n,d,w,n_layers", [
+    (1_000_000, 10, 10, 20),  # the bf16 slices' shape
+    (100_003, 10, 10, 20),    # a ragged last tile
+    (100_003, 7, 1, 4),
+    (100_003, 7, 16, 4),
+    (100_003, 28, 28, 20),    # width pads to 32
+    (100_003, 128, 32, 20),   # d_in 128: one warp a block
+    (63, 3, 4, 1),            # less than one tile, one layer
+])
+def test_bf16_backward_kernel_matches_plain(cuda, n, d, w, n_layers, head):
+    """The bf16 K1-bwd (csrc/trunk_bwd_bf16.cu) against the bf16 plain
+    version's terms summed exactly (_bf16_terms_summed_in_f64), within
+    chip_smoke.trunk_rows' 1e-4 of each gradient's largest entry, and bit
+    for bit against itself."""
+    assert kernels.trunk_bwd_route(d, kernels.trunk_width(w), n_layers,
+                                   head, True)[0] == kernels.TRUNK_BWD_BF16
+    x, layers, out, leaves, gl, gr = _trunk(n, d, w, n_layers, cuda, n + w)
+    if head:
+        fn, cts = fused_mlp_trunk_head, (gl, gr)
+    else:
+        fn = fused_mlp_trunk
+        cts = (torch.randn(n, w, device=cuda,
+                           generator=torch.Generator(cuda).manual_seed(n)),)
+        out, leaves = None, leaves[:-2]
+    kernels.reset_launches()
+    _, g_k = _run_trunk(fn, x, layers, out, cts, leaves, True)
+    _, g_k2 = _run_trunk(fn, x, layers, out, cts, leaves, True)
+    assert kernels.LAUNCHES[kernels.trunk_key("bwd", head, True)] == 2
+    assert all(torch.equal(a, b) for a, b in zip(g_k, g_k2))
+    want = _bf16_terms_summed_in_f64(x, layers, out, cts)
+    for a, b in zip(g_k, want):
+        assert (a.double() - b).abs().max().item() \
+            <= 1e-4 * b.abs().max().item()
+
+
+@pytest.mark.parametrize("head", [True, False])
+def test_bf16_backward_kernel_dx_when_asked(cuda, head):
+    """dx from the bf16 K1-bwd (bf16(dpre_0) bf16(W_0)^T, in the plain
+    version's order of j) against the plain version's, per row."""
+    x, layers, out, _, gl, gr = _trunk(2_000, 6, 8, 4, cuda, 3)
+    cts = ((gl, gr) if head else
+           (torch.randn(2_000, 8, device=cuda,
+                        generator=torch.Generator(cuda).manual_seed(3)),))
+    grads = []
+    for fn in ((fused_mlp_trunk_head, plain_trunk_head) if head
+               else (fused_mlp_trunk, plain_trunk)):
+        xr = x.clone().requires_grad_(True)
+        ys = (fn(xr, layers, out, 0.01, bf16=True) if head
+              else (fn(xr, layers, 0.01, bf16=True),))
+        (g,) = torch.autograd.grad(
+            sum((y * c).sum() for y, c in zip(ys, cts)), xr)
+        grads.append(g)
+    assert kernels.trunk_bwd_route(6, 8, 4, head, True)[0] \
+        == kernels.TRUNK_BWD_BF16
+    torch.testing.assert_close(grads[0], grads[1], rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("d,w,n_layers", [(10, 10, 20), (28, 28, 20),
+                                          (5, 8, 3), (128, 32, 20),
+                                          (7, 1, 1)])
+@pytest.mark.parametrize("head", [True, False])
+def test_bf16_backward_smem_matches_the_kernel(cuda, d, w, n_layers, head):
+    """kernels.trunk_bwd_bf16_smem, which picks the bf16 kernel's block and
+    the route, is csrc/trunk_bwd_bf16.cu's sum."""
+    for tile in kernels.TRUNK_BWD_F32_TILES + (96,):
+        assert kernels.trunk_bwd_bf16_smem(d, w, n_layers, head, tile) == \
+            library().ct_trunk_bwd_bf16_smem(d, w, n_layers, int(head), tile)
+
+
+@pytest.mark.parametrize("n", [1, 2, 5, 4_099, 1_000_003])
+@pytest.mark.parametrize("offset", [0, 1, 2, 3, 1001, 2 ** 33 + 3])
+def test_philox_kernel_at_unaligned_offsets(cuda, n, offset):
+    """K3 writes the elements of a range that starts or ends inside a
+    Philox block (scalar stores for its head and tail): words bit for bit
+    and normals within 2e-5 of the plain version."""
+    got, bits = kernels.philox_normal(n, 0xDEADBEEF12345678, offset, cuda,
+                                      with_bits=True)
+    want, bits_p = plain_prng_normal(n, 0xDEADBEEF12345678, offset, cuda,
+                                     with_bits=True)
+    assert torch.equal(bits, bits_p)
+    torch.testing.assert_close(got, want, rtol=0, atol=2e-5)
+
+
+@pytest.mark.parametrize("n", [0, 1, 255, 256, 257, 1_000_000])
+def test_fused_ll_parts_match_the_kernel(cuda, n):
+    """kernels.fused_ll_parts, which sizes K4's partial sums, is
+    csrc/fused_ll.cu's count (at least one)."""
+    assert kernels.fused_ll_parts(n) == max(1,
+                                            library().ct_fused_ll_parts(n))
 
 
 @pytest.mark.parametrize("with_bits", [False, True])

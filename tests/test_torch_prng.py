@@ -1,9 +1,11 @@
 """The port's Philox4x32-10 normal generator (K3 and its plain version).
 
 Held against Random123's published known answer, an independent numpy
-uint64 Philox, its own stream contract (same key and counters -> same
-numbers; disjoint counter ranges -> disjoint streams), and statistics at
-n = 2^18 whose bounds are ~5 standard deviations of each statistic.
+uint64 Philox and the map from index to normal built on it (four normals
+per Philox block), its own stream contract (same key and indices -> same
+numbers; disjoint index ranges -> disjoint streams; a call split anywhere
+-> the same stream), and statistics whose bounds are ~4-5 standard
+deviations of each statistic.
 """
 import math
 
@@ -70,19 +72,80 @@ def test_stream_contract():
         assert not set(bits_a[:, 0].tolist()) & set(bits_b[:, 0].tolist())
 
 
+def _words_and_trig(bits, slot):
+    """u1 = u(ra), and cos or sin of 2 pi u(rb) by slot, in f64."""
+    ra = bits[:, 0].to(torch.int64) & 0xFFFFFFFF
+    rb = bits[:, 1].to(torch.int64) & 0xFFFFFFFF
+    u1 = ((ra >> 8) + 1).double() * 2.0 ** -24
+    angle = 2 * math.pi * ((rb >> 8) + 1).double() * 2.0 ** -24
+    return u1, torch.where(slot % 2 == 1, torch.sin(angle), torch.cos(angle))
+
+
 def test_uniform_map_avoids_zero():
     """u = ((r >> 8) + 1) 2^-24 lies in (0, 1]: the largest |x| is
     sqrt(-2 log 2^-24) and no clamp spike appears."""
     x, bits = plain_prng_normal(1 << 16, 7, 0, "cpu", with_bits=True)
     assert torch.isfinite(x).all()
     assert x.abs().max() <= math.sqrt(-2 * math.log(2.0 ** -24))
-    r0 = bits[:, 0].to(torch.int64) & 0xFFFFFFFF
-    u1 = ((r0 >> 8) + 1).double() * 2.0 ** -24
-    torch.testing.assert_close(
-        x.double(), torch.sqrt(-2 * torch.log(u1)) * torch.cos(
-            2 * math.pi * (((bits[:, 1].to(torch.int64) & 0xFFFFFFFF) >> 8)
-                           + 1).double() * 2.0 ** -24),
-        rtol=0, atol=2e-5)
+    u1, trig = _words_and_trig(bits, torch.arange(1 << 16) % 4)
+    torch.testing.assert_close(x.double(), torch.sqrt(-2 * torch.log(u1))
+                               * trig, rtol=0, atol=2e-5)
+
+
+@pytest.mark.parametrize("seed,offset", [(3, 0), (0xDEADBEEF12345678, 1001),
+                                         (2 ** 64 - 1, 2 ** 34 + 3)])
+def test_four_normals_per_philox_block(seed, offset):
+    """Index e takes slot e & 3 of Philox block e >> 2 (numpy_philox, an
+    independent Philox): slots 0 and 1 are R(r0) cos and sin of
+    2 pi u(r1), slots 2 and 3 the same of (r2, r3); words exact, normals
+    within 2e-5 of a float32 numpy Box-Muller."""
+    n = 4099
+    x, bits = plain_prng_normal(n, seed, offset, "cpu", with_bits=True)
+    e = offset + np.arange(n, dtype=np.uint64)
+    r = numpy_philox(e >> np.uint64(2), seed)
+    slot = (e & np.uint64(3)).astype(np.int64)
+    for s in range(4):
+        at = slot == s
+        ra, rb = (r[0], r[1]) if s < 2 else (r[2], r[3])
+        got = bits[torch.from_numpy(at)].numpy().astype(np.int64) \
+            & 0xFFFFFFFF
+        np.testing.assert_array_equal(got[:, 0], ra[at].astype(np.int64))
+        np.testing.assert_array_equal(got[:, 1], rb[at].astype(np.int64))
+        u1 = ((ra[at] >> np.uint64(8)) + np.uint64(1)).astype(np.float32) \
+            * np.float32(2.0 ** -24)
+        u2 = ((rb[at] >> np.uint64(8)) + np.uint64(1)).astype(np.float32) \
+            * np.float32(2.0 ** -24)
+        angle = np.float32(2 * np.pi) * u2
+        trig = np.sin(angle) if s % 2 else np.cos(angle)
+        want = np.sqrt(np.float32(-2.0) * np.log(u1)) * trig
+        np.testing.assert_allclose(x.numpy()[at], want, rtol=0, atol=2e-5)
+
+
+@pytest.mark.parametrize("first,cut", [(1001, 1003), (1003, 1009),
+                                       (2 ** 33 + 1, 2 ** 33 + 6)])
+def test_stream_splits_at_unaligned_offsets(first, cut):
+    """A call split in two at any index gives the same stream, also where
+    the offsets are not multiples of 4 (a Philox block shared by both)."""
+    n = 2001
+    whole, bits = plain_prng_normal(n, 11, first, "cpu", with_bits=True)
+    head, bits_h = plain_prng_normal(cut - first, 11, first, "cpu",
+                                     with_bits=True)
+    tail, bits_t = plain_prng_normal(n - (cut - first), 11, cut, "cpu",
+                                     with_bits=True)
+    assert torch.equal(whole, torch.cat([head, tail]))
+    assert torch.equal(bits, torch.cat([bits_h, bits_t]))
+    assert torch.equal(whole, prng_normal(n, 11, first, "cpu"))
+
+
+@pytest.mark.parametrize("pair", [0, 1])
+def test_cos_sin_pairs_uncorrelated(pair):
+    """The two normals of one Box-Muller pair (slots 0 and 1, or 2 and 3)
+    have a correlation within 4 / sqrt(n) of 0."""
+    x = prng_normal(1 << 20, 97, 0, "cpu").double().view(-1, 4)
+    a, b = x[:, 2 * pair], x[:, 2 * pair + 1]
+    n = a.numel()
+    corr = ((a - a.mean()) * (b - b.mean())).mean() / (a.std() * b.std())
+    assert abs(corr.item()) < 4 / math.sqrt(n), corr.item()
 
 
 def test_statistics():

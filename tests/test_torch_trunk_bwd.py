@@ -1,11 +1,12 @@
-"""K1-bwd's two kernels: which one a shape takes, and at which tile.
+"""K1-bwd's three kernels: which one a shape takes, and at which tile.
 
-csrc/trunk_bwd.cu runs the f32 backward (head or trunk only) and
-csrc/trunk.cu's backward runs bf16 and the f32 shapes whose shared memory
-fits no tile of the first. Both are CUDA only; what the CPU can check is
-the Python side that chooses between them: kernels.trunk_bwd_f32_smem (a
-copy of csrc/trunk_bwd.cu's bwd_f32_smem, held equal to it by a card test),
-the tile each kernel takes, and the route. The launchers refuse CPU
+csrc/trunk_bwd.cu runs the f32 backward (head or trunk only),
+csrc/trunk_bwd_bf16.cu the bf16 one on tensor cores, and csrc/trunk.cu's
+backward the shapes whose shared memory fits not even one warp of the
+other two. All are CUDA only; what the CPU can check is the Python side
+that chooses between them: kernels.trunk_bwd_f32_smem and
+kernels.trunk_bwd_bf16_smem (copies of the kernels' own sums, held equal
+to them by card tests), the tile each kernel takes, and the route. The launchers refuse CPU
 tensors here, so nothing reaches a kernel. The kernels' arithmetic is
 held against the JAX package through their plain versions in
 tests/test_torch_fused_mlp.py and on the card in tests/test_torch_cuda.py.
@@ -17,6 +18,7 @@ from careless_tpu_torch import kernels
 from careless_tpu_torch.ops.fused_mlp import pack_params
 
 F32, GENERAL = kernels.TRUNK_BWD_F32, kernels.TRUNK_BWD_GENERAL
+BF16 = kernels.TRUNK_BWD_BF16
 
 
 @pytest.mark.parametrize("d,w,n_layers,head,tile,floats", [
@@ -48,12 +50,18 @@ def test_f32_smem_sum(d, w, n_layers, head, tile, floats):
 @pytest.mark.parametrize("d,w,n_layers,head,bf16,kernel,tile", [
     (10, 10, 20, True, False, F32, 128),       # the main path
     (10, 10, 20, False, False, F32, 128),      # --image-layers
-    (10, 10, 20, True, True, GENERAL, 64),     # --mlp-dtype bfloat16
-    (10, 10, 20, False, True, GENERAL, 64),
+    (10, 10, 20, True, True, BF16, 192),       # --mlp-dtype bfloat16
+    (10, 10, 20, False, True, BF16, 192),      # and --image-layers
     (16, 16, 20, True, False, F32, 64),
     (24, 24, 20, True, False, F32, 32),
     (28, 28, 20, True, False, F32, 32),        # chip_smoke's wide check
-    (28, 28, 20, True, True, GENERAL, 32),
+    (28, 28, 20, True, True, BF16, 32),
+    (16, 16, 20, True, True, BF16, 128),
+    (32, 32, 20, True, True, BF16, 32),        # f32 takes trunk.cu here
+    (128, 32, 20, True, True, BF16, 32),
+    (128, 32, 20, False, True, BF16, 32),
+    (10, 10, 60, True, True, BF16, 64),        # deep
+    (10, 10, 150, True, True, GENERAL, 8),     # no warp fits
     (10, 10, 60, True, False, F32, 32),        # deep
     # f32 shapes that fit no tile of csrc/trunk_bwd.cu
     (32, 32, 20, True, False, GENERAL, 16),
@@ -62,23 +70,58 @@ def test_f32_smem_sum(d, w, n_layers, head, tile, floats):
     (10, 10, 150, True, False, GENERAL, 8),
 ])
 def test_route_and_tile(d, w, n_layers, head, bf16, kernel, tile):
-    """f32 takes csrc/trunk_bwd.cu at the most rows (warps) whose shared
-    memory fits in a block's 227 KB; bf16, and f32 where not even one warp
-    fits, take csrc/trunk.cu's backward at its own tile."""
+    """f32 takes csrc/trunk_bwd.cu and bf16 csrc/trunk_bwd_bf16.cu, at the
+    most rows (warps) whose shared memory fits in a block's 227 KB; a shape
+    where not even one warp fits takes csrc/trunk.cu's backward at its own
+    tile."""
     assert kernels.trunk_bwd_route(d, w, n_layers, head, bf16) \
         == (kernel, tile)
-    smem = (kernels.trunk_bwd_f32_smem if kernel == F32
-            else kernels.trunk_smem)
-    tiles = (kernels.TRUNK_BWD_F32_TILES if kernel == F32
-             else kernels.TRUNK_BWD_TILES)
+    smem = {F32: kernels.trunk_bwd_f32_smem,
+            BF16: kernels.trunk_bwd_bf16_smem,
+            GENERAL: kernels.trunk_smem}[kernel]
+    tiles = {F32: kernels.TRUNK_BWD_F32_TILES,
+             BF16: kernels.TRUNK_BWD_BF16_TILES,
+             GENERAL: kernels.TRUNK_BWD_TILES}[kernel]
     assert smem(d, w, n_layers, head, tile) <= kernels.MAX_SMEM_PER_BLOCK
     for taller in tiles[:tiles.index(tile)]:
         assert smem(d, w, n_layers, head, taller) \
             > kernels.MAX_SMEM_PER_BLOCK
-    if kernel == GENERAL and not bf16:
-        assert all(kernels.trunk_bwd_f32_smem(d, w, n_layers, head, t)
-                   > kernels.MAX_SMEM_PER_BLOCK
-                   for t in kernels.TRUNK_BWD_F32_TILES)
+    if kernel == GENERAL:
+        own = (kernels.trunk_bwd_bf16_smem if bf16
+               else kernels.trunk_bwd_f32_smem)
+        assert all(own(d, w, n_layers, head, t) > kernels.MAX_SMEM_PER_BLOCK
+                   for t in (kernels.TRUNK_BWD_BF16_TILES if bf16
+                             else kernels.TRUNK_BWD_F32_TILES))
+
+
+@pytest.mark.parametrize("d,w,n_layers,head,tile,nbytes", [
+    # The main path: width 10 pads to 16, d_in 10 to 16. Shared: 202
+    # biases (rounded to 204 floats) and the bf16 weights in pairs, 5 words
+    # a row over 10 + 19 x 10 rows and one word a row for the head's 10
+    # (1010, rounded to 1012). Per warp: its flat partial of the 2,020
+    # weights and 202 biases (2,222, rounded to 2,224 floats), 20 masks of
+    # 32 rows, the stash (32 rows of 16 bf16 for x and for each of 20
+    # activations) and the dpre buffer (32 rows of 16 bf16)
+    (10, 10, 20, True, 192,
+     4 * 204 + 4 * 1012 + 6 * (4 * 2224 + 4 * 640 + 64 * (16 + 320)
+                               + 64 * 16)),
+    (10, 10, 20, False, 32,
+     4 * 200 + 4 * 1000 + 4 * 2200 + 4 * 640 + 64 * (16 + 320) + 64 * 16),
+    # width 28 pads to 32, d_in 28 to 32; 14 words a row over 28 + 19 x 28
+    # rows, and 28 for the head (7868); 15,736 weights and 562 biases
+    (28, 28, 20, True, 32,
+     4 * 564 + 4 * 7868 + 4 * 16300 + 4 * 640 + 64 * (32 + 640) + 64 * 32),
+    # d_in 128 pads to 128
+    (128, 32, 20, False, 32,
+     4 * 640 + 4 * (128 + 19 * 32) * 16 + 4 * (4096 + 19 * 1024 + 640)
+     + 4 * 640 + 64 * (128 + 640) + 64 * 32),
+    # d_in 5 pads to 16; its weights take 4 words a row over 5 + 2 x 8 rows
+    # and 8 for the head (92); 184 weights and 26 biases (210, to 212)
+    (5, 8, 3, True, 64,
+     4 * 28 + 4 * 92 + 2 * (4 * 212 + 4 * 96 + 64 * (16 + 48) + 64 * 16)),
+])
+def test_bf16_smem_sum(d, w, n_layers, head, tile, nbytes):
+    assert kernels.trunk_bwd_bf16_smem(d, w, n_layers, head, tile) == nbytes
 
 
 def test_route_refuses_what_no_kernel_holds():
@@ -87,13 +130,14 @@ def test_route_refuses_what_no_kernel_holds():
 
 
 def test_f32_blocks_are_whole_warps():
-    assert all(t % 32 == 0 for t in kernels.TRUNK_BWD_F32_TILES)
-    assert list(kernels.TRUNK_BWD_F32_TILES) == sorted(
-        kernels.TRUNK_BWD_F32_TILES, reverse=True)
+    for tiles in (kernels.TRUNK_BWD_F32_TILES, kernels.TRUNK_BWD_BF16_TILES):
+        assert all(t % 32 == 0 for t in tiles)
+        assert list(tiles) == sorted(tiles, reverse=True)
 
 
+@pytest.mark.parametrize("bf16", [False, True])
 @pytest.mark.parametrize("head", [True, False])
-def test_trunk_bwd_launcher_refuses_cpu_tensors(head):
+def test_trunk_bwd_launcher_refuses_cpu_tensors(head, bf16):
     torch.manual_seed(0)
     layers = [{"w": torch.randn(4, 4), "b": torch.randn(4)}
               for _ in range(2)]
@@ -104,7 +148,7 @@ def test_trunk_bwd_launcher_refuses_cpu_tensors(head):
     kernels.reset_launches()
     with pytest.raises(ValueError, match="contiguous CUDA tensors"):
         kernels.trunk_bwd(x, w.detach(), b.detach(), dy, 4, 2, 0.01, False,
-                          head=head)
+                          head=head, bf16=bf16)
     assert not any(kernels.LAUNCHES.values())
 
 
@@ -115,3 +159,23 @@ def test_philox_launcher_refuses_cpu_and_non_int_counts(n, device):
     with pytest.raises(ValueError, match="int count and a CUDA device"):
         kernels.philox_normal(n, 1, 0, torch.device(device))
     assert kernels.LAUNCHES["philox_normal"] == 0
+
+
+@pytest.mark.parametrize("direction", ["fwd", "bwd"])
+@pytest.mark.parametrize("mask", [False, True])
+def test_fused_ll_launchers_refuse_cpu_tensors(direction, mask):
+    """K4's launchers, on the gathers' launch path, refuse CPU tensors by
+    name and launch nothing."""
+    n = 16
+    args = [torch.rand(n) + 0.5 for _ in range(6)]
+    ev = torch.ones(3)
+    kw = dict(kind="normal", dof=0.0, t_const=0.0, seed=1, offset=0)
+    kernels.reset_launches()
+    with pytest.raises(ValueError, match="contiguous CUDA tensors.*loc"):
+        if direction == "fwd":
+            kernels.fused_ll_fwd(*args, torch.ones(n) if mask else None,
+                                 None, ev, **kw)
+        else:
+            kernels.fused_ll_bwd(*args, torch.ones(n) if mask else None,
+                                 None, ev, torch.tensor(1.0), **kw)
+    assert not any(kernels.LAUNCHES.values())
