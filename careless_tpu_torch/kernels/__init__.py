@@ -7,16 +7,20 @@ by one for every call that launches its kernel; nothing else touches it.
 The ops modules decide between these launchers and the plain versions by
 the device of the tensors they are given.
 
-K1-bwd has three kernels: csrc/trunk_bwd.cu for f32 and
+K1-fwd has two kernels: csrc/trunk.cu for kernel widths up to 32 whose
+weights fit in a block's shared memory, and csrc/trunk_wide.cu, which
+streams the weights one layer at a time, for the rest up to the JAX
+kernel's 128 lanes. K1-bwd has four: csrc/trunk_bwd.cu for f32 and
 csrc/trunk_bwd_bf16.cu (tensor-core mma) for bf16 operands, each head or
-trunk only, and csrc/trunk.cu's backward for the shapes whose shared memory
-fits not even one warp of the other two (`trunk_bwd_route` decides, by
-shape).
+trunk only, csrc/trunk.cu's backward for the shapes whose shared memory
+fits not even one warp of those two (`trunk_bwd_route` decides, by shape),
+and csrc/trunk_wide.cu for the shapes none of them holds. `trunk_route`
+picks both directions' kernels for a shape.
 """
 from __future__ import annotations
 
 import functools
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -26,7 +30,10 @@ LAUNCHES = {"trunk_fwd": 0, "trunk_bwd": 0, "trunk_fwd_bf16": 0,
             "trunk_bwd_bf16": 0, "trunk_only_fwd": 0, "trunk_only_bwd": 0,
             "trunk_only_fwd_bf16": 0, "trunk_only_bwd_bf16": 0, "gather": 0,
             "philox_normal": 0, "fused_ll_fwd": 0, "fused_ll_bwd": 0,
-            "gather_stream": 0}
+            "gather_stream": 0, "trunk_wide_fwd": 0, "trunk_wide_bwd": 0,
+            "trunk_wide_fwd_bf16": 0, "trunk_wide_bwd_bf16": 0,
+            "trunk_wide_only_fwd": 0, "trunk_wide_only_bwd": 0,
+            "trunk_wide_only_fwd_bf16": 0, "trunk_wide_only_bwd_bf16": 0}
 
 # csrc/fused_ll.cu's kinds, in the order of its Kind enum
 FUSED_KINDS = ("normal", "studentt", "laplace", "normal_ev11",
@@ -42,6 +49,12 @@ TRUNK_BWD_F32_TILES = (128, 64, 32)
 # the three K1-bwd kernels, as trunk_bwd_route names them
 TRUNK_BWD_F32, TRUNK_BWD_GENERAL = "csrc/trunk_bwd.cu", "csrc/trunk.cu"
 TRUNK_BWD_BF16 = "csrc/trunk_bwd_bf16.cu"
+# K1-fwd's narrow kernel, and the kernel of both directions for the shapes
+# the others do not take (trunk_route)
+TRUNK_FWD, TRUNK_WIDE = "csrc/trunk.cu", "csrc/trunk_wide.cu"
+# csrc/trunk_wide.cu: its widths (multiples of 16, up to the JAX kernel's
+# 128 lanes, which bound max(d_in, width) there too) and its tile's rows
+WIDE_STEP, MAX_TRUNK_WIDTH, WIDE_ROWS = 16, 128, 64
 # csrc/trunk_bwd_bf16.cu's block rows, most first: 8 to 1 warps, each
 # walking tiles of 32 rows of its own
 TRUNK_BWD_BF16_TILES = tuple(32 * w for w in range(8, 0, -1))
@@ -54,21 +67,36 @@ def reset_launches() -> None:
         LAUNCHES[name] = 0
 
 
-def trunk_key(direction: str, head: bool, bf16: bool) -> str:
+def trunk_key(direction: str, head: bool, bf16: bool,
+              wide: bool = False) -> str:
     """The LAUNCHES name of one K1 instantiation: direction "fwd" or
-    "bwd", with the head or the trunk only, f32 or bf16 operands."""
-    return (("trunk_" if head else "trunk_only_") + direction
-            + ("_bf16" if bf16 else ""))
+    "bwd", with the head or the trunk only, f32 or bf16 operands, in
+    csrc/trunk_wide.cu (wide) or in one of the narrow kernels."""
+    return ("trunk_" + ("wide_" if wide else "") + ("" if head else "only_")
+            + direction + ("_bf16" if bf16 else ""))
 
 
 def trunk_width(width: int) -> int:
-    """The instantiated kernel width a trunk of `width` runs at (the
-    wrapper zero-pads the weights up to it, which is exact)."""
+    """The kernel width a trunk of `width` runs at (the wrapper zero-pads
+    the weights up to it, which is exact): an instantiated width of
+    csrc/trunk.cu up to 32, else the next multiple of 16 up to 128."""
     for w in TRUNK_WIDTHS:
         if w >= width:
             return w
-    raise ValueError(f"MLP width {width} exceeds the trunk kernel's cap of "
-                     f"{TRUNK_WIDTHS[-1]}")
+    if width <= MAX_TRUNK_WIDTH:
+        return _wide_kw(width)
+    raise ValueError(_past_the_lanes("MLP width", width))
+
+
+def _wide_kw(width: int) -> int:
+    """csrc/trunk_wide.cu's own width: `width` rounded up to WIDE_STEP."""
+    return -(-width // WIDE_STEP) * WIDE_STEP
+
+
+def _past_the_lanes(what: str, value: int) -> str:
+    return (f"{what} {value} exceeds the trunk kernels' cap of "
+            f"{MAX_TRUNK_WIDTH}, the 128 lanes of the JAX kernel "
+            "(careless_tpu/ops/fused_mlp.py), whose domain the port keeps")
 
 
 @functools.cache
@@ -171,6 +199,56 @@ def trunk_bwd_route(d_in: int, width: int, n_layers: int, head: bool,
         if smem(d_in, width, n_layers, head, tile) <= MAX_SMEM_PER_BLOCK:
             return kernel, tile
     return TRUNK_BWD_GENERAL, trunk_bwd_tile(d_in, width, n_layers, head)
+
+
+def trunk_wide_smem(d_in: int, width: int, bwd: bool) -> int:
+    """Shared-memory bytes of csrc/trunk_wide.cu (the same sum as its
+    wide_smem, ct_trunk_wide_smem; a card test holds the two equal): at kw =
+    width rounded up to 16, d4 = d_in rounded up to 4 and cols = max(d4,
+    kw), buffers of WIDE_ROWS rows at a stride of cols + 4 floats (two in
+    the forward, three in the backward) and slots of one layer's weights
+    (cols x kw) and biases (kw) (two in the forward, one in the
+    backward)."""
+    kw = _wide_kw(width)
+    cols = max(-(-d_in // 4) * 4, kw)
+    return 4 * ((3 if bwd else 2) * WIDE_ROWS * (cols + 4)
+                + (1 if bwd else 2) * (cols * kw + kw))
+
+
+class TrunkRoute(NamedTuple):
+    """The kernels a trunk runs on the card: the width its weights are
+    packed at, each direction's kernel (TRUNK_FWD or TRUNK_WIDE forward;
+    TRUNK_BWD_F32, TRUNK_BWD_BF16, TRUNK_BWD_GENERAL or TRUNK_WIDE
+    backward) and the backward's tile."""
+    width: int
+    fwd: str
+    bwd: str
+    tile: int
+
+
+@functools.cache
+def trunk_route(d_in: int, width: int, n_layers: int, head: bool,
+                bf16: bool) -> TrunkRoute:
+    """Both directions' K1 kernels for a trunk of the model's `width`.
+    Every shape the narrow kernels hold keeps them: the forward csrc/
+    trunk.cu where its weights fit in a block, the backward trunk_bwd_route's
+    kernel. The rest, up to max(d_in, width) = 128, takes csrc/trunk_wide.cu
+    (both directions run K1-fwd's order of sums, so a forward and a
+    backward in different kernels see the same activations). Raises past
+    128, the JAX kernel's lanes."""
+    kw = trunk_width(width)
+    narrow = kw <= TRUNK_WIDTHS[-1]
+    fwd = (TRUNK_FWD if narrow and trunk_smem(d_in, kw, n_layers, head)
+           <= MAX_SMEM_PER_BLOCK else TRUNK_WIDE)
+    bwd, tile = TRUNK_WIDE, WIDE_ROWS
+    if narrow:
+        try:
+            bwd, tile = trunk_bwd_route(d_in, kw, n_layers, head, bf16)
+        except ValueError:   # no narrow backward holds the shape
+            pass
+    if TRUNK_WIDE in (fwd, bwd) and d_in > MAX_TRUNK_WIDTH:
+        raise ValueError(_past_the_lanes("metadata width (d_in)", d_in))
+    return TrunkRoute(kw, fwd, bwd, tile)
 
 
 def _check(err: int, what: str) -> None:
@@ -312,6 +390,93 @@ def trunk_bwd(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, dy,
                       n_blocks, leak)
     _check(err, "trunk backward")
     LAUNCHES[trunk_key("bwd", head, bf16)] += 1
+    return out[:nw], out[nw:], dx
+
+
+def _wide_shape(what: str, d_in: int, width: int) -> None:
+    if d_in > MAX_TRUNK_WIDTH or width > MAX_TRUNK_WIDTH:
+        raise ValueError(_past_the_lanes(f"{what}: max(d_in, width)",
+                                         max(d_in, width)))
+
+
+def trunk_wide_fwd(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                   width: int, n_layers: int, leak: float, *,
+                   head: bool = True, out_w: Optional[int] = None,
+                   bf16: bool = False):
+    """K1-fwd in csrc/trunk_wide.cu: as trunk_fwd, for any packed width and
+    d_in up to 128 at any depth (the weights stream one layer at a time)."""
+    idx = _f32_card(x, w, b)
+    if idx < 0:
+        _refuse("wide trunk forward", "float32 x, w and b", ("x", x),
+                ("w", w), ("b", b))
+    n, d_in = x.shape
+    _wide_shape("wide trunk forward", d_in, width)
+    out_w = width if out_w is None else out_w
+    dev = x.device
+    if head:
+        outs = (torch.empty(n, dtype=_F32, device=dev),
+                torch.empty(n, dtype=_F32, device=dev))
+    else:
+        outs = (torch.empty((n, out_w), dtype=_F32, device=dev),)
+    err = _launch(library().ct_trunk_wide_fwd, idx, x.data_ptr(),
+                  w.data_ptr(), b.data_ptr(), outs[0].data_ptr(),
+                  outs[-1].data_ptr() if head else None, n, d_in, width,
+                  n_layers, int(head), out_w, int(bf16), leak)
+    _check(err, "wide trunk forward")
+    LAUNCHES[trunk_key("fwd", head, bf16, wide=True)] += 1
+    return outs if head else outs[0]
+
+
+@functools.cache
+def _wide_blocks_per_card(d_in: int, width: int, idx: int) -> int:
+    """Blocks of csrc/trunk_wide.cu's backward resident on the card at
+    once, by its shared memory and its 4 kw threads a block."""
+    smem = trunk_wide_smem(d_in, width, True)
+    threads = 4 * _wide_kw(width)
+    per_sm = max(1, min(SMEM_PER_SM // (smem + 1024), 2048 // threads))
+    return per_sm * _sm_count(idx)
+
+
+def trunk_wide_bwd(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, dy,
+                   width: int, n_layers: int, leak: float, need_dx: bool, *,
+                   head: bool = True, bf16: bool = False
+                   ) -> Tuple[torch.Tensor, torch.Tensor,
+                              Optional[torch.Tensor]]:
+    """K1-bwd in csrc/trunk_wide.cu: as trunk_bwd, for any packed width and
+    d_in up to 128 at any depth. A fixed grid (as many blocks as the card
+    holds at once, never more than there are tiles of WIDE_ROWS rows), so
+    dW and db repeat bit for bit; each block stashes its tile's activations
+    in a scratch of its own."""
+    dys = tuple(dy) if head else (dy,)
+    idx = _f32_card(x, w, b, *dys)
+    if idx < 0:
+        _refuse("wide trunk backward", "float32 x, w, b and dy",
+                ("x", x), ("w", w), ("b", b),
+                *((f"dy[{i}]", t) for i, t in enumerate(dys)))
+    n, d_in = x.shape
+    _wide_shape("wide trunk backward", d_in, width)
+    out_w = 0 if head else dy.shape[1]
+    if not head and (dy.shape[0] != n or not 1 <= out_w <= width):
+        raise ValueError(f"dy must have shape ({n}, <= {width}); got "
+                         f"{tuple(dy.shape)}")
+    n_blocks = max(1, min(-(-n // WIDE_ROWS),
+                          _wide_blocks_per_card(d_in, width, idx)))
+    nw, nb = w.numel(), b.numel()
+    dev = x.device
+    part = torch.empty((n_blocks, nw + nb), dtype=_F32, device=dev)
+    stash = torch.empty(n_blocks * max(n_layers - 1, 1) * WIDE_ROWS
+                        * _wide_kw(width),
+                        dtype=_F32, device=dev)
+    out = torch.empty(nw + nb, dtype=_F32, device=dev)
+    dx = torch.empty_like(x) if need_dx else None
+    err = _launch(library().ct_trunk_wide_bwd, idx, x.data_ptr(),
+                  w.data_ptr(), b.data_ptr(), dys[0].data_ptr(),
+                  dys[1].data_ptr() if head else None,
+                  None if dx is None else dx.data_ptr(), part.data_ptr(),
+                  stash.data_ptr(), out.data_ptr(), n, d_in, width, n_layers,
+                  int(head), out_w, int(bf16), n_blocks, leak)
+    _check(err, "wide trunk backward")
+    LAUNCHES[trunk_key("bwd", head, bf16, wide=True)] += 1
     return out[:nw], out[nw:], dx
 
 

@@ -117,6 +117,11 @@ def library() -> "ctypes.CDLL":
         "ct_trunk_bwd_f32": [P] * 8 + [I] * 8 + [F, P],
         # as ct_trunk_bwd_f32
         "ct_trunk_bwd_bf16": [P] * 8 + [I] * 8 + [F, P],
+        # as ct_trunk_fwd
+        "ct_trunk_wide_fwd": [P, P, P, P, P, I, I, I, I, I, I, I, F, P],
+        # x, w, b, dy0, dy1, dx, part, stash, out, n, d_in, width, n_layers,
+        # head, out_w, bf16, n_blocks, leak, stream
+        "ct_trunk_wide_bwd": [P] * 9 + [I] * 8 + [F, P],
         # table, ids, out, n, stream
         "ct_gather": [P, P, P, I, P],
         # table, t, ids, bases, out, n_tiles, tile, window, stream
@@ -145,6 +150,8 @@ def library() -> "ctypes.CDLL":
     lib.ct_trunk_bwd_f32_smem.restype = ctypes.c_size_t
     lib.ct_trunk_bwd_bf16_smem.argtypes = [I, I, I, I, I]
     lib.ct_trunk_bwd_bf16_smem.restype = ctypes.c_size_t
+    lib.ct_trunk_wide_smem.argtypes = [I, I, I]   # d_in, width, bwd
+    lib.ct_trunk_wide_smem.restype = ctypes.c_size_t
     lib.ct_gather_stream_smem.argtypes = [I]   # window
     lib.ct_gather_stream_smem.restype = ctypes.c_size_t
     lib.ct_error_string.argtypes = [I]

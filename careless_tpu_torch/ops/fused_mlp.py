@@ -15,10 +15,16 @@ bf16(dpre), dh = bf16(dpre) bf16(W)^T, db = sum dpre unrounded. That
 backward is not autograd through the casts, which rounds each product's
 result instead; the plain version spells it out (`_BF16Matmul`).
 
-On the card the whole stack runs in one kernel per direction
-(csrc/trunk.cu); the backward recomputes the forward and returns dW and db
-(and dx only when x needs a gradient). On the CPU the plain version runs.
-Lane packing (PackedMeta) was a TPU answer and is not ported.
+On the card the whole stack runs in one kernel per direction, chosen by
+kernels.trunk_route for the shape: the forward in csrc/trunk.cu (kernel
+widths up to 32 whose weights fit in a block's shared memory) or
+csrc/trunk_wide.cu (the rest, up to max(d_in, width) = 128, the JAX
+kernel's lanes); the backward in csrc/trunk_bwd.cu (f32),
+csrc/trunk_bwd_bf16.cu (bf16), csrc/trunk.cu's backward, or
+csrc/trunk_wide.cu. The backward recomputes the forward in the forward's
+order of sums and returns dW and db (and dx only when x needs a gradient).
+On the CPU the plain version runs. Lane packing (PackedMeta) was a TPU
+answer and is not ported.
 """
 from __future__ import annotations
 
@@ -103,30 +109,44 @@ def pack_params(layers: Sequence[Layer], out_layer: Optional[Layer],
 
 
 class _Trunk(torch.autograd.Function):
-    """K1 as one autograd node: (loc, raw) with the head, else (N, out_w)."""
+    """K1 as one autograd node: (loc, raw) with the head, else (N, out_w).
+    The backward runs the kernel of the route the forward took."""
 
     @staticmethod
-    def forward(ctx, x, w, b, width, n_layers, leakiness, head, out_w,
+    def forward(ctx, x, w, b, route, n_layers, leakiness, head, out_w,
                 bf16):
         ctx.save_for_backward(x, w, b)
-        ctx.cfg = (width, n_layers, leakiness, head, bf16)
-        return kernels.trunk_fwd(x, w, b, width, n_layers, leakiness,
-                                 head=head, out_w=out_w, bf16=bf16)
+        ctx.cfg = (route, n_layers, leakiness, head, bf16)
+        fwd = (kernels.trunk_wide_fwd if route.fwd == kernels.TRUNK_WIDE
+               else kernels.trunk_fwd)
+        return fwd(x, w, b, route.width, n_layers, leakiness, head=head,
+                   out_w=out_w, bf16=bf16)
 
     @staticmethod
     def backward(ctx, *cts):
         x, w, b = ctx.saved_tensors
-        width, n_layers, leakiness, head, bf16 = ctx.cfg
+        route, n_layers, leakiness, head, bf16 = ctx.cfg
         n = x.shape[0]
         if head:
             dy = tuple(torch.zeros(n, dtype=x.dtype, device=x.device)
                        if ct is None else ct.contiguous() for ct in cts)
         else:
             dy = cts[0].contiguous()
-        dw, db, dx = kernels.trunk_bwd(x, w, b, dy, width, n_layers,
-                                       leakiness, ctx.needs_input_grad[0],
-                                       head=head, bf16=bf16)
+        bwd = (kernels.trunk_wide_bwd if route.bwd == kernels.TRUNK_WIDE
+               else kernels.trunk_bwd)
+        dw, db, dx = bwd(x, w, b, dy, route.width, n_layers, leakiness,
+                         ctx.needs_input_grad[0], head=head, bf16=bf16)
         return dx, dw, db, None, None, None, None, None, None
+
+
+def _on_card(x, layers, out_layer, leakiness, bf16, out_w):
+    route = kernels.trunk_route(x.shape[1], layers[0]["w"].shape[1],
+                                len(layers), out_layer is not None,
+                                bool(bf16))
+    w, b = pack_params(layers, out_layer, route.width)
+    return _Trunk.apply(x.contiguous(), w, b, route, len(layers),
+                        float(leakiness), out_layer is not None, out_w,
+                        bool(bf16))
 
 
 def fused_mlp_trunk(x: torch.Tensor, layers: Sequence[Layer],
@@ -136,11 +156,8 @@ def fused_mlp_trunk(x: torch.Tensor, layers: Sequence[Layer],
     tensors run K1 (and K1-bwd in the backward) or raise."""
     if x.device.type == "cpu":
         return plain_trunk(x, layers, leakiness, bf16)
-    width = layers[0]["w"].shape[1]
-    kw = kernels.trunk_width(width)
-    w, b = pack_params(layers, None, kw)
-    return _Trunk.apply(x.contiguous(), w, b, kw, len(layers),
-                        float(leakiness), False, width, bool(bf16))
+    return _on_card(x, layers, None, leakiness, bf16,
+                    layers[0]["w"].shape[1])
 
 
 def fused_mlp_trunk_head(x: torch.Tensor, layers: Sequence[Layer],
@@ -153,7 +170,4 @@ def fused_mlp_trunk_head(x: torch.Tensor, layers: Sequence[Layer],
     the backward) or raise."""
     if x.device.type == "cpu":
         return plain_trunk_head(x, layers, out_layer, leakiness, bf16)
-    kw = kernels.trunk_width(layers[0]["w"].shape[1])
-    w, b = pack_params(layers, out_layer, kw)
-    return _Trunk.apply(x.contiguous(), w, b, kw, len(layers),
-                        float(leakiness), True, None, bool(bf16))
+    return _on_card(x, layers, out_layer, leakiness, bf16, None)

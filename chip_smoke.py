@@ -24,18 +24,24 @@ Phases, each printed on its own lines:
      swap permutation, bitwise against its plain version and x[perm]; K1
      at 20 layers of width 28 (d_in 28) and width 32 (d_in 128), whose
      backward runs at a shorter tile; each K1-bwd row names the kernel
-     kernels.trunk_bwd_route took (csrc/trunk_bwd.cu for f32,
-     csrc/trunk_bwd_bf16.cu for bf16, or csrc/trunk.cu's backward for a
-     shape whose shared memory fits not even one warp of those) and, where
-     it took one of the first two, times csrc/trunk.cu's backward on the
-     same inputs beside it; the K1, K3 and K4 launchers' host time per
+     kernels.trunk_route took (csrc/trunk_bwd.cu for f32,
+     csrc/trunk_bwd_bf16.cu for bf16, csrc/trunk.cu's backward for a
+     shape whose shared memory fits not even one warp of those, or
+     csrc/trunk_wide.cu) and, where it took one of the first two, times
+     csrc/trunk.cu's backward on the same inputs beside it; csrc/
+     trunk_wide.cu (K1 past width 32 or past a block's shared memory) in
+     its four instantiations at 100k rows at widths 33 to 128 and at 64
+     layers of width 32, its forward bit for bit csrc/trunk.cu's at a
+     shape both take, its dW bitwise repeatable, and its head f32 pair at
+     the `wide` slice's 1M shape; the K1, K3 and K4 launchers' host time per
      call, measured before any profiler capture, sits in their rows
      (host_us; K3's beside torch.randn's, with randn's device time; K3 is
      also held at an offset that is not a multiple of 4);
   3. check: the port's loss and every parameter gradient at a small size on
      the card against the same computation on the CPU (plain versions), at
-     mc = 1 for the defaults, --image-layers 2, --mlp-dtype bfloat16 and
-     both, and at mc = 2 through K4 for the flag sets of slices (a) and
+     mc = 1 for the defaults, --image-layers 2, --mlp-dtype bfloat16,
+     both, --mlp-width 128 and --mlp-width 128 --mlp-dtype bfloat16, and
+     at mc = 2 through K4 for the flag sets of slices (a) and
      (b); then the card's fused ELBO against its unfused ELBO; then Laue at
      50k observations with the VMEM cap lowered so that K5 runs, card
      against CPU, and the run-aligned ELBO against the plan_convolve one;
@@ -47,10 +53,13 @@ Phases, each printed on its own lines:
      (a) with --studentt-likelihood-dof=4 --refine-uncertainties (100
      steps); the scaler slices --image-layers 2 (NeuralImageScaler through
      K1 trunk-only), --mlp-dtype bfloat16 (K1 bf16) and both (K1 trunk-only
-     bf16), 100 steps each. Every loss finite, the loss falling, and each
-     kernel of the slice launched by that run (the counts are set to 0 just
-     before it), each slice's own K1 instantiation once per step and the
-     other three not at all, K2 as often as GATHERS_PER_STEP says;
+     bf16), 100 steps each; the `wide` slice, --mlp-width 128 (20 steps),
+     whose K1 runs in csrc/trunk_wide.cu, with its step time, device time,
+     busy share and peak memory on lines of their own. Every loss finite,
+     the loss falling, and each kernel of the slice launched by that run
+     (the counts are set to 0 just before it), each slice's own K1
+     instantiation once per step and every other not at all, K2 as often
+     as GATHERS_PER_STEP says;
   5. the Laue slice (`careless-tpu poly` defaults) at 10,000,000
      observations, 500,000 reflections and 20,000 images on the harmonic-
      chain layout: the host set-up timed step by step, every kernel of the
@@ -79,7 +88,19 @@ STEPS, CHUNK = 300, 50   # training steps of the slice phase, steps per chunk
 # the Laue slice: BASELINE.md's "chain + streaming windowed kernel" size
 LAUE_OBS, LAUE_REFL, LAUE_IMAGES = 10_000_000, 500_000, 20_000
 STEPS_LAUE = 100
-N_WIDE = 100_000   # observations of the width-28 and width-32 trunk checks
+N_WIDE = 100_000   # observations of the wide trunk checks and rows
+# the `wide` slice: --mlp-width 128 (csrc/trunk_wide.cu), its steps and
+# steps per chunk
+WIDE_SLICE = dict(mlp_width=128)
+STEPS_WIDE, CHUNK_WIDE = 20, 10
+# csrc/trunk_wide.cu's launchers' host time is taken at this many rows (the
+# launch path does not depend on it; few rows keep the queue from filling)
+WIDE_HOST_ROWS = 4096
+# csrc/trunk_wide.cu's rows at N_WIDE: (d_in, width, layers), from the
+# smallest padded width to the JAX kernel's 128 lanes, and a narrow trunk
+# whose weights fit in no block
+WIDE_ROW_SHAPES = ((10, 33, 20), (64, 64, 20), (10, 128, 20), (128, 128, 20),
+                   (10, 32, 64))
 # the Laue step's K2 launch at a random permute of a 10M-entry table, and
 # its row in the kernels line
 LAUE_PERM_PAIR = "image cotangent by perm"
@@ -89,7 +110,7 @@ LAUE_PERM_ROW = "gather_laue_image_perm"
 LAUE_HOST_CALLS = 300
 # K2 launches per step of each slice (the gathers of ops/plan_gather.py)
 GATHERS_PER_STEP = {"default": 7, "a": 14, "b": 14, "image_layers": 3,
-                    "bf16": 7, "image_layers_bf16": 3, "laue": 9}
+                    "bf16": 7, "image_layers_bf16": 3, "laue": 9, "wide": 7}
 
 # the mono defaults of the CLI, copied from careless_tpu/args/*.py
 MONO_DEFAULTS = dict(
@@ -108,23 +129,24 @@ MONO_DEFAULTS = dict(
 # the K1 instantiations (head, bf16), in the order of the kernels line
 TRUNK_VARIANTS = ((True, False), (True, True), (False, False), (False, True))
 # TPU kernels each CUDA kernel replaces (the pallas_call sites); every K1
-# instantiation replaces the same two
+# instantiation, narrow or wide, replaces the same two
 REPLACES = {
     **{f"{name}_{d}{suffix}": "careless_tpu/ops/fused_mlp.py:"
        + ("175" if d == "fwd" else "190")
-       for name in ("trunk", "trunk_only") for d in ("fwd", "bwd")
-       for suffix in ("", "_bf16")},
+       for name in ("trunk", "trunk_only", "trunk_wide", "trunk_wide_only")
+       for d in ("fwd", "bwd") for suffix in ("", "_bf16")},
     "gather": "careless_tpu/ops/table_gather.py:125",
     "philox_normal": "careless_tpu/ops/fused_elbo.py:66",
     "fused_ll_fwd": "careless_tpu/ops/fused_elbo.py:291",
     "fused_ll_bwd": "careless_tpu/ops/fused_elbo.py:311",
     "gather_stream": "careless_tpu/ops/table_gather.py:85",
 }
-# a K1-bwd row's source is the kernel kernels.trunk_bwd_route took for its
+# a K1-bwd row's source is the kernel kernels.trunk_route took for its
 # shape (the row's `kernel`)
 SOURCES = {
-    **{k: "careless_tpu_torch/csrc/trunk.cu" for k in REPLACES
-       if k.startswith("trunk")},
+    **{k: "careless_tpu_torch/csrc/" + ("trunk_wide.cu" if "wide" in k
+                                       else "trunk.cu")
+       for k in REPLACES if k.startswith("trunk")},
     "gather": "careless_tpu_torch/csrc/gather.cu",
     "philox_normal": "careless_tpu_torch/csrc/philox.cu",
     "fused_ll_fwd": "careless_tpu_torch/csrc/fused_ll.cu",
@@ -309,7 +331,9 @@ def kernel_phase(torch, dev, gen, peak_flops, peak_bw):
     # that the kernels below see the random inputs of earlier runs
     rows.update(trunk_rows(torch, own_generator(torch, gen, 1), x,
                            peak_flops, peak_bw, variants=TRUNK_VARIANTS[1:]))
-    for name in ("trunk_fwd", "trunk_bwd"):
+    rows.update(wide_kernel_phase(torch, gen, dev, peak_flops, peak_bw))
+    for name in ("trunk_fwd", "trunk_bwd", "trunk_wide_fwd",
+                 "trunk_wide_bwd"):
         rows[name]["host_us"] = launchers[name]
     # K2: the z_f gather (sorted refl ids) and the image-scale gather
     cases = {}
@@ -361,10 +385,11 @@ def trunk_rows(torch, gen, x, peak_flops, peak_bw, variants=((True, False),),
     for bf16) at 1e-4 of the output scale and of each gradient tensor's
     largest entry (20 layers summed in another order than cuBLAS), dW
     bitwise repeatable, timed beside the plain version; returns the kernel
-    rows by LAUNCHES name. Bounds: f32 rows at the f32 peak; bf16 rows at
-    the bf16 tensor-core peak (the least time for bf16 products); the
-    trunk-only rows move (N, width) activations and cotangents. Each
-    backward row names the kernel kernels.trunk_bwd_route took and its
+    rows by LAUNCHES name (csrc/trunk_wide.cu's names where
+    kernels.trunk_route takes it). Bounds: f32 rows at the f32 peak; bf16
+    rows at the bf16 tensor-core peak (the least time for bf16 products);
+    the trunk-only rows move (N, width) activations and cotangents. Each
+    backward row names the kernel kernels.trunk_route took and its
     tile; where that is csrc/trunk_bwd.cu (f32) or csrc/trunk_bwd_bf16.cu
     (bf16), the row also times csrc/trunk.cu's backward, with the same
     bf16 flag, on the same inputs (trunk_cu_device_ms, trunk_cu_ms) and
@@ -379,11 +404,18 @@ def trunk_rows(torch, gen, x, peak_flops, peak_bw, variants=((True, False),),
     (n, d), L = x.shape, n_layers
     w = width or d
     layers, out = random_trunk(torch, gen, d, w, L, dev)
-    kw = kernels.trunk_width(w)
     ops_peak = {False: peak_flops,
                 True: bf16_peak(torch.cuda.get_device_name(dev))}
     for head, bf16 in variants:
-        fwd, bwd = (kernels.trunk_key(k, head, bf16) for k in ("fwd", "bwd"))
+        route = kernels.trunk_route(d, w, L, head, bf16)
+        kw, wide = route.width, kernels.TRUNK_WIDE
+        fwd, bwd = (kernels.trunk_key(k, head, bf16, wide=kernel == wide)
+                    for k, kernel in (("fwd", route.fwd),
+                                      ("bwd", route.bwd)))
+        fwd_fn = (kernels.trunk_wide_fwd if route.fwd == wide
+                  else kernels.trunk_fwd)
+        bwd_fn = (kernels.trunk_wide_bwd if route.bwd == wide
+                  else kernels.trunk_bwd)
         leaves = [t for layer in layers for t in (layer["w"], layer["b"])]
         if head:
             def kern(x):
@@ -420,10 +452,10 @@ def trunk_rows(torch, gen, x, peak_flops, peak_bw, variants=((True, False),),
         if not head:
             cfg["out_w"] = w
         with torch.no_grad():
-            ms = time_ms(torch, lambda: kernels.trunk_fwd(
+            ms = time_ms(torch, lambda: fwd_fn(
                 x, wflat, bflat, kw, L, 0.01, **cfg), reps=reps)
             plain_ms = time_ms(torch, lambda: plain(x), reps=reps)
-            d_ms = device_ms(torch, lambda: kernels.trunk_fwd(
+            d_ms = device_ms(torch, lambda: fwd_fn(
                 x, wflat, bflat, kw, L, 0.01, **cfg), reps=reps)
         b_ms, b_by = bound(2.0 * n * F, 4.0 * (n * d + n_out + F + nb),
                            ops_peak[bf16], peak_bw)
@@ -447,7 +479,7 @@ def trunk_rows(torch, gen, x, peak_flops, peak_bw, variants=((True, False),),
         check(err <= tol, f"{bwd} at N = {n}, width {w}, differs from "
               f"plain: {err} > {tol}")
         dy = cts if head else cts[0]
-        ms = time_ms(torch, lambda: kernels.trunk_bwd(
+        ms = time_ms(torch, lambda: bwd_fn(
             x, wflat, bflat, dy, kw, L, 0.01, False, head=head, bf16=bf16),
             reps=reps)
         obj = sum((y * c).sum() for y, c in zip(plain(x), cts))
@@ -457,16 +489,15 @@ def trunk_rows(torch, gen, x, peak_flops, peak_bw, variants=((True, False),),
         b_ms, b_by = bound(2.0 * n * (3 * F - d * w),
                            4.0 * (n * d + n_out + 2 * (F + nb)),
                            ops_peak[bf16], peak_bw)
-        d_ms = device_ms(torch, lambda: kernels.trunk_bwd(
+        d_ms = device_ms(torch, lambda: bwd_fn(
             x, wflat, bflat, dy, kw, L, 0.01, False, head=head, bf16=bf16),
             reps=reps)
-        kernel, tile = kernels.trunk_bwd_route(d, kw, L, head, bf16)
         rows[bwd] = dict(max_abs_err=err, tolerance=tol, ms=ms,
                          device_ms=d_ms, plain_ms=plain_ms, bound_ms=b_ms,
                          bound_by=b_by, library_ms=None,
                          bitwise_repeatable=True, n=n, d_in=d, width=w,
-                         n_layers=L, kernel=kernel, tile=tile)
-        if kernel != kernels.TRUNK_BWD_GENERAL:
+                         n_layers=L, kernel=route.bwd, tile=route.tile)
+        if route.bwd in (kernels.TRUNK_BWD_F32, kernels.TRUNK_BWD_BF16):
             general = general_bwd(torch, x, wflat, bflat, dy, kw, L, head,
                                   bf16)
             mine = torch.cat(kernels.trunk_bwd(x, wflat, bflat, dy, kw, L,
@@ -526,6 +557,67 @@ def wide_trunk_phase(torch, gen, dev, peak_flops, peak_bw):
         print(f"trunk at width {w}, d_in {d}, {N_LAYERS} layers: "
               + json.dumps(rows), flush=True)
     return out
+
+
+def wide_kernel_phase(torch, gen, dev, peak_flops, peak_bw):
+    """csrc/trunk_wide.cu: its four instantiations at WIDE_ROW_SHAPES
+    (N_WIDE rows, so that the plain version's activations stay small), held
+    against the plain version and timed as trunk_rows does; its forward
+    bit for bit csrc/trunk.cu's at a shape both take (width 32 over d_in
+    32, 20 layers, head, f32 and bf16) and its backward's dW and db bit for
+    bit the same from two calls; then the head f32 row at the `wide`
+    slice's shape (N_OBS rows, d_in D_META, width 128, N_LAYERS layers).
+    Returns the kernel rows of the kernels line: the head f32 pair at the
+    slice's shape, the other instantiations at width 128 over d_in 10."""
+    from careless_tpu_torch import kernels
+    from careless_tpu_torch.ops.fused_mlp import pack_params
+
+    gen = own_generator(torch, gen, 3)
+    table = {}
+    for d, w, n_layers in WIDE_ROW_SHAPES:
+        x = torch.randn(N_WIDE, d, generator=gen, device=dev)
+        rows = trunk_rows(torch, gen, x, peak_flops, peak_bw,
+                          variants=TRUNK_VARIANTS, n_layers=n_layers,
+                          width=w, reps=10)
+        for name, row in rows.items():
+            check("wide" in name, f"{name} at width {w}, d_in {d}, "
+                  f"{n_layers} layers did not take csrc/trunk_wide.cu")
+        if (d, w) == (10, 128):
+            table.update(rows)
+        print(f"trunk_wide at width {w}, d_in {d}, {n_layers} layers, "
+              f"N = {N_WIDE}: " + json.dumps(rows), flush=True)
+        del x
+
+    x = torch.randn(N_WIDE, 32, generator=gen, device=dev)
+    layers, out = random_trunk(torch, gen, 32, 32, N_LAYERS, dev)
+    wflat, bflat = (t.detach() for t in pack_params(layers, out, 32))
+    dy = (torch.randn(N_WIDE, generator=gen, device=dev),
+          torch.randn(N_WIDE, generator=gen, device=dev))
+    for bf16 in (False, True):
+        narrow = kernels.trunk_fwd(x, wflat, bflat, 32, N_LAYERS, 0.01,
+                                   bf16=bf16)
+        wide = kernels.trunk_wide_fwd(x, wflat, bflat, 32, N_LAYERS, 0.01,
+                                      bf16=bf16)
+        check(all(torch.equal(a, b) for a, b in zip(narrow, wide)),
+              f"trunk_wide's forward (bf16 {bf16}) is not trunk.cu's bit "
+              "for bit at width 32 over d_in 32")
+        grads = [torch.cat(kernels.trunk_wide_bwd(
+            x, wflat, bflat, dy, 32, N_LAYERS, 0.01, False, bf16=bf16)[:2])
+            for _ in range(2)]
+        check(torch.equal(*grads), f"trunk_wide's backward (bf16 {bf16}) "
+              "dW and db differ between two calls")
+    print(f"trunk_wide at width 32 over d_in 32, {N_LAYERS} layers, "
+          f"N = {N_WIDE}: forward bit for bit csrc/trunk.cu's, backward "
+          "dW and db bit for bit repeatable, f32 and bf16", flush=True)
+    del x, dy
+
+    x = torch.randn(N_OBS, D_META, generator=gen, device=dev)
+    rows = trunk_rows(torch, gen, x, peak_flops, peak_bw,
+                      width=WIDE_SLICE["mlp_width"], reps=10)
+    print("trunk_wide at the wide slice's shape: " + json.dumps(rows),
+          flush=True)
+    table.update(rows)
+    return table
 
 
 def gather_timings(torch, fns, flush, calls):
@@ -684,8 +776,10 @@ def k1_k3_host_us(torch, dev, gen):
     path's shapes (chip_smoke's host_us; call before any profiler capture,
     as launch_phase): K1-fwd and K1-bwd (f32, head) at N_OBS observations
     of D_META columns over N_LAYERS layers of width D_META, K1_HOST_CALLS
-    calls each; K3 for N_OBS normals beside torch.randn, 10,000 calls each.
-    Draws from a generator of its own seeded from gen's seed."""
+    calls each; csrc/trunk_wide.cu's (f32, head) at WIDE_HOST_ROWS rows and
+    the `wide` slice's width, K1_HOST_CALLS calls each; K3 for N_OBS
+    normals beside torch.randn, 10,000 calls each. Draws from a generator
+    of its own seeded from gen's seed."""
     from careless_tpu_torch import kernels
     from careless_tpu_torch.ops.fused_mlp import pack_params
 
@@ -701,10 +795,22 @@ def k1_k3_host_us(torch, dev, gen):
         "trunk_bwd": lambda: kernels.trunk_bwd(x, w, b, dy, D_META,
                                                N_LAYERS, 0.01, False)},
         calls=K1_HOST_CALLS)
+    w_in = WIDE_SLICE["mlp_width"]
+    xw = torch.randn(WIDE_HOST_ROWS, D_META, generator=gen, device=dev)
+    layers, out = random_trunk(torch, gen, D_META, w_in, N_LAYERS, dev)
+    ww, bw = (t.detach() for t in pack_params(layers, out, w_in))
+    dyw = (torch.randn(WIDE_HOST_ROWS, generator=gen, device=dev),
+           torch.randn(WIDE_HOST_ROWS, generator=gen, device=dev))
+    wide = host_us(torch, {
+        "trunk_wide_fwd": lambda: kernels.trunk_wide_fwd(
+            xw, ww, bw, w_in, N_LAYERS, 0.01),
+        "trunk_wide_bwd": lambda: kernels.trunk_wide_bwd(
+            xw, ww, bw, dyw, w_in, N_LAYERS, 0.01, False)},
+        calls=K1_HOST_CALLS)
     k3 = host_us(torch, {
         "philox_normal": lambda: kernels.philox_normal(N_OBS, 7, 0, dev),
         "randn": lambda: torch.randn(N_OBS, generator=gen, device=dev)})
-    out = {**k1, **k3}
+    out = {**k1, **wide, **k3}
     print("K1 and K3 launchers, host us per call, before any profiler "
           "capture: " + json.dumps(out), flush=True)
     return out
@@ -1255,7 +1361,8 @@ def check_mc2_phase(torch, dev, seed):
 def slice_phase(torch, dev, seed, steps, chunk, label="default",
                 flags=None):
     """Build and train one mono slice at full width; returns (launches over
-    the measured run, model, initial and trained params, history)."""
+    the measured run, model, initial and trained params, the slice's
+    summary with its profile)."""
     t0 = time.perf_counter()
     times = {}
     built = model_on(None, seed, N_OBS, N_REFL, N_IMAGES, D_META, N_LAYERS,
@@ -1269,7 +1376,8 @@ def train_slice(torch, dev, seed, model, params, trainer, inputs, f_true,
                 steps, chunk, label, flags, setup_s, setup_times):
     """Train a built slice: a 5-step warm-up, then `steps` steps in chunks
     of `chunk` with every kernel count set to 0 just before them; returns
-    (launches over that run, model, initial and trained params)."""
+    (launches over that run, model, initial and trained params, the
+    printed summary with profile_steps' numbers added)."""
     from careless_tpu_torch import kernels
     from careless_tpu_torch.device import seeded_generator
 
@@ -1306,8 +1414,9 @@ def train_slice(torch, dev, seed, model, params, trainer, inputs, f_true,
                peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
                launches_per_step={k: v / steps for k, v in launches.items()})
     print("slice: " + json.dumps(out), flush=True)
-    profile_steps(torch, trainer, trained, inputs, seed, out["ms_per_step"])
-    return launches, model, params, trained
+    out.update(profile_steps(torch, trainer, trained, inputs, seed,
+                             out["ms_per_step"]))
+    return launches, model, params, trained, out
 
 
 def k5_case(torch, dev, gen, x, ids2d, bases, window, block_rows, perm,
@@ -1508,7 +1617,7 @@ def laue_phase(torch, dev, gen, seed, peak_flops, peak_bw):
                   calls=LAUE_HOST_CALLS)
     del x
     held["gather_stream"] = row["max_abs_err"]
-    launches, _, _, _ = train_slice(
+    launches, _, _, _, _ = train_slice(
         torch, dev, seed, model, params, trainer, inputs, f_true, STEPS_LAUE,
         CHUNK, "laue", {}, setup_s, times)
     check_launches(launches, "laue", {
@@ -1570,8 +1679,8 @@ def scaler_slices_phase(torch, dev, seed, steps=STEPS_SCALER):
     image banks move; returns each instantiation's launches."""
     trunk_launches = {}
     for label, flags in SCALER_SLICES.items():
-        launches, _, start, trained = slice_phase(torch, dev, seed, steps,
-                                                  CHUNK, label, flags)
+        launches, _, start, trained, _ = slice_phase(
+            torch, dev, seed, steps, CHUNK, label, flags)
         head = "image_layers" not in flags
         mine = trunk_counts(steps, head, "mlp_dtype" in flags)
         check_launches(launches, label, {
@@ -1588,11 +1697,33 @@ def scaler_slices_phase(torch, dev, seed, steps=STEPS_SCALER):
     return trunk_launches
 
 
-def trunk_counts(steps, head, bf16):
+def wide_slice_phase(torch, dev, seed):
+    """The `wide` slice: the default merge with --mlp-width 128, whose K1
+    runs in csrc/trunk_wide.cu (head, f32) once per step in each direction,
+    K2 7 times and K3 once; prints its step time, device time, busy share
+    and peak memory on lines of their own; returns the launches of every
+    csrc/trunk_wide.cu instantiation over the run."""
+    launches, model, _, _, out = slice_phase(
+        torch, dev, seed, STEPS_WIDE, CHUNK_WIDE, "wide", WIDE_SLICE)
+    check(model.scaler.mlp.width == WIDE_SLICE["mlp_width"],
+          f"slice wide: MLP width {model.scaler.mlp.width}")
+    check_launches(launches, "wide", {
+        **trunk_counts(STEPS_WIDE, True, False, wide=True),
+        "gather": GATHERS_PER_STEP["wide"] * STEPS_WIDE,
+        "philox_normal": STEPS_WIDE, "fused_ll_fwd": 0, "fused_ll_bwd": 0,
+        "gather_stream": 0})
+    for key in ("ms_per_step", "device_ms_per_step", "busy_share",
+                "peak_mem_gb"):
+        print(f"wide slice {key}: {out[key]}", flush=True)
+    return {k: v for k, v in launches.items() if k.startswith("trunk_wide")}
+
+
+def trunk_counts(steps, head, bf16, wide=False):
     """The K1 launch counts of a slice that runs the (head, bf16)
-    instantiation once per step in each direction and no other."""
+    instantiation (of csrc/trunk_wide.cu when wide) once per step in each
+    direction and no other."""
     from careless_tpu_torch import kernels
-    mine = {kernels.trunk_key(d, head, bf16) for d in ("fwd", "bwd")}
+    mine = {kernels.trunk_key(d, head, bf16, wide) for d in ("fwd", "bwd")}
     return {k: steps if k in mine else 0 for k in kernels.LAUNCHES
             if k.startswith("trunk")}
 
@@ -1610,7 +1741,8 @@ def profile_steps(torch, trainer, params, inputs, seed, ms_per_step,
                   steps=20):
     """Device time per step by kernel (torch.profiler, CUPTI) over a short
     window; the busy share is that device time over the unprofiled step
-    time measured above (one stream, so kernels do not overlap)."""
+    time measured above (one stream, so kernels do not overlap); returns
+    what it prints."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1636,6 +1768,7 @@ def profile_steps(torch, trainer, params, inputs, seed, ms_per_step,
                top=[dict(ms_per_step=ms, calls_per_step=c, name=k[:80])
                     for ms, c, k in rows[:15]])
     print("profile: " + json.dumps(out), flush=True)
+    return out
 
 
 def main():
@@ -1669,19 +1802,21 @@ def main():
     swap_case(torch, dev, gen, peak_flops, peak_bw)
     wide_trunk_phase(torch, gen, dev, peak_flops, peak_bw)
     check_phase(torch, dev, args.seed)
-    for label, flags in SCALER_SLICES.items():
+    for label, flags in {**SCALER_SLICES, "wide": WIDE_SLICE,
+                         "wide_bf16": dict(WIDE_SLICE,
+                                           mlp_dtype="bfloat16")}.items():
         check_phase(torch, dev, args.seed, flags, label)
     check_mc2_phase(torch, dev, args.seed)
     check_laue_phase(torch, dev, args.seed)
 
-    launches, _, _, _ = slice_phase(torch, dev, args.seed, STEPS, CHUNK)
+    launches, _, _, _, _ = slice_phase(torch, dev, args.seed, STEPS, CHUNK)
     check_launches(launches, "default", {
         **trunk_counts(STEPS, True, False),
         "gather": GATHERS_PER_STEP["default"] * STEPS, "philox_normal": None,
         "fused_ll_fwd": 0, "fused_ll_bwd": 0, "gather_stream": 0})
 
-    launches_a, model, _, _ = slice_phase(torch, dev, args.seed, STEPS,
-                                          CHUNK, "a", SLICE_A)
+    launches_a, model, _, _, _ = slice_phase(torch, dev, args.seed, STEPS,
+                                             CHUNK, "a", SLICE_A)
     check(model.fused_kernel, "slice (a): --fused-kernel=auto did not "
           "select K4 at mc = 2 and 1M observations")
     check_launches(launches_a, "a", {
@@ -1690,7 +1825,7 @@ def main():
         "philox_normal": 0, "fused_ll_fwd": 2 * STEPS,
         "fused_ll_bwd": 2 * STEPS, "gather_stream": 0})
 
-    launches_b, model, start, trained = slice_phase(
+    launches_b, model, start, trained, _ = slice_phase(
         torch, dev, args.seed, STEPS_B, CHUNK, "b", SLICE_B)
     check(model.fused_kernel, "slice (b) did not select K4")
     check_launches(launches_b, "b", {
@@ -1706,6 +1841,7 @@ def main():
           flush=True)
 
     scaler_launches = scaler_slices_phase(torch, dev, args.seed)
+    wide_launches = wide_slice_phase(torch, dev, args.seed)
 
     rows["gather_stream"], launches_laue, held, rows[LAUE_PERM_ROW] = \
         laue_phase(torch, dev, gen, args.seed, peak_flops, peak_bw)
@@ -1721,7 +1857,7 @@ def main():
     # launches: K1-K3 from the default slice, the other K1 instantiations
     # from the scaler slices, K4 from slice (a), K5 and K2's Laue row from
     # the Laue slice
-    counts = {**launches, **scaler_launches,
+    counts = {**launches, **scaler_launches, **wide_launches,
               "fused_ll_fwd": launches_a["fused_ll_fwd"],
               "fused_ll_bwd": launches_a["fused_ll_bwd"],
               "gather_stream": launches_laue["gather_stream"],

@@ -33,8 +33,8 @@ from careless_tpu_torch.ops.fused_elbo import (
 from careless_tpu_torch.kernels._build import library
 from careless_tpu_torch.ops.fused_mlp import (fused_mlp_trunk,
                                               fused_mlp_trunk_head,
-                                              plain_trunk, plain_trunk_head,
-                                              round_bf16)
+                                              pack_params, plain_trunk,
+                                              plain_trunk_head, round_bf16)
 from careless_tpu_torch.ops.plan_gather import (_plan_windows,
                                                 make_gather_plan, plan_gather)
 from careless_tpu_torch.ops.table_gather import (plain_gather,
@@ -85,10 +85,12 @@ def _run_trunk(fn, x, layers, out, cts, leaves, bf16):
 
 
 def _hold_trunk(n, d, w, n_layers, head, bf16, device, seed, dx=False,
-                grad_tol=1e-5):
+                grad_tol=1e-5, val_tol=1e-5):
     """K1 (the head or the trunk alone, f32 or bf16) against its plain
-    version, values and every gradient (dx too when asked) within grad_tol
-    of each gradient's largest entry, and dW bitwise repeatable."""
+    version, values within val_tol of the output scale and every gradient
+    (dx too when asked) within grad_tol of each gradient's largest entry,
+    and dW bitwise repeatable; each direction launched the kernel of
+    kernels.trunk_route's route."""
     x, layers, out, leaves, gl, gr = _trunk(n, d, w, n_layers, device, seed)
     if dx:
         x.requires_grad_(True)
@@ -105,14 +107,15 @@ def _hold_trunk(n, d, w, n_layers, head, bf16, device, seed, dx=False,
     ys_k, g_k = _run_trunk(fns[0], x, layers, out, cts, leaves, bf16)
     _, g_k2 = _run_trunk(fns[0], x, layers, out, cts, leaves, bf16)
     torch.cuda.synchronize()
-    for direction in ("fwd", "bwd"):
-        assert kernels.LAUNCHES[kernels.trunk_key(direction, head, bf16)] \
-            == 2
+    route = kernels.trunk_route(d, w, n_layers, head, bf16)
+    for direction, kernel in (("fwd", route.fwd), ("bwd", route.bwd)):
+        assert kernels.LAUNCHES[kernels.trunk_key(
+            direction, head, bf16, wide=kernel == kernels.TRUNK_WIDE)] == 2
     ys_p, g_p = _run_trunk(fns[1], x, layers, out, cts, leaves, bf16)
     assert [y.shape for y in ys_k] == [y.shape for y in ys_p]
     scale = max(max(y.abs().max().item() for y in ys_p), 1.0)
     for a, b in zip(ys_k, ys_p):
-        assert (a - b).abs().max().item() <= 1e-5 * scale
+        assert (a - b).abs().max().item() <= val_tol * scale
     assert all(torch.equal(a, b) for a, b in zip(g_k, g_k2))
     for a, b in zip(g_k, g_p):
         assert (a - b).abs().max().item() <= grad_tol * b.abs().max().item()
@@ -158,6 +161,80 @@ def test_trunk_smem_matches_the_kernel(cuda, d, w, n_layers, head):
     for tile in (0,) + kernels.TRUNK_BWD_TILES:
         assert kernels.trunk_smem(d, w, n_layers, head, tile) == \
             library().ct_trunk_smem(d, w, n_layers, int(head), tile)
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("head", [True, False])
+@pytest.mark.parametrize("n,d,w,n_layers", [
+    (5_001, 10, 33, 4),      # the narrowest wide width, padded to 48
+    (5_001, 64, 64, 4),
+    (5_001, 10, 128, 4),     # the JAX kernel's 128 lanes
+    (5_001, 128, 128, 3),
+    (3_001, 10, 32, 64),     # narrow, but its weights fit in no block
+])
+def test_wide_trunk_matches_plain(cuda, n, d, w, n_layers, head, bf16):
+    """csrc/trunk_wide.cu in its four instantiations, both directions,
+    against the plain version: values within 1e-4 of the output scale and
+    gradients within 1e-3 of each one's largest entry (sums of up to 128
+    products a layer and over 5k rows, in another order than cuBLAS's),
+    and dW bit for bit the same from two runs."""
+    route = kernels.trunk_route(d, w, n_layers, head, bf16)
+    assert (route.fwd, route.bwd) == (kernels.TRUNK_WIDE,) * 2
+    _hold_trunk(n, d, w, n_layers, head, bf16, cuda, n + w + n_layers,
+                grad_tol=1e-3, val_tol=1e-4)
+
+
+@pytest.mark.parametrize("d,w,n_layers,bf16", [
+    (10, 32, 40, False), (10, 32, 40, True),
+    (7, 10, 200, False),   # weight rows that are not 16-byte aligned
+])
+def test_narrow_forward_with_the_wide_backward(cuda, d, w, n_layers, bf16):
+    """Trunks whose forward fits csrc/trunk.cu and whose backward fits no
+    narrow kernel, so the two directions run in different kernels and the
+    backward's recompute must see the forward's activations. In bf16 the
+    plain version's cuBLAS sums straddle a bf16 midpoint in some rows at
+    other sizes (2,001 rows: one row at 40 layers, eight at 200), as
+    tests/test_torch_fused_mlp.py describes; these inputs have none."""
+    route = kernels.trunk_route(d, w, n_layers, True, bf16)
+    assert (route.fwd, route.bwd) == (kernels.TRUNK_FWD, kernels.TRUNK_WIDE)
+    _hold_trunk(3_001, d, w, n_layers, True, bf16, cuda, n_layers,
+                grad_tol=1e-3, val_tol=1e-4)
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("head", [True, False])
+def test_wide_trunk_dx_when_asked(cuda, head, bf16):
+    """dx from csrc/trunk_wide.cu (dpre_0 W_0^T, in the plain version's
+    order of j), d_in past the width, against the plain version's."""
+    _hold_trunk(2_000, 100, 48, 4, head, bf16, cuda, 5, dx=True,
+                grad_tol=1e-3, val_tol=1e-4)
+
+
+@pytest.mark.parametrize("d,w", [(10, 33), (64, 64), (10, 128), (128, 128),
+                                 (128, 48), (5, 10), (10, 32)])
+def test_wide_smem_matches_the_kernel(cuda, d, w):
+    """kernels.trunk_wide_smem is csrc/trunk_wide.cu's sum."""
+    for bwd in (False, True):
+        assert kernels.trunk_wide_smem(d, w, bwd) == \
+            library().ct_trunk_wide_smem(d, w, int(bwd))
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("head", [True, False])
+def test_wide_forward_is_trunk_cu_bit_for_bit(cuda, head, bf16):
+    """At a shape both take (width 32 over d_in 32, 20 layers), the wide
+    forward equals csrc/trunk.cu's bit for bit: both sum each output in
+    K1-fwd's order."""
+    x, layers, out, _, _, _ = _trunk(100_003, 32, 32, 20, cuda, 32)
+    w, b = (t.detach() for t in pack_params(layers, out if head else None,
+                                            32))
+    with torch.no_grad():
+        narrow = kernels.trunk_fwd(x, w, b, 32, 20, 0.01, head=head,
+                                   bf16=bf16)
+        wide = kernels.trunk_wide_fwd(x, w, b, 32, 20, 0.01, head=head,
+                                      bf16=bf16)
+    for a, c in zip(narrow if head else (narrow,), wide if head else (wide,)):
+        assert torch.equal(a, c)
 
 
 @pytest.mark.parametrize("n_layers", [0, 1])
@@ -420,7 +497,8 @@ def test_launch_counts_move_only_on_launch(cuda):
     plain_prng_normal(8, 1, 0, cuda)
     assert kernels.LAUNCHES == {k: int(k == "gather")
                                 for k in kernels.LAUNCHES}
-    assert len(kernels.LAUNCHES) == 13
+    # 13 names, and csrc/trunk_wide.cu's eight instantiations
+    assert len(kernels.LAUNCHES) == 21
 
 
 K4_KINDS = [("normal", 0.0), ("studentt", 4.0), ("laplace", 0.0),

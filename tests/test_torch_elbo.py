@@ -402,7 +402,18 @@ def test_scaler_flags_elbo_matches_jax(flags):
     banks, the f32 head) and --mlp-dtype bfloat16, built by build_model:
     the loss and every gradient against the JAX pieces' ELBO (as above) at
     the same parameters, uniforms and noise, with the same tolerances."""
+    _hold_built_model_against_jax(flags)
+
+
+def test_wide_mlp_elbo_matches_jax():
+    """--mlp-width 64 (past csrc/trunk.cu's 32; csrc/trunk_wide.cu's on the
+    card), built by build_model, against the JAX pieces' ELBO as above."""
+    _hold_built_model_against_jax({"mlp_width": 64})
+
+
+def _hold_built_model_against_jax(flags):
     n, n_refl, n_images, d, n_layers = 2000, 150, 12, 5, 4
+    width = flags.get("mlp_width", d)
     arrays, centric, _ = _problem(n, n_refl, n_images, d, seed=20)
     dm = DataManager(Inputs.from_arrays(*arrays, device="cpu"),
                      _asu(centric), _parser(mlp_layers=n_layers, **flags),
@@ -412,7 +423,7 @@ def test_scaler_flags_elbo_matches_jax(flags):
     assert model.scaler.__class__.__name__ == (
         "NeuralImageScaler" if "image_layers" in flags
         else "HybridImageScaler")
-    jmlp = JMLP(n_layers, d, scale_bijector="exp", mlp_dtype=dtype)
+    jmlp = JMLP(n_layers, width, scale_bijector="exp", mlp_dtype=dtype)
     scaler = (JNeural(2, n_images, jmlp) if "image_layers" in flags
               else JHybrid(jmlp, JImage(n_images)))
     prior = JWilson(centric, np.ones(n_refl, np.float32))
@@ -422,7 +433,7 @@ def test_scaler_flags_elbo_matches_jax(flags):
         lambda a: a + 0.05 * rng.normal(size=a.shape).astype(np.float32),
         params_to_numpy(params))
     inputs_j = JInputs.from_arrays(*arrays).sorted_by_refl().with_plans(
-        n_refl, n_images, mlp_width=d)
+        n_refl, n_images, mlp_width=width)
     key_f = jax.random.PRNGKey(6)
     u_f = np.asarray(jax.random.uniform(key_f, (n_refl,), jnp.float32))
     eps = rng.standard_normal(n).astype(np.float32)
@@ -447,6 +458,7 @@ def test_scaler_flags_elbo_matches_jax(flags):
     np.testing.assert_allclose(loss.item(), float(loss_j), rtol=1e-5)
     want = jax.tree.leaves(grads_j)
     assert len(want) == len(grads)
+    assert params["scaler"]["mlp"]["layers"][0]["w"].shape == (d, width)
     for g, w in zip(grads, want):
         w = np.asarray(w)
         assert np.abs(g.numpy() - w).max() <= 1e-4 * np.abs(w).max()

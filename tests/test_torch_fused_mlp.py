@@ -150,6 +150,13 @@ def _max_rel(got, want):
 @pytest.mark.parametrize("n,d,w,n_layers,seed", [
     (2000, 10, 10, 20, 2),   # the default model's width and depth
     (500, 3, 5, 2, 0),       # narrow, d != w
+    # csrc/trunk_wide.cu's widths (JAX packs two slots of 64, one of 48
+    # and 128); at 128 over 128 columns most seeds of 256 rows straddle
+    (256, 10, 48, 3, 1),
+    (256, 10, 64, 3, 4),
+    (256, 128, 64, 3, 1),
+    (256, 10, 128, 3, 3),
+    (128, 128, 128, 3, 3),
 ])
 def test_trunk_matches_jax(n, d, w, n_layers, seed, head, bf16):
     """fused_mlp_trunk (head False) and fused_mlp_trunk_head against JAX's
@@ -288,10 +295,18 @@ def test_trunk_launch_keys():
 
 
 def test_trunk_width_cap():
+    """Every width the JAX kernel takes (up to its 128 lanes) has a kernel
+    width: csrc/trunk.cu's up to 32, csrc/trunk_wide.cu's multiples of 16
+    above; past 128 the card refuses, naming the JAX kernel's cap."""
     assert kernels.trunk_width(10) == 10
     assert kernels.trunk_width(21) == 24
-    with pytest.raises(ValueError, match="cap"):
-        kernels.trunk_width(33)
+    assert kernels.trunk_width(33) == 48
+    for w in range(1, 129):
+        kw = kernels.trunk_width(w)
+        assert w <= kw <= 128
+        assert kw in kernels.TRUNK_WIDTHS if w <= 32 else kw % 16 == 0
+    with pytest.raises(ValueError, match="cap of 128.*JAX kernel"):
+        kernels.trunk_width(129)
 
 
 def test_trunk_launcher_refuses_cpu_tensors():

@@ -1,13 +1,17 @@
-"""K1-bwd's three kernels: which one a shape takes, and at which tile.
+"""K1's kernels: which one a shape takes in each direction, and at which
+tile.
 
 csrc/trunk_bwd.cu runs the f32 backward (head or trunk only),
 csrc/trunk_bwd_bf16.cu the bf16 one on tensor cores, and csrc/trunk.cu's
 backward the shapes whose shared memory fits not even one warp of the
-other two. All are CUDA only; what the CPU can check is the Python side
-that chooses between them: kernels.trunk_bwd_f32_smem and
-kernels.trunk_bwd_bf16_smem (copies of the kernels' own sums, held equal
-to them by card tests), the tile each kernel takes, and the route. The launchers refuse CPU
-tensors here, so nothing reaches a kernel. The kernels' arithmetic is
+other two; csrc/trunk.cu runs the forward where its weights fit in a
+block. csrc/trunk_wide.cu takes both directions of every other shape up
+to max(d_in, width) = 128 (kernels.trunk_route). All are CUDA only; what
+the CPU can check is the Python side that chooses between them:
+kernels.trunk_bwd_f32_smem, kernels.trunk_bwd_bf16_smem and
+kernels.trunk_wide_smem (copies of the kernels' own sums, held equal to
+them by card tests), the tile each kernel takes, and the routes. The
+launchers refuse CPU tensors here, so nothing reaches a kernel. The kernels' arithmetic is
 held against the JAX package through their plain versions in
 tests/test_torch_fused_mlp.py and on the card in tests/test_torch_cuda.py.
 """
@@ -18,7 +22,7 @@ from careless_tpu_torch import kernels
 from careless_tpu_torch.ops.fused_mlp import pack_params
 
 F32, GENERAL = kernels.TRUNK_BWD_F32, kernels.TRUNK_BWD_GENERAL
-BF16 = kernels.TRUNK_BWD_BF16
+BF16, WIDE = kernels.TRUNK_BWD_BF16, kernels.TRUNK_WIDE
 
 
 @pytest.mark.parametrize("d,w,n_layers,head,tile,floats", [
@@ -122,6 +126,125 @@ def test_route_and_tile(d, w, n_layers, head, bf16, kernel, tile):
 ])
 def test_bf16_smem_sum(d, w, n_layers, head, tile, nbytes):
     assert kernels.trunk_bwd_bf16_smem(d, w, n_layers, head, tile) == nbytes
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("head", [True, False])
+@pytest.mark.parametrize("d,w,n_layers", [
+    (10, 10, 20),      # the main path and the scaler slices
+    (10, 10, 60), (10, 10, 150), (16, 16, 20), (24, 24, 20), (28, 28, 20),
+    (32, 32, 20), (128, 32, 20), (5, 8, 3), (7, 17, 3), (7, 1, 4),
+    (200, 10, 3),      # d_in past 128 where the narrow kernels hold it
+])
+def test_narrow_shapes_keep_their_kernels(d, w, n_layers, head, bf16):
+    """Every shape the narrow kernels took before csrc/trunk_wide.cu still
+    takes them: the forward csrc/trunk.cu, the backward trunk_bwd_route's
+    kernel and tile, the weights packed at trunk_width's width."""
+    route = kernels.trunk_route(d, w, n_layers, head, bf16)
+    kw = kernels.trunk_width(w)
+    assert route.width == kw and route.fwd == kernels.TRUNK_FWD
+    assert (route.bwd, route.tile) == kernels.trunk_bwd_route(
+        d, kw, n_layers, head, bf16)
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("head", [True, False])
+@pytest.mark.parametrize("d", [10, 128])
+def test_widths_33_to_128_take_the_wide_kernel(d, head, bf16):
+    """Every width from 33 to 128 (over 10 or 128 metadata columns) runs
+    csrc/trunk_wide.cu in both directions, packed at a multiple of 16."""
+    for w in range(33, 129):
+        route = kernels.trunk_route(d, w, 20, head, bf16)
+        assert route == (kernels.trunk_width(w), WIDE, WIDE,
+                         kernels.WIDE_ROWS)
+        assert route.width % 16 == 0 and w <= route.width < w + 16
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("head", [True, False])
+@pytest.mark.parametrize("d,w,n_layers,fwd", [
+    (10, 32, 64, WIDE),           # the weights fit in no block
+    (10, 10, 600, WIDE),
+    (10, 32, 40, kernels.TRUNK_FWD),   # only the backward's do not
+    (1024, 32, 20, kernels.TRUNK_FWD),
+])
+def test_narrow_shapes_past_shared_memory_take_the_wide_kernel(
+        d, w, n_layers, fwd, head, bf16):
+    """A narrow trunk whose weights no narrow kernel holds runs
+    csrc/trunk_wide.cu where it must, and csrc/trunk.cu's forward where
+    that fits; past 128 metadata columns the wide kernel refuses."""
+    if d > kernels.MAX_TRUNK_WIDTH:
+        with pytest.raises(ValueError, match="cap of 128"):
+            kernels.trunk_route(d, w, n_layers, head, bf16)
+        return
+    route = kernels.trunk_route(d, w, n_layers, head, bf16)
+    assert (route.width, route.fwd, route.bwd) == (w, fwd, WIDE)
+    if fwd == WIDE:
+        assert kernels.trunk_smem(d, w, n_layers, head) \
+            > kernels.MAX_SMEM_PER_BLOCK
+    with pytest.raises(ValueError, match="shared memory"):
+        kernels.trunk_bwd_route(d, w, n_layers, head, bf16)
+
+
+@pytest.mark.parametrize("d,w", [(10, 129), (129, 64), (200, 128)])
+def test_route_refuses_past_the_jax_kernels_lanes(d, w):
+    with pytest.raises(ValueError, match="cap of 128.*JAX kernel"):
+        kernels.trunk_route(d, w, 3, True, False)
+
+
+@pytest.mark.parametrize("d,w,bwd,floats", [
+    # width 128 over d_in <= 128: two buffers of 64 rows at a stride of
+    # 132 and two slots of a 128 x 128 layer and its 128 biases (the
+    # backward: three buffers, one slot)
+    (10, 128, False, 2 * 64 * 132 + 2 * (128 * 128 + 128)),
+    (128, 128, True, 3 * 64 * 132 + 128 * 128 + 128),
+    # width 33 pads to 48; d_in 10 to 12
+    (10, 33, True, 3 * 64 * 52 + 48 * 48 + 48),
+    # d_in 100 past width 48: 100-wide rows and a 100 x 48 first layer
+    (100, 48, False, 2 * 64 * 104 + 2 * (100 * 48 + 48)),
+    # d_in 7 pads to 8, width 10 to 16
+    (7, 10, True, 3 * 64 * 20 + 16 * 16 + 16),
+])
+def test_wide_smem_sum(d, w, bwd, floats):
+    assert kernels.trunk_wide_smem(d, w, bwd) == 4 * floats
+    assert 4 * floats <= kernels.MAX_SMEM_PER_BLOCK
+
+
+@pytest.mark.parametrize("bwd", [False, True])
+def test_wide_smem_fits_at_every_width(bwd):
+    assert all(kernels.trunk_wide_smem(d, w, bwd)
+               <= kernels.MAX_SMEM_PER_BLOCK
+               for d in range(1, 129) for w in range(1, 129))
+
+
+def test_wide_launch_keys():
+    keys = {kernels.trunk_key(d, h, b, wide=True) for d in ("fwd", "bwd")
+            for h in (True, False) for b in (True, False)}
+    narrow = {kernels.trunk_key(d, h, b) for d in ("fwd", "bwd")
+              for h in (True, False) for b in (True, False)}
+    assert len(keys) == 8 and keys <= set(kernels.LAUNCHES)
+    assert not keys & narrow
+    assert kernels.trunk_key("bwd", False, True, wide=True) \
+        == "trunk_wide_only_bwd_bf16"
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("head", [True, False])
+def test_wide_launchers_refuse_cpu_tensors(head, bf16):
+    torch.manual_seed(0)
+    layers = [{"w": torch.randn(4, 48), "b": torch.randn(48)}] + [
+        {"w": torch.randn(48, 48), "b": torch.randn(48)}]
+    out = {"w": torch.randn(48, 2), "b": torch.zeros(2)} if head else None
+    w, b = (t.detach() for t in pack_params(layers, out, 48))
+    x = torch.randn(50, 4)
+    dy = (torch.randn(50), torch.randn(50)) if head else torch.randn(50, 48)
+    kernels.reset_launches()
+    with pytest.raises(ValueError, match="contiguous CUDA tensors"):
+        kernels.trunk_wide_fwd(x, w, b, 48, 2, 0.01, head=head, bf16=bf16)
+    with pytest.raises(ValueError, match="contiguous CUDA tensors"):
+        kernels.trunk_wide_bwd(x, w, b, dy, 48, 2, 0.01, False, head=head,
+                               bf16=bf16)
+    assert not any(kernels.LAUNCHES.values())
 
 
 def test_route_refuses_what_no_kernel_holds():
