@@ -428,9 +428,8 @@ cudaError_t launch(const float* x, const float* w, const float* b,
       x, w, b, dy0, dy1, dx, part, n, d_in, L, out_w, head, leak);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  return reduce_blocks(part, out, n_blocks,
-                       n_weights(d_in, W, L, head) + n_biases(W, L, head),
-                       stream);
+  const int size = n_weights(d_in, W, L, head) + n_biases(W, L, head);
+  return reduce_blocks(part, out, n_blocks, size, size, stream);
 }
 
 }  // namespace

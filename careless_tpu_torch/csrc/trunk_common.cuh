@@ -68,23 +68,24 @@ __device__ __forceinline__ void dense_layer(float (&h)[W],
   bias_leaky<W>(h, acc, b, leak);
 }
 
-// out[i] = sum over blocks, in block order, of part[blk][i]
+// out[i] = sum over blocks, in block order, of part[blk][i] (i < size;
+// blocks `stride` floats apart)
 __global__ void reduce_blocks_kernel(const float* __restrict__ part,
                                      float* __restrict__ out, int n_blocks,
-                                     int size) {
+                                     int size, int stride) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= size) return;
   float s = 0.f;
   for (int blk = 0; blk < n_blocks; ++blk)
-    s += part[static_cast<size_t>(blk) * size + i];
+    s += part[static_cast<size_t>(blk) * stride + i];
   out[i] = s;
 }
 
 inline cudaError_t reduce_blocks(const float* part, float* out,
-                                 int n_blocks, int size,
+                                 int n_blocks, int size, int stride,
                                  cudaStream_t stream) {
   reduce_blocks_kernel<<<ct_blocks(size, REDUCE_THREADS), REDUCE_THREADS, 0,
-                         stream>>>(part, out, n_blocks, size);
+                         stream>>>(part, out, n_blocks, size, stride);
   return cudaGetLastError();
 }
 

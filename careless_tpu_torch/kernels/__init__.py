@@ -54,7 +54,7 @@ TRUNK_BWD_BF16 = "csrc/trunk_bwd_bf16.cu"
 TRUNK_FWD, TRUNK_WIDE = "csrc/trunk.cu", "csrc/trunk_wide.cu"
 # csrc/trunk_wide.cu: its widths (multiples of 16, up to the JAX kernel's
 # 128 lanes, which bound max(d_in, width) there too) and its tile's rows
-WIDE_STEP, MAX_TRUNK_WIDTH, WIDE_ROWS = 16, 128, 64
+WIDE_STEP, MAX_TRUNK_WIDTH, WIDE_ROWS = 16, 128, 128
 # csrc/trunk_bwd_bf16.cu's block rows, most first: 8 to 1 warps, each
 # walking tiles of 32 rows of its own
 TRUNK_BWD_BF16_TILES = tuple(32 * w for w in range(8, 0, -1))
@@ -205,14 +205,16 @@ def trunk_wide_smem(d_in: int, width: int, bwd: bool) -> int:
     """Shared-memory bytes of csrc/trunk_wide.cu (the same sum as its
     wide_smem, ct_trunk_wide_smem; a card test holds the two equal): at kw =
     width rounded up to 16, d4 = d_in rounded up to 4 and cols = max(d4,
-    kw), buffers of WIDE_ROWS rows at a stride of cols + 4 floats (two in
-    the forward, three in the backward) and slots of one layer's weights
-    (cols x kw) and biases (kw) (two in the forward, one in the
-    backward)."""
+    kw), an activation buffer of WIDE_ROWS rows at a stride of 4 (cols / 4
+    | 1) floats (an odd number of quads) and a weight slot of cols rows at
+    a stride of kw + 4 floats and kw biases. The forward holds one buffer
+    and two slots; the backward three regions, each the larger of a buffer
+    and a slot."""
     kw = _wide_kw(width)
     cols = max(-(-d_in // 4) * 4, kw)
-    return 4 * ((3 if bwd else 2) * WIDE_ROWS * (cols + 4)
-                + (1 if bwd else 2) * (cols * kw + kw))
+    buffer = WIDE_ROWS * 4 * (cols // 4 | 1)
+    slot = cols * (kw + 4) + kw
+    return 4 * (3 * max(buffer, slot) if bwd else buffer + 2 * slot)
 
 
 class TrunkRoute(NamedTuple):
@@ -430,11 +432,29 @@ def trunk_wide_fwd(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
 @functools.cache
 def _wide_blocks_per_card(d_in: int, width: int, idx: int) -> int:
     """Blocks of csrc/trunk_wide.cu's backward resident on the card at
-    once, by its shared memory and its 4 kw threads a block."""
+    once, by its shared memory and its 2 kw threads a block (kw: `width`
+    rounded up to 16), each owning 8 x 8 outputs of a WIDE_ROWS x kw
+    product."""
     smem = trunk_wide_smem(d_in, width, True)
-    threads = 4 * _wide_kw(width)
-    per_sm = max(1, min(SMEM_PER_SM // (smem + 1024), 2048 // threads))
+    per_sm = max(1, min(SMEM_PER_SM // (smem + 1024),
+                        2048 // (2 * _wide_kw(width))))
     return per_sm * _sm_count(idx)
+
+
+def _wide_bwd_scratch(n: int, d_in: int, width: int, n_layers: int,
+                      size: int, idx: int, device):
+    """csrc/trunk_wide.cu's backward grid and scratch: its blocks (as many
+    as the card holds at once, never more than there are tiles of
+    WIDE_ROWS rows), each block's partial of `size` floats at a stride of
+    whole quads (16-byte rows), and each block's stash of its tile's
+    activations at every layer but the last."""
+    n_blocks = max(1, min(-(-n // WIDE_ROWS),
+                          _wide_blocks_per_card(d_in, width, idx)))
+    part = torch.empty((n_blocks, _quads(size) * 4), dtype=_F32,
+                       device=device)
+    stash = torch.empty(n_blocks * max(n_layers - 1, 1) * WIDE_ROWS
+                        * _wide_kw(width), dtype=_F32, device=device)
+    return n_blocks, part, stash
 
 
 def trunk_wide_bwd(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, dy,
@@ -443,9 +463,8 @@ def trunk_wide_bwd(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, dy,
                    ) -> Tuple[torch.Tensor, torch.Tensor,
                               Optional[torch.Tensor]]:
     """K1-bwd in csrc/trunk_wide.cu: as trunk_bwd, for any packed width and
-    d_in up to 128 at any depth. A fixed grid (as many blocks as the card
-    holds at once, never more than there are tiles of WIDE_ROWS rows), so
-    dW and db repeat bit for bit; each block stashes its tile's activations
+    d_in up to 128 at any depth. A fixed grid (_wide_bwd_scratch), so dW
+    and db repeat bit for bit; each block stashes its tile's activations
     in a scratch of its own."""
     dys = tuple(dy) if head else (dy,)
     idx = _f32_card(x, w, b, *dys)
@@ -459,14 +478,10 @@ def trunk_wide_bwd(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, dy,
     if not head and (dy.shape[0] != n or not 1 <= out_w <= width):
         raise ValueError(f"dy must have shape ({n}, <= {width}); got "
                          f"{tuple(dy.shape)}")
-    n_blocks = max(1, min(-(-n // WIDE_ROWS),
-                          _wide_blocks_per_card(d_in, width, idx)))
     nw, nb = w.numel(), b.numel()
     dev = x.device
-    part = torch.empty((n_blocks, nw + nb), dtype=_F32, device=dev)
-    stash = torch.empty(n_blocks * max(n_layers - 1, 1) * WIDE_ROWS
-                        * _wide_kw(width),
-                        dtype=_F32, device=dev)
+    n_blocks, part, stash = _wide_bwd_scratch(n, d_in, width, n_layers,
+                                              nw + nb, idx, dev)
     out = torch.empty(nw + nb, dtype=_F32, device=dev)
     dx = torch.empty_like(x) if need_dx else None
     err = _launch(library().ct_trunk_wide_bwd, idx, x.data_ptr(),

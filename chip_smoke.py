@@ -33,8 +33,10 @@ Phases, each printed on its own lines:
      its four instantiations at 100k rows at widths 33 to 128 and at 64
      layers of width 32, its forward bit for bit csrc/trunk.cu's at a
      shape both take, its dW bitwise repeatable, and its head f32 pair at
-     the `wide` slice's 1M shape; the K1, K3 and K4 launchers' host time per
-     call, measured before any profiler capture, sits in their rows
+     the `wide` slice's 1M shape, and on a line of its own the earlier
+     design's device times, which are constants and not measured here; the
+     K1, K3 and K4 launchers' host time per call, measured before any
+     profiler capture, sits in their rows
      (host_us; K3's beside torch.randn's, with randn's device time; K3 is
      also held at an offset that is not a multiple of 4);
   3. check: the port's loss and every parameter gradient at a small size on
@@ -101,6 +103,18 @@ WIDE_HOST_ROWS = 4096
 # whose weights fit in no block
 WIDE_ROW_SHAPES = ((10, 33, 20), (64, 64, 20), (10, 128, 20), (128, 128, 20),
                    (10, 32, 64))
+# csrc/trunk_wide.cu's device ms per call in its earlier design (64-row
+# tiles, 4 x 4 outputs a thread, 4 kw threads a block), at the shapes of its
+# rows in the kernels line (the head f32 pair at the `wide` slice's shape,
+# the rest at N_WIDE rows, d_in 10, width 128), as this script measured them
+# on an NVIDIA H100 80GB HBM3 at 700 W; printed beside this run's times on
+# a line of their own, and kept out of the kernels line, which holds only
+# what this run measured
+EARLIER_WIDE_DEVICE_MS = {
+    "trunk_wide_fwd": 25.62, "trunk_wide_bwd": 140.5,
+    "trunk_wide_fwd_bf16": 3.321, "trunk_wide_bwd_bf16": 17.09,
+    "trunk_wide_only_fwd": 2.590, "trunk_wide_only_bwd": 14.22,
+    "trunk_wide_only_fwd_bf16": 3.322, "trunk_wide_only_bwd_bf16": 17.08}
 # the Laue step's K2 launch at a random permute of a 10M-entry table, and
 # its row in the kernels line
 LAUE_PERM_PAIR = "image cotangent by perm"
@@ -617,6 +631,11 @@ def wide_kernel_phase(torch, gen, dev, peak_flops, peak_bw):
     print("trunk_wide at the wide slice's shape: " + json.dumps(rows),
           flush=True)
     table.update(rows)
+    print("trunk_wide device ms, this run against the earlier design's "
+          "(constants, not measured in this run): " + json.dumps(
+              {name: {"device_ms": row["ms"],
+                      "earlier_device_ms": EARLIER_WIDE_DEVICE_MS[name]}
+               for name, row in table.items()}), flush=True)
     return table
 
 

@@ -184,6 +184,70 @@ def test_wide_trunk_matches_plain(cuda, n, d, w, n_layers, head, bf16):
                 grad_tol=1e-3, val_tol=1e-4)
 
 
+def _hold_wide_kernel(n, d, w, n_layers, head, bf16, device, seed):
+    """csrc/trunk_wide.cu's launchers called directly (whatever
+    kernels.trunk_route would take for the shape) against the plain
+    version: values within 1e-4 of the output scale, each gradient within
+    1e-3 of its largest entry (the kernel's flat dW and db mapped back to
+    the layers through pack_params), dW and db bitwise repeatable."""
+    x, layers, out, leaves, gl, gr = _trunk(n, d, w, n_layers, device, seed)
+    kw = kernels.trunk_width(w)
+    if not head:
+        out, leaves = None, leaves[:-2]
+    packed = pack_params(layers, out, kw)
+    wflat, bflat = (t.detach() for t in packed)
+    if head:
+        cts = (gl, gr)
+        ys_p = plain_trunk_head(x, layers, out, 0.01, bf16=bf16)
+    else:
+        cts = (torch.randn(n, w, device=device,
+                           generator=torch.Generator(device).manual_seed(
+                               seed)),)
+        ys_p = (plain_trunk(x, layers, 0.01, bf16=bf16),)
+    g_p = torch.autograd.grad(sum((y * c).sum() for y, c in zip(ys_p, cts)),
+                              leaves)
+    kernels.reset_launches()
+    with torch.no_grad():
+        ys_k = kernels.trunk_wide_fwd(x, wflat, bflat, kw, n_layers, 0.01,
+                                      head=head, out_w=w, bf16=bf16)
+    ys_k = ys_k if head else (ys_k,)
+    dy = cts if head else cts[0]
+    runs = [kernels.trunk_wide_bwd(x, wflat, bflat, dy, kw, n_layers, 0.01,
+                                   False, head=head, bf16=bf16)[:2]
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES[kernels.trunk_key("fwd", head, bf16,
+                                              wide=True)] == 1
+    assert kernels.LAUNCHES[kernels.trunk_key("bwd", head, bf16,
+                                              wide=True)] == 2
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+    scale = max(max(y.abs().max().item() for y in ys_p), 1.0)
+    for a, b in zip(ys_k, ys_p):
+        assert a.shape == b.shape
+        assert (a - b).abs().max().item() <= 1e-4 * scale
+    g_k = torch.autograd.grad(packed, leaves, grad_outputs=runs[0])
+    for a, b in zip(g_k, g_p):
+        assert (a - b).abs().max().item() <= 1e-3 * b.abs().max().item()
+
+
+@pytest.mark.parametrize("head", [True, False])
+@pytest.mark.parametrize("w", range(16, 129, 16))
+def test_wide_kernel_at_every_kw(cuda, w, head):
+    """csrc/trunk_wide.cu at each of its kernel widths, 3 layers, both
+    directions, head and trunk only, over a row count that is no multiple
+    of its 128-row tile."""
+    _hold_wide_kernel(100_003, 10, w, 3, head, False, cuda, w)
+
+
+@pytest.mark.parametrize("head", [True, False])
+def test_wide_kernel_64_layers_of_width_32(cuda, head):
+    """The narrow trunk whose weights fit in no block (64 layers of width
+    32) at 100k rows: the deepest shape the wide kernel takes on a path."""
+    route = kernels.trunk_route(10, 32, 64, head, False)
+    assert route.bwd == kernels.TRUNK_WIDE
+    _hold_wide_kernel(100_003, 10, 32, 64, head, False, cuda, 64)
+
+
 @pytest.mark.parametrize("d,w,n_layers,bf16", [
     (10, 32, 40, False), (10, 32, 40, True),
     (7, 10, 200, False),   # weight rows that are not 16-byte aligned

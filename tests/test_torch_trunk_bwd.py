@@ -193,17 +193,22 @@ def test_route_refuses_past_the_jax_kernels_lanes(d, w):
 
 
 @pytest.mark.parametrize("d,w,bwd,floats", [
-    # width 128 over d_in <= 128: two buffers of 64 rows at a stride of
-    # 132 and two slots of a 128 x 128 layer and its 128 biases (the
-    # backward: three buffers, one slot)
-    (10, 128, False, 2 * 64 * 132 + 2 * (128 * 128 + 128)),
-    (128, 128, True, 3 * 64 * 132 + 128 * 128 + 128),
-    # width 33 pads to 48; d_in 10 to 12
-    (10, 33, True, 3 * 64 * 52 + 48 * 48 + 48),
-    # d_in 100 past width 48: 100-wide rows and a 100 x 48 first layer
-    (100, 48, False, 2 * 64 * 104 + 2 * (100 * 48 + 48)),
+    # width 128 over d_in <= 128: a buffer of 128 rows at a stride of 132
+    # and two slots of a 128 x 128 layer at a stride of 132 and its 128
+    # biases (the backward: three regions of the larger, a slot)
+    (10, 128, False, 128 * 132 + 2 * (128 * 132 + 128)),
+    (128, 128, True, 3 * (128 * 132 + 128)),
+    # width 33 pads to 48; d_in 10 to 12; rows at 13 quads
+    (10, 33, True, 3 * 128 * 52),
+    # d_in 100 past width 48: 100-wide rows (25 quads, odd: no pad) and a
+    # 100 x 48 first layer at a stride of 52
+    (100, 48, False, 128 * 100 + 2 * (100 * 52 + 48)),
     # d_in 7 pads to 8, width 10 to 16
-    (7, 10, True, 3 * 64 * 20 + 16 * 16 + 16),
+    (7, 10, True, 3 * 128 * 20),
+    # d_in 84: 21 quads, odd, so its rows take no pad
+    (84, 48, True, 3 * 128 * 84),
+    # width 128 over 10 columns: the backward's regions are slots
+    (10, 128, True, 3 * (128 * 132 + 128)),
 ])
 def test_wide_smem_sum(d, w, bwd, floats):
     assert kernels.trunk_wide_smem(d, w, bwd) == 4 * floats

@@ -36,8 +36,6 @@ build/trunk_bwd_probe/build.log.
 import argparse
 import ctypes
 import json
-import re
-import subprocess
 import sys
 from pathlib import Path
 
@@ -48,6 +46,7 @@ sys.path.insert(0, str(ROOT))
 import chip_smoke as cs  # noqa: E402
 from careless_tpu_torch import kernels  # noqa: E402
 from careless_tpu_torch.kernels import _build  # noqa: E402
+from tools import probe_build  # noqa: E402
 from careless_tpu_torch.ops.fused_elbo import (  # noqa: E402
     plain_prng_normal)
 from careless_tpu_torch.ops.fused_mlp import (pack_params,  # noqa: E402
@@ -76,33 +75,14 @@ KERNELS["trunk_bwd_kernelILi10E"] = "trunk.cu backward, width 10"
 def build():
     """The sources compiled at once, linked into one library; returns it
     and the objects' paths (for cuobjdump)."""
-    OUT.mkdir(parents=True, exist_ok=True)
-    nvcc = _build._nvcc()
-    objs, procs = [], []
-    for name in SOURCES:
-        obj = OUT / (Path(name).stem + ".o")
-        objs.append(obj)
-        procs.append(subprocess.Popen(
-            [nvcc, *_build.NVCC_FLAGS, "-I", str(_build.CSRC), "-c",
-             str(_build.CSRC / name), "-o", str(obj)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    log = []
-    for proc in procs:
-        out, _ = proc.communicate()
-        log.append(out)
-        if proc.returncode:
-            raise RuntimeError(out)
-    so = OUT / "probe.so"
-    subprocess.run([nvcc, "-gencode", "arch=compute_90a,code=sm_90a",
-                    "-shared", "-o", str(so), *map(str, objs)], check=True)
-    LOG.write_text("\n".join(log))
-    lines = "\n".join(log).splitlines()
-    for i, line in enumerate(lines):
-        for key, label in KERNELS.items():
-            if key in line and "Compiling" in line:
-                print(f"ptxas, {label}: " + " | ".join(
-                    s.strip() for s in lines[i:i + 4]), flush=True)
-    lib = ctypes.CDLL(str(so))
+    objs = [OUT / (Path(name).stem + ".o") for name in SOURCES]
+    log = "\n".join(probe_build.compile_objects({
+        obj: (_build.CSRC / name, _build.CSRC)
+        for obj, name in zip(objs, SOURCES)}).values())
+    LOG.write_text(log)
+    for label, line in probe_build.ptxas_lines(log, KERNELS):
+        print(f"ptxas, {label}: {line}", flush=True)
+    lib = probe_build.link(objs, OUT / "probe.so")
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.ct_trunk_bwd_f32.argtypes = [P] * 8 + [I] * 8 + [F, P]
     bind_bf16(lib)
@@ -134,9 +114,8 @@ ABLATIONS = {
 def build_ablations():
     """{name: library} of csrc/trunk_bwd_bf16.cu with each of ABLATIONS
     applied, compiled at once from rewritten copies in build/."""
-    nvcc = _build._nvcc()
     src = (_build.CSRC / "trunk_bwd_bf16.cu").read_text()
-    procs = {}
+    jobs = {}
     for i, (name, subs) in enumerate(ABLATIONS.items()):
         text = src
         for old, new in subs:
@@ -144,17 +123,11 @@ def build_ablations():
             text = text.replace(old, new)
         cu = OUT / f"ablation{i}.cu"
         cu.write_text(text)
-        procs[name] = (i, subprocess.Popen(
-            [nvcc, *_build.NVCC_FLAGS, "-I", str(_build.CSRC), "-shared",
-             str(cu), "-o", str(OUT / f"ablation{i}.so")],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    libs = {}
-    for name, (i, proc) in procs.items():
-        out, _ = proc.communicate()
-        if proc.returncode:
-            raise RuntimeError(out)
-        libs[name] = bind_bf16(ctypes.CDLL(str(OUT / f"ablation{i}.so")))
-    return libs
+        jobs[OUT / f"ablation{i}.o"] = (cu, _build.CSRC)
+    probe_build.compile_objects(jobs)
+    return {name: bind_bf16(probe_build.link(
+        [OUT / f"ablation{i}.o"], OUT / f"ablation{i}.so"))
+        for i, name in enumerate(ABLATIONS)}
 
 
 def ablate(lib, stream, gen, n=1_000_000, width=10):
@@ -197,24 +170,12 @@ def sass_counts(objs):
     width (KERNELS), from the SASS of the objects."""
     counts = {}
     for obj in objs:
-        sass = subprocess.run(["/usr/local/cuda/bin/cuobjdump", "-sass",
-                               str(obj)], capture_output=True, text=True,
-                              check=True).stdout
-        current = None
-        for line in sass.splitlines():
-            if "Function :" in line:
-                current = next((v for k, v in KERNELS.items() if k in line),
-                               None)
-                if current:
-                    counts[current] = {}
-                continue
-            m = re.search(r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9.]+)",
-                          line)
-            if current and m:
-                op = m.group(1)
+        for kernel, ins in probe_build.sass(obj, KERNELS)[1].items():
+            c = counts[kernel] = {}
+            for _, op, _ in ins:
                 if op.startswith(("LDS", "STS", "FFMA", "BAR", "LDSM",
                                   "HMMA", "SHFL")):
-                    counts[current][op] = counts[current].get(op, 0) + 1
+                    c[op] = c.get(op, 0) + 1
     return counts
 
 
