@@ -28,17 +28,28 @@
 // the same f32 FMAs (the least time for bf16 products is on tensor cores,
 // which this kernel does not use).
 //
-// Design. The TPU kernel lane-packed 12 observations into one 128-wide MXU
-// row and kept every layer's block-diagonal weight in VMEM. Here one thread
-// owns one observation: its width-W activation lives in registers (W is a
-// template parameter, so the per-layer product is a fully unrolled chain of
-// W*W FMAs), and all layers' weights and biases sit in shared memory, where
-// every thread of a warp reads the same word (a broadcast, no bank
-// conflicts). With bf16 the weights are rounded once as they are staged.
-// Widths the library is not instantiated for are padded by the Python
-// wrapper to the next instantiated width with zero weights, which is exact;
-// the trunk-only forward writes, and its backward reads, only the model's
-// `out_w` columns of each row.
+// The forward's design. The TPU kernel lane-packed 12 observations into
+// one 128-wide MXU row and kept every layer's block-diagonal weight in
+// VMEM. Here the weights and biases sit in shared memory and every FMA
+// takes a weight that all lanes of a warp read alike (a broadcast). With
+// one row a thread each broadcast fed one FMA, and the SM's shared-memory
+// path, one broadcast a clock, bounded the forward at ~2.6x its operations
+// bound. So a thread owns R rows (fwd_rows: 4 up to width 10, as many as
+// 2 R W floats of activations and sums fit in registers), each broadcast
+// feeds R FMAs, and the hidden layers are read 16 bytes at a time; what
+// bounds it then is instruction issue: per output and layer, W FMAs beside
+// the bias add and the leaky ReLU's compare and multiply. Each block of
+// FWD_WARPS warps stages the weights once and its warps walk tiles of 32 R
+// rows of their own over a grid of what is resident (no barrier after the
+// staging). W is a template parameter, so a layer is a fully unrolled
+// product. Each output still sums in K1-fwd's order, the order every
+// backward recomputes (trunk_common.cuh), so the outputs do not depend on
+// R and equal csrc/trunk_wide.cu's bit for bit. With bf16 the
+// weights are rounded once as they are staged. Widths the library is not
+// instantiated for are padded by the Python wrapper to the next
+// instantiated width with zero weights, which is exact; the trunk-only
+// forward writes, and its backward reads, only the model's `out_w` columns
+// of each row. The backward below keeps one thread a row.
 //
 // The TPU backward accumulated dW/db across a sequential grid. Blocks run in
 // parallel here, so the backward uses a fixed grid: block g walks the tiles
@@ -58,8 +69,19 @@
 
 namespace {
 
-constexpr int FWD_THREADS = 128;
 constexpr int MAX_BWD_T = 64;       // the tallest backward tile
+// the forward: the warps of a block, and the warps a SM its launch bounds
+// keep registers for
+constexpr int FWD_WARPS = 8;
+constexpr int FWD_WARPS_PER_SM = 16;
+
+// rows a thread of the forward at width W: each weight a warp loads feeds R
+// FMAs; the R rows' activations and sums (2 R W floats) stay in registers
+// under the launch bounds' 128 a thread (2 R W = 80 at most: at 96, widths
+// 12 and 24, ptxas spills)
+__host__ __device__ constexpr int fwd_rows(int W) {
+  return W <= 10 ? 4 : W <= 20 ? 2 : 1;
+}
 
 // the nearest bf16 value (ties to even), as an f32
 __device__ inline float bf16_round(float v) {
@@ -72,65 +94,161 @@ __device__ inline void round_all(float (&v)[W]) {
   for (int j = 0; j < W; ++j) v[j] = bf16_round(v[j]);
 }
 
+// The forward. A block of FWD_WARPS warps stages every weight and bias
+// once (rounded to bf16 where asked), the hidden layers' weights first:
+// W_1 .. W_{L-1} (W x W each, a multiple of 4 floats for even W, so each
+// starts on 16 bytes and is read by 16-byte broadcasts), then W_0 (d_in x
+// W), the head's (W x 2) and the biases, with no padding (the shared sum is
+// the flat parameters'). Each warp then walks tiles of ROWS = 32 R rows of
+// its own, one a round of gridDim.x * FWD_WARPS tiles, with no barrier
+// past the staging. Lane t owns the rows t, t + 32, ..., t + 32 (R - 1) of
+// a tile, their activations in registers, so every weight the warp loads,
+// a broadcast, feeds R FMAs; it reads its rows' x itself (a row's d_in
+// floats stay in L1 for its next columns). Each output sums in K1-fwd's
+// order (see trunk_common.cuh): the products in order of k from 0, then
+// the bias.
 template <int W>
-__global__ void trunk_fwd_kernel(const float* __restrict__ x,
-                                 const float* __restrict__ w,
-                                 const float* __restrict__ b,
-                                 float* __restrict__ out0,
-                                 float* __restrict__ out1, int n, int d_in,
-                                 int L, int out_w, bool head, bool bf16,
-                                 float leak) {
-  extern __shared__ float smem[];
+__global__ void __launch_bounds__(32 * FWD_WARPS,
+                                  FWD_WARPS_PER_SM / FWD_WARPS)
+trunk_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                 const float* __restrict__ b, float* __restrict__ out0,
+                 float* __restrict__ out1, int n, int d_in, int L, int out_w,
+                 bool head, bool bf16, float leak) {
+  constexpr int R = fwd_rows(W);
+  constexpr int ROWS = 32 * R;
+  constexpr int WW = W * W;
+  extern __shared__ float4 fwd_shared[];
+  float* smem = reinterpret_cast<float*>(fwd_shared);
+  const int first_w = d_in * W;                 // flat: W_1's first weight
+  const int hidden = (L - 1) * WW;              // the hidden layers' floats
   const int nw = n_weights(d_in, W, L, head);
   const int nb = n_biases(W, L, head);
-  float* sw = smem;
-  float* sb = smem + nw;
-  for (int i = threadIdx.x; i < nw; i += blockDim.x)
-    sw[i] = bf16 ? bf16_round(w[i]) : w[i];
-  for (int i = threadIdx.x; i < nb; i += blockDim.x) sb[i] = b[i];
+  for (int i = threadIdx.x; i < nw; i += blockDim.x) {
+    const int at = i < first_w ? hidden + i
+                               : i < first_w + hidden ? i - first_w : i;
+    smem[at] = bf16 ? bf16_round(w[i]) : w[i];
+  }
+  for (int i = threadIdx.x; i < nb; i += blockDim.x) smem[nw + i] = b[i];
   __syncthreads();
 
-  const int row = blockIdx.x * blockDim.x + threadIdx.x;
-  if (row >= n) return;
+  const int lane = threadIdx.x & 31;
+  const int n_tiles = n / ROWS + (n % ROWS != 0);
+  for (int tile = blockIdx.x * FWD_WARPS + (threadIdx.x >> 5);
+       tile < n_tiles; tile += gridDim.x * FWD_WARPS) {
+    const long long first = static_cast<long long>(tile) * ROWS;
+    const int rows = static_cast<int>(min(static_cast<long long>(ROWS),
+                                          n - first));
+    // this lane's rows of x (past the last row, the last row again: its
+    // outputs are not stored)
+    const float* xr[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+      xr[r] = x + (first + min(lane + 32 * r, rows - 1)) * d_in;
+    float h[R][W];
+    {
+      // layer 0, its weights at `hidden`
+      float acc[R][W];
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+#pragma unroll
+        for (int j = 0; j < W; ++j) acc[r][j] = 0.f;
+      // four columns a step, so that a lane has four loads in flight
+#pragma unroll 4
+      for (int k = 0; k < d_in; ++k) {
+        float in[R];
+#pragma unroll
+        for (int r = 0; r < R; ++r)
+          in[r] = bf16 ? bf16_round(xr[r][k]) : xr[r][k];
+        const int wk = hidden + k * W;
+#pragma unroll
+        for (int j = 0; j < W; ++j) {
+          const float wv = smem[wk + j];
+#pragma unroll
+          for (int r = 0; r < R; ++r) acc[r][j] = fmaf(in[r], wv, acc[r][j]);
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < R; ++r) bias_leaky<W>(h[r], acc[r], smem + nw, leak);
+    }
+    for (int l = 1; l < L; ++l) {
+      if (bf16) {
+#pragma unroll
+        for (int r = 0; r < R; ++r) round_all(h[r]);
+      }
+      // W_l at (l - 1) W^2 as 16-byte broadcasts where W is even, in flat
+      // order: for each j the products still come in order of k
+      const int at = (l - 1) * WW;
+      float acc[R][W];
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+#pragma unroll
+        for (int j = 0; j < W; ++j) acc[r][j] = 0.f;
+      if constexpr (WW % 4 == 0) {
+#pragma unroll
+        for (int c = 0; c < WW / 4; ++c) {
+          const float4 p = fwd_shared[at / 4 + c];
+          const float v[4] = {p.x, p.y, p.z, p.w};
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int k = (4 * c + e) / W, j = (4 * c + e) % W;
+#pragma unroll
+            for (int r = 0; r < R; ++r)
+              acc[r][j] = fmaf(h[r][k], v[e], acc[r][j]);
+          }
+        }
+      } else {
+#pragma unroll
+        for (int k = 0; k < W; ++k)
+#pragma unroll
+          for (int j = 0; j < W; ++j) {
+            const float wv = smem[at + k * W + j];
+#pragma unroll
+            for (int r = 0; r < R; ++r)
+              acc[r][j] = fmaf(h[r][k], wv, acc[r][j]);
+          }
+      }
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+        bias_leaky<W>(h[r], acc[r], smem + nw + l * W, leak);
+    }
 
-  // the products in order of k, then the bias (trunk_common.cuh), the
-  // order every backward's recompute follows
-  float h[W];
-  {
-    float acc[W];
+    if (head) {
+      const int wh = hidden + first_w;   // (wh[2k], wh[2k + 1]) for k < W
+      float y0[R], y1[R];
 #pragma unroll
-    for (int j = 0; j < W; ++j) acc[j] = 0.f;
-    const float* xr = x + static_cast<size_t>(row) * d_in;
-    const auto w0 = [&](int k, int j) { return sw[k * W + j]; };
-    for (int k = 0; k < d_in; ++k)
-      axpy_k<W>(acc, bf16 ? bf16_round(xr[k]) : xr[k], k, w0);
-    bias_leaky<W>(h, acc, sb, leak);
-  }
-  for (int l = 1; l < L; ++l) {
-    const float* wl = sw + w_offset(l, d_in, W);
-    if (bf16) round_all(h);
-    // h is read whole into the sums before it is overwritten
-    dense_layer<W>(h, h, [&](int k, int j) { return wl[k * W + j]; },
-                   sb + l * W, leak);
-  }
-
-  if (!head) {
-    float* o = out0 + static_cast<size_t>(row) * out_w;
+      for (int r = 0; r < R; ++r) {
+        if (bf16) round_all(h[r]);
+        y0[r] = 0.f;
+        y1[r] = 0.f;
+      }
 #pragma unroll
-    for (int j = 0; j < W; ++j)
-      if (j < out_w) o[j] = h[j];
-    return;
-  }
-  if (bf16) round_all(h);
-  const float* wh = sw + w_offset(L, d_in, W);
-  float y0 = 0.f, y1 = 0.f;
+      for (int k = 0; k < W; ++k) {
+        const float w0 = smem[wh + 2 * k], w1 = smem[wh + 2 * k + 1];
 #pragma unroll
-  for (int k = 0; k < W; ++k) {
-    y0 = fmaf(h[k], wh[2 * k], y0);
-    y1 = fmaf(h[k], wh[2 * k + 1], y1);
+        for (int r = 0; r < R; ++r) {
+          y0[r] = fmaf(h[r][k], w0, y0[r]);
+          y1[r] = fmaf(h[r][k], w1, y1[r]);
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        if (lane + 32 * r < rows) {
+          out0[first + lane + 32 * r] = y0[r] + smem[nw + L * W];
+          out1[first + lane + 32 * r] = y1[r] + smem[nw + L * W + 1];
+        }
+      }
+    } else {
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        if (lane + 32 * r < rows) {
+          float* o = out0 + (first + lane + 32 * r) * out_w;
+#pragma unroll
+          for (int j = 0; j < W; ++j)
+            if (j < out_w) o[j] = h[r][j];
+        }
+      }
+    }
   }
-  out0[row] = y0 + sb[L * W];
-  out1[row] = y1 + sb[L * W + 1];
 }
 
 // Sum over the tile's T rows of a[k][r] * dp[j][r] for the pairs this thread
@@ -332,16 +450,15 @@ size_t bwd_smem(int d_in, int W, int L, bool head, int T) {
 template <int W>
 cudaError_t launch_fwd(const float* x, const float* w, const float* b,
                        float* out0, float* out1, int n, int d_in, int L,
-                       int out_w, bool head, bool bf16, float leak,
-                       cudaStream_t stream) {
+                       int out_w, bool head, bool bf16, int n_blocks,
+                       float leak, cudaStream_t stream) {
   const size_t smem = fwd_smem(d_in, W, L, head);
   cudaError_t err = cudaFuncSetAttribute(
       trunk_fwd_kernel<W>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  trunk_fwd_kernel<W><<<ct_blocks(n, FWD_THREADS), FWD_THREADS, smem,
-                        stream>>>(x, w, b, out0, out1, n, d_in, L, out_w,
-                                  head, bf16, leak);
+  trunk_fwd_kernel<W><<<n_blocks, 32 * FWD_WARPS, smem, stream>>>(
+      x, w, b, out0, out1, n, d_in, L, out_w, head, bf16, leak);
   return cudaGetLastError();
 }
 
@@ -367,19 +484,21 @@ cudaError_t launch_bwd(const float* x, const float* w, const float* b,
 }  // namespace
 
 // head: out0 = loc, out1 = raw, each (n,); trunk only: out0 is (n, out_w),
-// the first out_w of the kernel's `width` columns, and out1 is unused
+// the first out_w of the kernel's `width` columns, and out1 is unused;
+// n_blocks: the grid (the caller's choice: kernels.trunk_fwd_blocks)
 CT_API int ct_trunk_fwd(const float* x, const float* w, const float* b,
                         float* out0, float* out1, int n, int d_in, int width,
                         int n_layers, int head, int out_w, int bf16,
-                        float leak, void* stream) {
+                        int n_blocks, float leak, void* stream) {
   if (n <= 0) return cudaSuccess;
-  if (n_layers < 1 || d_in < 1) return cudaErrorInvalidValue;
+  if (n_layers < 1 || d_in < 1 || n_blocks < 1) return cudaErrorInvalidValue;
   if (!head && (out_w < 1 || out_w > width)) return cudaErrorInvalidValue;
   switch (width) {
 #define CT_CASE(W)                                                           \
   case W:                                                                    \
     return launch_fwd<W>(x, w, b, out0, out1, n, d_in, n_layers, out_w,     \
-                         head != 0, bf16 != 0, leak, ct_stream(stream));
+                         head != 0, bf16 != 0, n_blocks, leak,              \
+                         ct_stream(stream));
     CT_TRUNK_WIDTHS(CT_CASE)
 #undef CT_CASE
     default:
@@ -416,4 +535,14 @@ CT_API size_t ct_trunk_smem(int d_in, int width, int n_layers, int head,
                             int tile) {
   return tile ? bwd_smem(d_in, width, n_layers, head != 0, tile)
               : fwd_smem(d_in, width, n_layers, head != 0);
+}
+
+// the forward's rows a thread at a kernel width
+CT_API int ct_trunk_fwd_rows(int width) { return fwd_rows(width); }
+
+// the forward's warps a block and the warps a SM its launch bounds keep
+// registers for
+CT_API void ct_trunk_fwd_limits(int* warps, int* warps_per_sm) {
+  *warps = FWD_WARPS;
+  *warps_per_sm = FWD_WARPS_PER_SM;
 }

@@ -1,6 +1,7 @@
 // K1-bwd in f32: the scaling-MLP trunk's backward, with or without its
-// linear head, laid out for the H100's shared memory. (The bf16 backward
-// stays in csrc/trunk.cu, as do both forwards.)
+// linear head, laid out for the H100's shared memory. (The bf16 backward is
+// csrc/trunk_bwd_bf16.cu; both forwards, and the backward for shapes that
+// fit neither, are in csrc/trunk.cu.)
 //
 // Replaces careless_tpu/ops/fused_mlp.py:_bwd_kernel (the pallas_call of
 // _trunk_bwd) in its two f32 instantiations, head or trunk only. For every

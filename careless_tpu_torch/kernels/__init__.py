@@ -43,6 +43,9 @@ FUSED_KINDS = ("normal", "studentt", "laplace", "normal_ev11",
 TRUNK_WIDTHS = tuple(range(1, 17)) + (20, 24, 28, 32)
 # csrc/trunk.cu's backward's tile heights (its block sizes), tallest first
 TRUNK_BWD_TILES = (64, 32, 16, 8)
+# csrc/trunk.cu's forward (its FWD_WARPS, FWD_WARPS_PER_SM): a block's
+# warps, and the warps a SM its launch bounds keep registers for
+TRUNK_FWD_WARPS, TRUNK_FWD_WARPS_PER_SM = 8, 16
 # csrc/trunk_bwd.cu's and csrc/trunk_bwd_bf16.cu's block rows, most first:
 # each warp of a block walks tiles of 32 rows of its own
 TRUNK_BWD_F32_TILES = (128, 64, 32)
@@ -114,6 +117,36 @@ def trunk_smem(d_in: int, width: int, n_layers: int, head: bool,
         return 4 * params
     rows = d_in + n_layers * width + max(width, 2)
     return 4 * (2 * params + rows * (tile + 1))
+
+
+def trunk_fwd_rows(width: int) -> int:
+    """Rows a thread of csrc/trunk.cu's forward at a kernel width (its
+    fwd_rows; a card test holds the two equal): each weight a warp loads
+    feeds that many FMAs, and the rows' activations and sums, 2 R W floats,
+    stay within the 128 registers a thread its launch bounds allow."""
+    return 4 if width <= 10 else 2 if width <= 20 else 1
+
+
+def trunk_fwd_blocks(n: int, d_in: int, width: int, n_layers: int,
+                     head: bool, sm_count: int) -> int:
+    """The grid of csrc/trunk.cu's forward over n rows at a kernel width
+    on a card of sm_count SMs: as many blocks of TRUNK_FWD_WARPS warps as
+    are resident at once (TRUNK_FWD_WARPS_PER_SM warps a SM, and what the
+    weights' shared memory, trunk_smem, allows), never more than the
+    warps' tiles of 32 R rows (R = trunk_fwd_rows) need. Each block stages
+    the weights once, and its warps walk their tiles. Raises where the
+    weights do not fit in a block (trunk_route sends those to
+    csrc/trunk_wide.cu)."""
+    smem = trunk_smem(d_in, width, n_layers, head)
+    if smem > MAX_SMEM_PER_BLOCK:
+        raise ValueError(f"trunk of {n_layers} layers at width {width} "
+                         f"(d_in {d_in}) needs {smem} bytes of shared memory "
+                         f"in the forward; the card allows "
+                         f"{MAX_SMEM_PER_BLOCK}")
+    per_sm = min(TRUNK_FWD_WARPS_PER_SM // TRUNK_FWD_WARPS,
+                 SMEM_PER_SM // (smem + 1024))
+    tiles = -(-n // (32 * trunk_fwd_rows(width)))
+    return max(1, min(-(-tiles // TRUNK_FWD_WARPS), per_sm * sm_count))
 
 
 def trunk_bwd_tile(d_in: int, width: int, n_layers: int, head: bool) -> int:
@@ -308,12 +341,8 @@ def trunk_fwd(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                 ("b", b))
     n, d_in = x.shape
     out_w = width if out_w is None else out_w
-    smem = trunk_smem(d_in, width, n_layers, head)
-    if smem > MAX_SMEM_PER_BLOCK:
-        raise ValueError(f"trunk of {n_layers} layers at width {width} "
-                         f"(d_in {d_in}) needs {smem} bytes of shared memory "
-                         f"in the forward; the card allows "
-                         f"{MAX_SMEM_PER_BLOCK}")
+    n_blocks = trunk_fwd_blocks(n, d_in, width, n_layers, head,
+                                _sm_count(idx))
     dev = x.device
     if head:
         outs = (torch.empty(n, dtype=_F32, device=dev),
@@ -323,7 +352,7 @@ def trunk_fwd(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     err = _launch(library().ct_trunk_fwd, idx, x.data_ptr(), w.data_ptr(),
                   b.data_ptr(), outs[0].data_ptr(),
                   outs[-1].data_ptr() if head else None, n, d_in, width,
-                  n_layers, int(head), out_w, int(bf16), leak)
+                  n_layers, int(head), out_w, int(bf16), n_blocks, leak)
     _check(err, "trunk forward")
     LAUNCHES[trunk_key("fwd", head, bf16)] += 1
     return outs if head else outs[0]

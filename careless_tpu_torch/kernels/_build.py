@@ -107,8 +107,8 @@ def library() -> "ctypes.CDLL":
     U32, U64, I64 = ctypes.c_uint32, ctypes.c_uint64, ctypes.c_longlong
     signatures = {
         # x, w, b, out0, out1, n, d_in, width, n_layers, head, out_w, bf16,
-        # leak, stream
-        "ct_trunk_fwd": [P, P, P, P, P, I, I, I, I, I, I, I, F, P],
+        # n_blocks, leak, stream
+        "ct_trunk_fwd": [P] * 5 + [I] * 8 + [F, P],
         # x, w, b, dy0, dy1, dx, part, out, n, d_in, width, n_layers, head,
         # out_w, bf16, tile, n_blocks, leak, stream
         "ct_trunk_bwd": [P] * 8 + [I] * 9 + [F, P],
@@ -117,8 +117,9 @@ def library() -> "ctypes.CDLL":
         "ct_trunk_bwd_f32": [P] * 8 + [I] * 8 + [F, P],
         # as ct_trunk_bwd_f32
         "ct_trunk_bwd_bf16": [P] * 8 + [I] * 8 + [F, P],
-        # as ct_trunk_fwd
-        "ct_trunk_wide_fwd": [P, P, P, P, P, I, I, I, I, I, I, I, F, P],
+        # x, w, b, out0, out1, n, d_in, width, n_layers, head, out_w, bf16,
+        # leak, stream
+        "ct_trunk_wide_fwd": [P] * 5 + [I] * 7 + [F, P],
         # x, w, b, dy0, dy1, dx, part, stash, out, n, d_in, width, n_layers,
         # head, out_w, bf16, n_blocks, leak, stream
         "ct_trunk_wide_bwd": [P] * 9 + [I] * 8 + [F, P],
@@ -145,6 +146,10 @@ def library() -> "ctypes.CDLL":
     # d_in, width, n_layers, head, tile (0: the forward)
     lib.ct_trunk_smem.argtypes = [I, I, I, I, I]
     lib.ct_trunk_smem.restype = ctypes.c_size_t
+    lib.ct_trunk_fwd_rows.argtypes = [I]   # width
+    # out: the forward's warps a block, warps a SM
+    lib.ct_trunk_fwd_limits.argtypes = [P, P]
+    lib.ct_trunk_fwd_limits.restype = None
     # d_in, width, n_layers, head, tile
     lib.ct_trunk_bwd_f32_smem.argtypes = [I, I, I, I, I]
     lib.ct_trunk_bwd_f32_smem.restype = ctypes.c_size_t

@@ -31,9 +31,10 @@ Phases, each printed on its own lines:
      csrc/trunk.cu's backward on the same inputs beside it; csrc/
      trunk_wide.cu (K1 past width 32 or past a block's shared memory) in
      its four instantiations at 100k rows at widths 33 to 128 and at 64
-     layers of width 32, its forward bit for bit csrc/trunk.cu's at a
-     shape both take, its dW bitwise repeatable, and its head f32 pair at
-     the `wide` slice's 1M shape, and on a line of its own the earlier
+     layers of width 32, its forward bit for bit csrc/trunk.cu's at two
+     shapes both take (width 32 over d_in 32, and the main path's in the
+     four instantiations), its dW bitwise repeatable, and its head f32
+     pair at the `wide` slice's 1M shape, and on a line of its own the earlier
      design's device times, which are constants and not measured here; the
      K1, K3 and K4 launchers' host time per call, measured before any
      profiler capture, sits in their rows
@@ -579,7 +580,9 @@ def wide_kernel_phase(torch, gen, dev, peak_flops, peak_bw):
     against the plain version and timed as trunk_rows does; its forward
     bit for bit csrc/trunk.cu's at a shape both take (width 32 over d_in
     32, 20 layers, head, f32 and bf16) and its backward's dW and db bit for
-    bit the same from two calls; then the head f32 row at the `wide`
+    bit the same from two calls; its forward bit for bit csrc/trunk.cu's
+    at the main path's shape (N_OBS rows, d = w = D_META, N_LAYERS layers,
+    the four instantiations); then the head f32 row at the `wide`
     slice's shape (N_OBS rows, d_in D_META, width 128, N_LAYERS layers).
     Returns the kernel rows of the kernels line: the head f32 pair at the
     slice's shape, the other instantiations at width 128 over d_in 10."""
@@ -624,6 +627,29 @@ def wide_kernel_phase(torch, gen, dev, peak_flops, peak_bw):
           f"N = {N_WIDE}: forward bit for bit csrc/trunk.cu's, backward "
           "dW and db bit for bit repeatable, f32 and bf16", flush=True)
     del x, dy
+
+    # the main path's shape: csrc/trunk.cu's forward at width D_META and
+    # the wide one on the same trunk packed at 16 (zero-padded products add
+    # exact zeros), in the four instantiations
+    x = torch.randn(N_OBS, D_META, generator=gen, device=dev)
+    layers, out = random_trunk(torch, gen, D_META, D_META, N_LAYERS, dev)
+    wide_w = kernels.WIDE_STEP
+    for head, bf16 in TRUNK_VARIANTS:
+        cfg = dict(head=head, bf16=bf16, out_w=None if head else D_META)
+        narrow = kernels.trunk_fwd(x, *(t.detach() for t in pack_params(
+            layers, out if head else None, D_META)), D_META, N_LAYERS, 0.01,
+            **cfg)
+        wide = kernels.trunk_wide_fwd(x, *(t.detach() for t in pack_params(
+            layers, out if head else None, wide_w)), wide_w, N_LAYERS, 0.01,
+            **cfg)
+        check(all(torch.equal(a, b) for a, b in zip(
+            narrow if head else (narrow,), wide if head else (wide,))),
+            f"csrc/trunk.cu's forward (head {head}, bf16 {bf16}) is not "
+            f"trunk_wide's bit for bit at the main path's shape")
+    print(f"trunk.cu's forward at N = {N_OBS}, d = w = {D_META}, {N_LAYERS} "
+          f"layers: bit for bit trunk_wide's (packed at {wide_w}), head or "
+          "trunk only, f32 and bf16", flush=True)
+    del x, narrow, wide
 
     x = torch.randn(N_OBS, D_META, generator=gen, device=dev)
     rows = trunk_rows(torch, gen, x, peak_flops, peak_bw,

@@ -301,6 +301,86 @@ def test_wide_forward_is_trunk_cu_bit_for_bit(cuda, head, bf16):
         assert torch.equal(a, c)
 
 
+def _narrow_and_wide(n, d, w, n_layers, head, bf16, device, seed,
+                     out_w=None):
+    """csrc/trunk.cu's forward at kernel width w and csrc/trunk_wide.cu's
+    on the same trunk packed at 16 or 32 (zero-padded products add exact
+    zeros, so both sum each output in K1-fwd's order), trunk only with
+    out_w columns of the model's width out_w (< w), and the plain
+    version's outputs; returns (narrow, wide, plain), each a tuple."""
+    model_w = out_w or w
+    x, layers, out, _, _, _ = _trunk(n, d, model_w, n_layers, device, seed)
+    out = out if head else None
+    pw = 16 if w <= 16 else 32
+    narrow_p, wide_p = ((t.detach() for t in pack_params(layers, out, kw))
+                        for kw in (w, pw))
+    cfg = dict(head=head, bf16=bf16) if head else dict(
+        head=False, bf16=bf16, out_w=model_w)
+    with torch.no_grad():
+        narrow = kernels.trunk_fwd(x, *narrow_p, w, n_layers, 0.01, **cfg)
+        wide = kernels.trunk_wide_fwd(x, *wide_p, pw, n_layers, 0.01, **cfg)
+        plain = (plain_trunk_head(x, layers, out, 0.01, bf16=bf16) if head
+                 else (plain_trunk(x, layers, 0.01, bf16=bf16),))
+    if not head:
+        narrow, wide = (narrow,), (wide,)
+    return narrow, wide, plain
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("head", [True, False])
+@pytest.mark.parametrize("w", kernels.TRUNK_WIDTHS)
+def test_narrow_forward_is_the_wide_forward_bit_for_bit(cuda, w, head, bf16):
+    """csrc/trunk.cu's forward at every instantiated width (each its own
+    rows a thread) equals csrc/trunk_wide.cu's bit for bit, over 2,001
+    rows (no multiple of a tile) and d_in 10 (one stage of x); trunk only
+    with out_w below the kernel width (a model padded up to it)."""
+    out_w = None if head else max(w - 1, 1)
+    narrow, wide, _ = _narrow_and_wide(2_001, 10, w, 3, head, bf16, cuda, w,
+                                       out_w=out_w)
+    for a, c in zip(narrow, wide):
+        assert a.shape == c.shape and torch.equal(a, c)
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("head", [True, False])
+@pytest.mark.parametrize("n,d,w,n_layers", [
+    (1, 10, 10, 20),          # one row
+    (77, 10, 10, 20),         # below one tile of 128 rows
+    (100_003, 10, 10, 20),    # the main path, ragged
+    (5_001, 37, 10, 4),       # rows of x past a 128-byte line
+    (5_001, 128, 20, 3),      # 2 rows a thread
+    (3_001, 10, 32, 55),      # weights of ~225 KB: one block a SM
+])
+def test_narrow_forward_ragged_rows(cuda, n, d, w, n_layers, head, bf16):
+    """The narrow forward over ragged and tiny row counts, wide rows of x
+    and a block of the most weights, bit for bit the wide forward; in f32
+    also against plain within 1e-5 of the output scale (1e-4 past 20
+    layers: sums in another order than cuBLAS's). bf16 against plain is
+    held on inputs free of bf16 rounding straddles by
+    test_trunk_variants_match_plain."""
+    narrow, wide, plain = _narrow_and_wide(n, d, w, n_layers, head, bf16,
+                                           cuda, n + d)
+    scale = max(max(y.abs().max().item() for y in plain), 1.0)
+    tol = 1e-5 if n_layers <= 20 else 1e-4
+    for a, c, p in zip(narrow, wide, plain):
+        assert torch.equal(a, c)
+        assert bf16 or (a - p).abs().max().item() <= tol * scale
+
+
+def test_trunk_fwd_launch_arithmetic_matches_the_kernel(cuda):
+    """kernels.trunk_fwd_rows and the forward's warps a block and a SM,
+    from which kernels.trunk_fwd_blocks picks the grid, are csrc/trunk.cu's
+    own."""
+    import ctypes
+    lib = library()
+    assert all(kernels.trunk_fwd_rows(k) == lib.ct_trunk_fwd_rows(k)
+               for k in kernels.TRUNK_WIDTHS)
+    warps, per_sm = ctypes.c_int(), ctypes.c_int()
+    lib.ct_trunk_fwd_limits(ctypes.byref(warps), ctypes.byref(per_sm))
+    assert (warps.value, per_sm.value) == (kernels.TRUNK_FWD_WARPS,
+                                           kernels.TRUNK_FWD_WARPS_PER_SM)
+
+
 @pytest.mark.parametrize("n_layers", [0, 1])
 def test_mlp_without_the_kernel_on_the_card(cuda, n_layers):
     """--mlp-layers 0 and 1 run on the card with plain products and no

@@ -1,7 +1,9 @@
-"""The probes' build steps (tools/trunk_bwd_probe.py, tools/trunk_wide_probe.py):
-sources of csrc/ compiled alone with the port's nvcc flags (kernels/_build.py
-NVCC_FLAGS), all nvcc processes at once, linked into a library, and ptxas'
-lines and the SASS of the objects read back by kernel."""
+"""The probes' build steps (tools/trunk_bwd_probe.py,
+tools/trunk_wide_probe.py, tools/trunk_fwd_probe.py): sources of csrc/
+compiled alone with the port's nvcc flags (kernels/_build.py NVCC_FLAGS), all
+nvcc processes at once, linked into a library, and ptxas' lines and the SASS
+of the objects read back by kernel, with the instruction counts of their
+loops."""
 import ctypes
 import re
 import subprocess
@@ -72,3 +74,52 @@ def sass(obj, kernels: dict) -> tuple:
             code[current].append((int(m.group(1), 16), m.group(2),
                                   m.group(3)))
     return text, code
+
+
+# the instructions sass_counts counts by opcode: shared-memory loads and
+# stores, FMAs, barriers, async copies, device and generic loads and stores,
+# local memory (spills)
+COUNTED = ("LDS", "STS", "FFMA", "BAR", "LDGSTS", "LDG", "STG", "LD.", "LDL",
+           "STL")
+
+
+def sass_counts(obj, kernels: dict, out: Path, kinds=COUNTED, loops=6):
+    """Instruction counts of each kernel of `kernels` ({symbol fragment:
+    label}) in the SASS of `obj` (written whole to `out`), by opcode for
+    those that start with one of `kinds`: over the whole kernel, and in
+    its `loops` innermost loop bodies (from a backward branch's target to
+    the branch) that hold FMAs, the most FMAs first, with the shared-memory
+    wavefronts they need at least (4 a 16-byte load, 2 an 8-byte one, 1 a
+    4-byte one, broadcast or not) per FMA. A generic load of shared memory
+    shows as LD, not LDS, and counts as one. A loop body holds both sides
+    of its branches (f32 and bf16 operands), so a load on each side counts
+    twice."""
+    text, code = sass(obj, kernels)
+    Path(out).write_text(text)
+
+    def mix(ins, lo, hi):
+        c = {}
+        for addr, op, _ in ins:
+            if lo <= addr <= hi and op.startswith(kinds):
+                c[op] = c.get(op, 0) + 1
+        c["instructions"] = sum(1 for a, _, _ in ins if lo <= a <= hi)
+        waves = sum(n * (4 if op.endswith(".128") else
+                         2 if op.endswith(".64") else 1)
+                    for op, n in c.items() if op.startswith(("LDS", "LD.")))
+        c["lds_wavefronts_per_ffma"] = (waves / c["FFMA"] if c.get("FFMA")
+                                        else None)
+        return c
+
+    counts = {}
+    for kernel, ins in code.items():
+        bodies = []
+        for addr, op, rest in ins:
+            target = re.search(r"0x([0-9a-f]+)", rest)
+            if op == "BRA" and target and int(target.group(1), 16) < addr:
+                bodies.append(mix(ins, int(target.group(1), 16), addr))
+        # innermost: the bodies with FMAs, fewest instructions first
+        bodies = sorted((c for c in bodies if c.get("FFMA")),
+                        key=lambda c: c["instructions"])
+        counts[kernel] = dict(whole=mix(ins, 0, 1 << 62), loop_bodies=sorted(
+            bodies[:loops], key=lambda c: -c["FFMA"]))
+    return counts

@@ -32,7 +32,6 @@ backward costs.
 import argparse
 import ctypes
 import json
-import re
 import sys
 from pathlib import Path
 
@@ -135,49 +134,6 @@ def compile_all(jobs):
                                             OUT / tag / "probe.so")),
                       OUT / tag / "trunk_wide.o", log)
     return built
-
-
-def sass_counts(obj, out):
-    """Shared-memory loads and stores, FMAs, async copies and barriers of
-    the two wide kernels, from the SASS of `obj` (written whole to `out`):
-    over the whole kernel, and in its innermost loop bodies (from a
-    backward branch's target to the branch) that hold the most FMAs, with
-    the shared-memory wavefronts they need at least (4 a 16-byte load, 2
-    an 8-byte one, 1 a 4-byte one) per FMA. A generic load of shared
-    memory shows as LD, not LDS, and counts as one (the product loops load
-    nothing else). A loop body holds both sides of its branches (f32 and
-    bf16 operands), so a load on each side counts twice."""
-    kinds = ("LDS", "STS", "FFMA", "BAR", "LDGSTS", "LDG", "STG", "LD.",
-             "LDL", "STL")
-    text, code = probe_build.sass(obj, KERNELS)
-    out.write_text(text)
-
-    def mix(ins, lo, hi):
-        c = {}
-        for addr, op, _ in ins:
-            if lo <= addr <= hi and op.startswith(kinds):
-                c[op] = c.get(op, 0) + 1
-        c["instructions"] = sum(1 for a, _, _ in ins if lo <= a <= hi)
-        waves = sum(n * (4 if op.endswith(".128") else
-                         2 if op.endswith(".64") else 1)
-                    for op, n in c.items() if op.startswith(("LDS", "LD.")))
-        c["lds_wavefronts_per_ffma"] = (waves / c["FFMA"] if c.get("FFMA")
-                                        else None)
-        return c
-
-    counts = {}
-    for kernel, ins in code.items():
-        loops = []
-        for addr, op, rest in ins:
-            target = re.search(r"0x([0-9a-f]+)", rest)
-            if op == "BRA" and target and int(target.group(1), 16) < addr:
-                loops.append(mix(ins, int(target.group(1), 16), addr))
-        # innermost: the bodies with FMAs, fewest instructions first
-        loops = sorted((c for c in loops if c.get("FFMA")),
-                       key=lambda c: c["instructions"])
-        counts[kernel] = dict(whole=mix(ins, 0, 1 << 62), loop_bodies=sorted(
-            loops[:6], key=lambda c: -c["FFMA"]))
-    return counts
 
 
 class Build:
@@ -356,8 +312,8 @@ def main():
     for tag, (lib, obj, log) in built.items():
         for label, line in probe_build.ptxas_lines(log, KERNELS):
             print(f"ptxas, {tag} {label}: {line}", flush=True)
-        print(f"sass, {tag}: " + json.dumps(sass_counts(
-            obj, OUT / tag / "trunk_wide.sass")), flush=True)
+        print(f"sass, {tag}: " + json.dumps(probe_build.sass_counts(
+            obj, KERNELS, OUT / tag / "trunk_wide.sass")), flush=True)
         builds.append(Build(tag, lib, old=tag == "old"))
     print(cs.card_line(), flush=True)
     if args.build_only:
