@@ -9,4 +9,6 @@ version.
 """
 from .device import resolve_device
 
-__all__ = ["resolve_device"]
+__version__ = "0.1.0"
+
+__all__ = ["resolve_device", "__version__"]

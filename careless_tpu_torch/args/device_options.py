@@ -1,0 +1,93 @@
+"""Device/runtime flags of the port.
+
+The same flags as careless_tpu/args/device_options.py, so that a command
+line of the JAX CLI parses here. The port reads --disable-gpu (the CPU),
+--device-id (which card), --fused-kernel, --mlp-dtype and --seed. The flags
+that steer only JAX (--run-eagerly, --platform, --rng-impl, --jax-debug,
+--shard-axis) and the unported ones (--num-devices above 1, --profile-dir)
+parse, and a value other than the default makes careless_tpu_torch.main
+raise NotImplementedError naming the flag.
+"""
+name = "Device Options"
+description = None
+
+args_and_kwargs = (
+    (("--run-eagerly",), {
+        "help": "JAX only: disable jit compilation. The port refuses it.",
+        "action": "store_true",
+        "default": False,
+    }),
+    (("--platform",), {
+        "help": "JAX only: force a JAX platform. The port refuses it; use "
+                "--disable-gpu for the CPU.",
+        "type": str,
+        "default": None,
+    }),
+    (("--disable-gpu", "--disable-accelerator"), {
+        "help": "Run on the CPU only (the plain PyTorch versions of the "
+                "kernels).",
+        "action": "store_true",
+        "default": False,
+    }),
+    (("--device-id", "--gpu-id"), {
+        "help": "Index of the CUDA device to use. The default is 0.",
+        "type": int,
+        "default": 0,
+        "dest": "device_id",
+    }),
+    (("--num-devices",), {
+        "help": "Shard observations data-parallel over this many devices. "
+                "Not ported yet: the port runs on one device (0 or 1).",
+        "type": int,
+        "default": 0,
+    }),
+    (("--shard-axis",), {
+        "help": "JAX only: which axis --num-devices shards. The port "
+                "refuses 'mc'.",
+        "type": str,
+        "default": "obs",
+        "choices": ["obs", "mc"],
+    }),
+    (("--fused-kernel",), {
+        "help": "Use the fused likelihood kernel (K4) for the ELBO inner "
+                "loop (Normal/Laplace/StudentT/Ev11 likelihood with an MLP "
+                "or hybrid-image scaler). 'auto' (default) takes it at "
+                "--mc-samples above 1 from 500,000 observations; 'on' and "
+                "'off' force the choice.",
+        "type": str,
+        "default": "auto",
+        "choices": ["auto", "on", "off"],
+    }),
+    (("--mlp-dtype",), {
+        "help": "Matmul precision of the scaling-MLP trunk. 'float32' "
+                "(default) matches the reference numerics; 'bfloat16' "
+                "rounds the trunk's operands to bf16 and sums in float32.",
+        "type": str,
+        "default": "float32",
+        "choices": ["float32", "bfloat16"],
+    }),
+    (("--rng-impl",), {
+        "help": "JAX only: the JAX PRNG implementation. The port refuses "
+                "it (it draws from Philox and a torch.Generator).",
+        "type": str,
+        "default": None,
+        "choices": ["threefry2x32", "rbg", "unsafe_rbg"],
+    }),
+    (("--profile-dir",), {
+        "help": "Capture a profiler trace of the training loop into this "
+                "directory. Not ported yet.",
+        "type": str,
+        "default": None,
+    }),
+    (("--jax-debug",), {
+        "help": "JAX only: increase JAX's log verbosity. The port "
+                "refuses it.",
+        "action": "store_true",
+        "default": False,
+    }),
+    (("--seed",), {
+        "help": "Random number seed for consistent sampling.",
+        "type": int,
+        "default": 1234,
+    }),
+)

@@ -10,12 +10,15 @@ an MLP with the exp or softplus bijector and the --mlp-dtype of its
 products, alone, under per-image scales (HybridImageScaler) or followed by
 --image-layers per-image banks (NeuralImageScaler);
 --mc-samples and the --fused-kernel auto/on/off policy). Options outside
-the ported slice raise NotImplementedError naming the flag. Output writing
-(get_results, get_predictions) is not ported yet.
+the ported slice raise NotImplementedError naming the flag. The outputs
+(manager.py:266-415): get_results (merged F/SigF, I from the moments,
+redundancy N, the posterior's parameters; reflections with N > 0) and
+get_predictions (per-observation tables), with _unstack_anomalous's
+(+)/(-) columns in PHENIX order, as numpy DataSets (no pandas).
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -29,12 +32,28 @@ from ..models.priors.wilson import WilsonPrior
 from ..models.scaling.image import (HybridImageScaler, ImageScaler,
                                     NeuralImageScaler)
 from ..models.scaling.nn import MLPScaler
+from ..xtal import DataSet
+from .asu import pack_hkl
 
 # (flag, attribute, value that selects the unported option)
 _UNPORTED = (
     ("--double-wilson-parents", "parents", lambda v: v is not None),
     ("--analytic-kl", "analytic_kl", bool),
 )
+
+
+# MTZ dtypes for output columns
+_RESULT_DTYPES = {"H": "H", "K": "H", "L": "H", "F": "F", "SigF": "Q",
+                  "I": "J", "SigI": "Q", "N": "R",
+                  "high": "R", "loc": "R", "low": "R", "scale": "R"}
+_PRED_DTYPES = {"H": "H", "K": "H", "L": "H", "asu_id": "I", "image_id": "I",
+                "file_id": "I", "test": "I", "Iobs": "J", "SigIobs": "Q",
+                "Ipred": "J", "SigIpred": "Q", "Scale": "J", "SigScale": "Q"}
+
+
+def _numpy(t) -> np.ndarray:
+    return t.detach().cpu().numpy() if isinstance(t, torch.Tensor) \
+        else np.asarray(t)
 
 
 class DataManager:
@@ -47,6 +66,7 @@ class DataManager:
         self.inputs = inputs.to(self.device)
         self.asu_collection = asu_collection
         self.parser = parser
+        self._planned = None   # (inputs, planned copy, row order)
 
     @property
     def n_refl(self) -> int:
@@ -167,3 +187,176 @@ class DataManager:
             clipvalue=parser.clipvalue,
             global_clipnorm=parser.global_clipnorm, freeze=tuple(freeze))
         return model, params, trainer
+
+    def planned_inputs(self, inputs: Optional[Inputs] = None
+                       ) -> Tuple[Inputs, torch.Tensor]:
+        """(rows of a mono `inputs` (default: this manager's) stably sorted
+        by refl_id with the gather plans at the global table sizes, the
+        original row of each sorted row): what training and the outputs
+        run on. Built once per Inputs."""
+        inputs = self.inputs if inputs is None else inputs
+        if self._planned is None or self._planned[0] is not inputs:
+            if inputs.is_laue:
+                raise NotImplementedError(
+                    "Laue outputs come with the poly subcommand, which is "
+                    "not ported yet")
+            order = torch.sort(inputs.refl_id.long(), stable=True).indices
+            planned = inputs.select(order).with_plans(self.n_refl,
+                                                      self.n_images)
+            self._planned = (inputs, planned, order)
+        return self._planned[1], self._planned[2]
+
+    # --------------------------------------------------------------- output
+    def get_results(self, posterior_dist, inputs: Optional[Inputs] = None,
+                    output_parameters: bool = True,
+                    max_intensity_snr: float = 1e-5) -> Tuple[DataSet, ...]:
+        """Merged per-ASU outputs (manager.py:266-317)."""
+        if inputs is None:
+            inputs = self.inputs
+        F = _numpy(posterior_dist.mean())
+        SigF = _numpy(posterior_dist.stddev())
+        I = SigF * SigF + F * F
+        f4 = _numpy(posterior_dist.moment_4())
+        ivar = np.square(I * max_intensity_snr)
+        ivar = np.maximum(ivar, f4 - I * I)
+        SigI = np.sqrt(ivar)
+
+        params = None
+        if output_parameters:
+            d = posterior_dist
+            params = {
+                "high": np.broadcast_to(np.float32(_numpy(d.high)),
+                                        F.shape).astype(np.float32),
+                "loc": _numpy(d.loc).astype(np.float32),
+                "low": np.broadcast_to(_numpy(d.low).astype(np.float32),
+                                       F.shape),
+                "scale": _numpy(d.scale).astype(np.float32),
+            }
+
+        asu_id, H = self.asu_collection.to_asu_id_and_miller_index(
+            np.arange(len(F)))
+        refl_id = _numpy(inputs.refl_id)
+        N = np.bincount(refl_id, minlength=len(F)).astype(np.float32)
+
+        results = ()
+        for i, asu in enumerate(self.asu_collection):
+            idx = asu_id == i
+            cols = {
+                "H": H[idx, 0].astype(np.int32),
+                "K": H[idx, 1].astype(np.int32),
+                "L": H[idx, 2].astype(np.int32),
+                "F": F[idx].astype(np.float32),
+                "SigF": SigF[idx].astype(np.float32),
+                "I": I[idx].astype(np.float32),
+                "SigI": SigI[idx].astype(np.float32),
+                "N": N[idx],
+            }
+            if params is not None:
+                for key in sorted(params):
+                    cols[key] = params[key][idx]
+            output = DataSet(cols, cell=asu.cell, spacegroup=asu.spacegroup,
+                             mtz_dtypes=dict(_RESULT_DTYPES))
+            output = output.select(output["N"] > 0)
+            if asu.anomalous:
+                output = _unstack_anomalous(output, asu)
+            results += (output,)
+        return results
+
+    def get_predictions(self, model: VariationalMergingModel, params: dict,
+                        inputs: Optional[Inputs] = None, test_value: int = 0
+                        ) -> Iterator[DataSet]:
+        """Per-observation prediction tables, one per ASU, rows in the
+        order of `inputs` (manager.py:319-369). The moments are computed
+        on the planned copy (planned_inputs) and put back in row order."""
+        if inputs is None:
+            inputs = self.inputs
+        if inputs.is_laue:
+            raise NotImplementedError(
+                "Laue prediction tables come with the poly subcommand, "
+                "which is not ported yet")
+        refl_id = _numpy(inputs.refl_id)
+        asu_id, H = self.asu_collection.to_asu_id_and_miller_index(refl_id)
+        file_id = _numpy(inputs.file_id)
+        image_id = _numpy(inputs.image_id)
+        first_idx = np.arange(len(refl_id))   # mono: every row its own
+
+        planned, order = self.planned_inputs(inputs)
+
+        def unsorted(t):
+            out = torch.empty_like(t)
+            out[order] = t
+            return _numpy(out)
+        ipred, sigipred = map(unsorted,
+                              model.prediction_mean_stddev(params, planned))
+        scale, sigscale = map(unsorted,
+                              model.scale_mean_stddev(params, planned))
+        iobs = _numpy(inputs.intensities)
+        sig_iobs = _numpy(inputs.uncertainties)
+
+        num = len(first_idx)
+        cols = {
+            "H": H[first_idx, 0].astype(np.int32),
+            "K": H[first_idx, 1].astype(np.int32),
+            "L": H[first_idx, 2].astype(np.int32),
+            "asu_id": asu_id[first_idx].astype(np.int32),
+            "image_id": image_id[first_idx].astype(np.int32),
+            "file_id": file_id[first_idx].astype(np.int32),
+            "test": np.full(num, test_value, np.int32),
+            "Iobs": iobs[:num].astype(np.float32),
+            "SigIobs": sig_iobs[:num].astype(np.float32),
+            "Ipred": ipred[:num].astype(np.float32),
+            "SigIpred": sigipred[:num].astype(np.float32),
+            "Scale": scale[:num].astype(np.float32),
+            "SigScale": sigscale[:num].astype(np.float32),
+        }
+        table = DataSet(cols, mtz_dtypes=dict(_PRED_DTYPES))
+        for i, rasu in enumerate(self.asu_collection):
+            result = table.select(table["asu_id"] == i)
+            result.cell, result.spacegroup = rasu.cell, rasu.spacegroup
+            yield result
+
+
+_ANOM_KEYS = ["F(+)", "SigF(+)", "F(-)", "SigF(-)",
+              "I(+)", "SigI(+)", "I(-)", "SigI(-)", "N(+)", "N(-)"]
+
+
+def _unstack_anomalous(ds: DataSet, asu) -> DataSet:
+    """Friedel-separated table -> two-column (+/-) format with PHENIX column
+    order (manager.py:372-415). Centric reflections appear only in the (+)
+    columns. Rows: the union of both sides' (H, K, L), sorted
+    lexicographically, as pandas' outer join sorts it; a side without a
+    reflection holds NaN there."""
+    hkl = ds.get_hkls()
+    plus_hkl, _ = asu.spacegroup.map_to_asu(hkl, anomalous=False)
+    is_minus = np.any(hkl != plus_hkl, axis=1)
+    keys = pack_hkl(plus_hkl)
+    union, first = np.unique(keys, return_index=True)
+    cols = {"H": plus_hkl[first, 0], "K": plus_hkl[first, 1],
+            "L": plus_hkl[first, 2]}
+    value_cols = [c for c in ds.columns if c not in ("H", "K", "L")]
+    joined = {}
+    for sign, rows in (("(+)", ~is_minus), ("(-)", is_minus)):
+        at = np.searchsorted(union, keys[rows])
+        for c in value_cols:
+            v = ds[c][rows]
+            col = np.full(len(union), np.nan,
+                          dtype=np.result_type(v.dtype, np.float32))
+            col[at] = v
+            joined[c + sign] = col
+    ordered = ([k for k in _ANOM_KEYS if k in joined]
+               + [k for k in joined if k not in _ANOM_KEYS])
+    cols.update((k, joined[k]) for k in ordered)
+
+    mtz_dtypes = {"H": "H", "K": "H", "L": "H"}
+    for c in ordered:
+        root = c.replace("(+)", "").replace("(-)", "")
+        base_t = _RESULT_DTYPES.get(root, "R")
+        if base_t == "F":
+            base_t = "G"
+        elif base_t == "J":
+            base_t = "K"
+        elif base_t == "Q":
+            base_t = "M" if root in ("SigI",) else "L"
+        mtz_dtypes[c] = base_t
+    return DataSet(cols, cell=ds.cell, spacegroup=ds.spacegroup,
+                   mtz_dtypes=mtz_dtypes)

@@ -613,12 +613,25 @@ def philox_normal(n: int, seed: int, offset: int, device: torch.device,
 
 
 _FUSED_TAKES = "float32 loc, scale, a, f, iobs, sig, ev[, mask, noise, ct]"
-_FUSED_THREADS = 256   # csrc/fused_ll.cu's THREADS: one partial a block
+# csrc/fused_ll.cu's THREADS (a block of either direction) and
+# FWD_BLOCKS_PER_SM (the forward's resident grid)
+_FUSED_THREADS, FUSED_FWD_BLOCKS_PER_SM = 256, 4
 
 
-def fused_ll_parts(n: int) -> int:
-    """K4's partial sums for n observations: csrc/fused_ll.cu's
-    ct_fused_ll_parts (a card test holds the two equal), at least 1."""
+def fused_ll_parts(n: int, sm_count: int) -> int:
+    """K4-fwd's grid, and so its partial sums, for n observations on a card
+    of sm_count SMs: blocks enough for every Philox quad (ceil(n / 4) + 1
+    at most, for any offset), at most FUSED_FWD_BLOCKS_PER_SM a SM, at
+    least 1. csrc/fused_ll.cu's ct_fused_ll_parts (a card test holds the
+    two equal)."""
+    blocks = -(-(-(-n // 4) + 1) // _FUSED_THREADS)
+    return max(1, min(blocks, FUSED_FWD_BLOCKS_PER_SM * sm_count))
+
+
+def fused_ll_bwd_parts(n: int) -> int:
+    """K4-bwd's blocks (one observation a thread), and so the Ev11 kinds'
+    partial sums (3 each): csrc/fused_ll.cu's ct_fused_ll_bwd_parts, at
+    least 1."""
     return max(1, -(-n // _FUSED_THREADS))
 
 
@@ -663,14 +676,15 @@ def fused_ll_fwd(loc, scale, a, f, iobs, sig, mask, noise, ev, *, kind: str,
         "fused likelihood forward", loc, scale, a, f, iobs, sig, mask, noise,
         ev, kind)
     dev = loc.device
-    part = torch.empty(fused_ll_parts(n), dtype=_F32, device=dev)
+    parts = fused_ll_parts(n, _sm_count(idx))
+    part = torch.empty(parts, dtype=_F32, device=dev)
     out = torch.empty((), dtype=_F32, device=dev)
     err = _launch(library().ct_fused_ll_fwd, idx, loc.data_ptr(),
                   scale.data_ptr(), a.data_ptr(), f.data_ptr(),
                   iobs.data_ptr(), sig.data_ptr(), mask_p, noise_p,
-                  ev.data_ptr(), part.data_ptr(), out.data_ptr(), n, k, dof,
-                  t_const, seed & 0xFFFFFFFF, (seed >> 32) & 0xFFFFFFFF,
-                  offset)
+                  ev.data_ptr(), part.data_ptr(), out.data_ptr(), n, parts,
+                  k, dof, t_const, seed & 0xFFFFFFFF,
+                  (seed >> 32) & 0xFFFFFFFF, offset)
     _check(err, "fused likelihood forward")
     LAUNCHES["fused_ll_fwd"] += 1
     return out
@@ -692,7 +706,8 @@ def fused_ll_bwd(loc, scale, a, f, iobs, sig, mask, noise, ev,
     grads = torch.empty((4, n), dtype=_F32, device=dev)
     dev_grad = part = None
     if kind.endswith("_ev11"):
-        part = torch.empty((fused_ll_parts(n), 3), dtype=_F32, device=dev)
+        part = torch.empty((fused_ll_bwd_parts(n), 3), dtype=_F32,
+                           device=dev)
         dev_grad = torch.empty(3, dtype=_F32, device=dev)
     g = grads.data_ptr()
     err = _launch(library().ct_fused_ll_bwd, idx, loc.data_ptr(),

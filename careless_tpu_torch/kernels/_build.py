@@ -129,15 +129,19 @@ def library() -> "ctypes.CDLL":
         "ct_gather_stream": [P, I64, P, P, P, I, I, I, P],
         # out, bits, n, seed_lo, seed_hi, offset, stream
         "ct_philox_normal": [P, P, I, U32, U32, U64, P],
-        # loc, scale, a, f, iobs, sig, mask, noise, ev, part, out, n, kind,
-        # dof, t_const, seed_lo, seed_hi, offset, stream
-        "ct_fused_ll_fwd": [P] * 11 + [I, I, F, F, U32, U32, U64, P],
+        # loc, scale, a, f, iobs, sig, mask, noise, ev, part, out, n,
+        # n_parts, kind, dof, t_const, seed_lo, seed_hi, offset, stream
+        "ct_fused_ll_fwd": [P] * 11 + [I, I, I, F, F, U32, U32, U64, P],
         # loc, scale, a, f, iobs, sig, mask, noise, ev, ct, dloc, dscale,
         # da, df, part, dev, n, kind, dof, t_const, seed_lo, seed_hi,
         # offset, stream
         "ct_fused_ll_bwd": [P] * 16 + [I, I, F, F, U32, U32, U64, P],
+        # n, sm_count
+        "ct_fused_ll_parts": [I, I],
         # n
-        "ct_fused_ll_parts": [I],
+        "ct_fused_ll_bwd_parts": [I],
+        # out: (2,) uint32 host memory
+        "ct_fused_ll_tickets": [P],
     }
     for name, argtypes in signatures.items():
         fn = getattr(lib, name)

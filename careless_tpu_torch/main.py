@@ -1,0 +1,170 @@
+"""The port's CLI: `python -m careless_tpu_torch.main mono <metadata keys>
+<file.mtz ...> <out>` merges on the card (or on the CPU with --disable-gpu)
+and writes careless_tpu/main.py's file set: `<out>_<i>.mtz` (one per ASU),
+`<out>_history.csv`, `<out>_predictions_<i>.mtz`, `<out>_scale.npz` and
+`<out>_structure_factor.npz`; `devices` lists the CUDA devices.
+
+Counterpart of careless_tpu/main.py's main and run_careless for mono,
+without crossvalidation. Options that are not ported yet (poly, a test
+fraction, half-dataset merging, warm start, resume and checkpoints,
+several devices, profiling, the pickled data manager) and the flags that
+steer only JAX raise NotImplementedError naming the flag when given a value
+other than the default, so a JAX command line parses here and never runs
+something else than it asks for.
+"""
+from __future__ import annotations
+
+import csv
+import math
+import time
+from typing import Optional
+
+import torch
+
+from .device import DeviceLike, resolve_device, seeded_generator
+
+# (flag, attribute, value that asks for what the port does not do)
+_UNPORTED = (
+    ("--run-eagerly", "run_eagerly", bool),
+    ("--platform", "platform", lambda v: v is not None),
+    ("--rng-impl", "rng_impl", lambda v: v is not None),
+    ("--jax-debug", "jax_debug", bool),
+    ("--shard-axis", "shard_axis", lambda v: v not in (None, "obs")),
+    ("--num-devices", "num_devices", lambda v: (v or 0) > 1),
+    ("--profile-dir", "profile_dir", lambda v: v is not None),
+    ("--save-data-manager", "save_data_manager", bool),
+    ("--test-fraction", "test_fraction", lambda v: v is not None),
+    ("--merge-half-datasets", "merge_half_datasets", bool),
+    ("--scale-file", "scale_file", lambda v: v is not None),
+    ("--structure-factor-file", "structure_factor_file",
+     lambda v: v is not None),
+    ("--resume-from", "resume_from", lambda v: v is not None),
+    ("--checkpoint-every", "checkpoint_every", bool),
+)
+
+
+def main(argv=None) -> Optional[dict]:
+    """Parse argv (default: the command line) and run it; returns
+    run_careless's timings."""
+    from . import __version__
+    print(f"careless-tpu-torch version {__version__}")
+    from .parser import parser
+    args = parser.parse_args(argv)
+    return run_careless(args)
+
+
+def check_ported(parser) -> None:
+    """Raise NotImplementedError naming the first flag whose value asks for
+    something the port does not do."""
+    if parser.type == "poly":
+        raise NotImplementedError("the poly (Laue) subcommand is not ported "
+                                  "yet; run the JAX package")
+    for flag, attr, selects in _UNPORTED:
+        if selects(getattr(parser, attr, None)):
+            raise NotImplementedError(f"{flag} is not ported yet")
+
+
+def cli_device(parser, device: DeviceLike = None) -> torch.device:
+    """`device` when given, else the CPU under --disable-gpu, else card
+    --device-id (made current, so that every entry point uses it)."""
+    if device is not None:
+        return resolve_device(device)
+    if parser.disable_gpu:
+        return torch.device("cpu")
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is available; pass --disable-gpu "
+                           "to run on the CPU")
+    count = torch.cuda.device_count()
+    if not 0 <= parser.device_id < count:
+        raise ValueError(f"--device-id {parser.device_id} out of range: only "
+                         f"{count} device(s) available")
+    torch.cuda.set_device(parser.device_id)
+    return torch.device("cuda", parser.device_id)
+
+
+def write_history(history: dict, path: str) -> None:
+    """The history as pandas' DataFrame(history).to_csv(path,
+    index_label="step") writes it: a `step` column, then each metric;
+    floats in their shortest repr, NaN as an empty field."""
+    keys = list(history)
+    n = len(history[keys[0]]) if keys else 0
+
+    def field(v):
+        return "" if isinstance(v, float) and math.isnan(v) else repr(v)
+    with open(path, "w", newline="") as f:
+        out = csv.writer(f, lineterminator="\n")
+        out.writerow(["step"] + keys)
+        for i in range(n):
+            out.writerow([i] + [field(float(history[k][i])) for k in keys])
+
+
+def _sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def run_careless(parser, device: DeviceLike = None) -> Optional[dict]:
+    """One merge from the parsed flags on `device` (None: --disable-gpu's
+    CPU or card --device-id). Returns the host seconds of its parts:
+    set-up (the kernels' build where the checkout has none yet, read,
+    format, model, plans), training, and output (results, predictions,
+    writing)."""
+    if parser.type == "devices":
+        print("#############################################")
+        print("# PyTorch can access the following devices  #")
+        print("#############################################")
+        for i in range(torch.cuda.device_count()):
+            print(f" - cuda:{i}: {torch.cuda.get_device_name(i)}")
+        print(" - cpu")
+        return None
+    check_ported(parser)
+
+    from .io.formatter import MonoFormatter
+    from .io.manager import DataManager
+    from .utils.checkpoint import save_params
+    from .xtal import write_mtz
+
+    dev = cli_device(parser, device)
+    t0 = time.perf_counter()
+    if dev.type == "cuda":
+        from .kernels._build import library
+        library()   # built at the checkout's first run: set-up, not training
+    formatter = MonoFormatter.from_parser(parser)
+    inputs, rac = formatter.format_files(parser.reflection_files, device=dev)
+    dm = DataManager(inputs, rac, parser=parser, device=dev)
+    model, params, trainer = dm.build_model()
+    train, _ = dm.planned_inputs()
+    generator = seeded_generator(parser.seed, dev)
+    _sync(dev)
+    t1 = time.perf_counter()
+    params, history = trainer.train(params, generator, train,
+                                    parser.iterations,
+                                    chunk_size=parser.steps_per_compile,
+                                    device=dev)
+    _sync(dev)
+    t2 = time.perf_counter()
+
+    base = parser.output_base
+    posterior_dist = model.posterior.distribution(params["posterior"])
+    for i, ds in enumerate(dm.get_results(posterior_dist)):
+        write_mtz(ds, base + f"_{i}.mtz")
+    write_history(history, base + "_history.csv")
+    save_params(base + "_structure_factor", params["posterior"])
+    save_params(base + "_scale", params["scaler"])
+    for file_id, ds in enumerate(dm.get_predictions(model, params,
+                                                    test_value=0)):
+        write_mtz(ds, base + f"_predictions_{file_id}.mtz")
+    t3 = time.perf_counter()
+
+    if parser.embed:
+        try:
+            from IPython import embed
+            embed(colors="Linux")
+        except ImportError:
+            pass
+    return {"setup_s": t1 - t0, "train_s": t2 - t1, "output_s": t3 - t2,
+            "steps": len(next(iter(history.values()), []))}
+
+
+if __name__ == "__main__":
+    main()

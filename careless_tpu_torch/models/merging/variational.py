@@ -197,6 +197,59 @@ class VariationalMergingModel:
         kl_term = q.log_prob(z_f) - self.prior.log_prob(z_f)
         return torch.sum(kl_term) / kl_term.shape[0], torch.mean(kl_term)
 
+    # ---------------------------------------------------- posterior outputs
+    def predict_ipred(self, params: dict, inputs: Inputs,
+                      generator: torch.Generator, seed: int = 0
+                      ) -> torch.Tensor:
+        """(S, N) samples of Ipred (variational.py:587-599): reflection
+        samples from `generator`, scale noise from Philox with key `seed`,
+        as the ELBO draws them."""
+        with torch.no_grad():
+            _, z_f, _ = self._samples(params, inputs, generator, None, None)
+            S, n = z_f.shape[0], inputs.n_obs
+            scale_dist = self.scaler.apply(params["scaler"], inputs)
+            eps = prng_normal(S * n, seed, 0, inputs.device).view(S, n)
+            z_obs = torch.stack([plan_gather(z_f[s], inputs.refl_id,
+                                             inputs.plans.refl)
+                                 for s in range(S)])
+            return (scale_dist.loc + scale_dist.scale * eps) \
+                * torch.square(z_obs)
+
+    def _convolve(self, inputs: Inputs):
+        """The Laue harmonic convolution of the likelihood, or None."""
+        if not inputs.is_laue:
+            return None
+        return getattr(self.likelihood.build({}, inputs), "convolve", None)
+
+    def scale_mean_stddev(self, params: dict, inputs: Inputs):
+        """Moments of the scale posterior; Laue: convolved over harmonics
+        (variational.py:602-613)."""
+        with torch.no_grad():
+            dist = self.scaler.apply(params["scaler"], inputs)
+            mean, stddev = dist.mean(), dist.stddev()
+            conv = self._convolve(inputs)
+            if conv is not None:
+                mean = conv(mean)
+                stddev = torch.sqrt(conv(torch.square(stddev)))
+            return mean, stddev
+
+    def prediction_mean_stddev(self, params: dict, inputs: Inputs):
+        """<I> and std(I) under the model (variational.py:615-630):
+        <I> = <Sigma><F^2>; var(I) = <F^4><Sigma^2> - <I>^2."""
+        with torch.no_grad():
+            q = self.posterior.distribution(params["posterior"])
+            scale_dist = self.scaler.apply(params["scaler"], inputs)
+            rid = inputs.refl_id.long()
+            f2 = torch.square(q.mean()) + torch.square(q.stddev())
+            iexp = scale_dist.mean() * f2[rid]
+            s2 = torch.square(scale_dist.mean()) \
+                + torch.square(scale_dist.stddev())
+            ivar = q.moment_4()[rid] * s2 - torch.square(iexp)
+            conv = self._convolve(inputs)
+            if conv is not None:
+                iexp, ivar = conv(iexp), conv(ivar)
+            return iexp, torch.sqrt(ivar)
+
 
 def flatten_params(params) -> List[Tuple[str, torch.Tensor]]:
     """(path, leaf) pairs in the JAX pytree order: dict keys sorted, lists

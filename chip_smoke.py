@@ -18,7 +18,8 @@ Phases, each printed on its own lines:
      (cold_device_ms), each beside index_select's, and K2's launch path
      timed step by step; K3 also passes a statistical gate at n = 2^22; K4
      is held for all five likelihood kinds, with and without supplied
-     noise, and its in-kernel normals bitwise against K3's, its Student-t
+     noise (its forward also at an offset that is not a multiple of 4),
+     and its in-kernel normals bitwise against K3's, its Student-t
      gradients per observation within the rounding of ipred and against
      f64 at eight more seeds (studentt_check); K5 on the JAX package's 300k
      swap permutation, bitwise against its plain version and x[perm]; K1
@@ -63,7 +64,15 @@ Phases, each printed on its own lines:
      (the counts are set to 0 just before it), each slice's own K1
      instantiation once per step and every other not at all, K2 as often
      as GATHERS_PER_STEP says;
-  5. the Laue slice (`careless-tpu poly` defaults) at 10,000,000
+  5. the CLI: a seeded unmerged MTZ of 1,000,000 observations (~52k
+     reflections in P 21 21 21 to 1.5 A, 2,000 images, 10 metadata
+     columns; synthetic_mtz) merged by `careless_tpu_torch.main.main(["mono",
+     ...])` in this process for 300 steps (the default slice's model): the
+     five output files, the merged F against the generator's true F, N
+     against the observations, one prediction row per observation, and the
+     kernels' launches (cli_phase), with the CLI's set-up, steps/s and
+     output times on lines of their own;
+  6. the Laue slice (`careless-tpu poly` defaults) at 10,000,000
      observations, 500,000 reflections and 20,000 images on the harmonic-
      chain layout: the host set-up timed step by step, every kernel of the
      step held against its plain version and timed at the step's shapes
@@ -1033,7 +1042,8 @@ def studentt_settle(torch, dev, seeds=STUDENTT_SEEDS):
 def fused_ll_phase(torch, dev, gen, peak_flops, peak_bw):
     """K4-fwd and K4-bwd at N = 1M for all five kinds, with and without
     supplied noise, against their plain versions; the in-kernel normals
-    against K3's (bitwise); times for the normal kind (slice (a)) and the
+    against K3's (bitwise); the forward again at an offset that is not a
+    multiple of 4 (normal and studentt_ev11); times for the normal kind (slice (a)) and the
     studentt_ev11 kind (slice (b)). Tolerances, with the reason: the sum
     within 1e-5 of the sum of |mask ll| (f32 sums over 1M terms in another
     order); each per-observation gradient within 1e-5 of its tensor's
@@ -1122,6 +1132,29 @@ def fused_ll_phase(torch, dev, gen, peak_flops, peak_bw):
         g_k3 = kernels.fused_ll_bwd(*args, None, eps_k3, ev, ct, **cfg)
         check(all(a is b or torch.equal(a, b) for a, b in zip(g_own, g_k3)),
               f"fused_ll_bwd {kind}: in-kernel eps differ from K3's")
+
+    # an offset that is not a multiple of 4: a ragged head and tail quad,
+    # and no 16-byte loads; the same tolerance, its own eps K3's bitwise
+    for kind, dof in (("normal", 0.0), ("studentt_ev11", 4.0)):
+        cfg = dict(kind=kind, dof=dof, seed=seed, offset=offset + 1,
+                   t_const=studentt_log_norm(dof) if dof else 0.0)
+        eps = plain_prng_normal(n, seed, offset + 1, dev)
+        out = kernels.fused_ll_fwd(*args, None, None, ev, **cfg)
+        want = plain_fused_likelihood_sum(*args, None, ev, eps, kind=kind,
+                                          dof=dof)
+        ipred = (args[2] * args[0] + args[2].abs() * args[1] * eps) \
+            * args[3] * args[3]
+        l1 = pointwise_ll(kind, dof, ev, args[4], args[5],
+                          ipred).abs().sum().item()
+        e = abs(out.item() - want.item())
+        check(e <= 1e-5 * l1, f"fused_ll_fwd {kind} at offset {offset + 1}: "
+              f"{out.item()} vs plain {want.item()}")
+        err_fwd = max(err_fwd, e)
+        k3 = kernels.philox_normal(n, seed, offset + 1, dev)
+        check(torch.equal(out, kernels.fused_ll_fwd(*args, None, k3, ev,
+                                                    **cfg)),
+              f"fused_ll_fwd {kind} at offset {offset + 1}: in-kernel eps "
+              "differ from K3's")
 
     times = {}
     for kind, dof in (("normal", 0.0), ("studentt_ev11", 4.0)):
@@ -1252,6 +1285,63 @@ def build_problem(seed, n_obs, n_refl, n_images, d_meta, laue=False):
                                 multiplicity=np.ones(n_refl, np.float32),
                                 dHKL=np.ones(n_refl, np.float32))
     return arrays, asu, f_true
+
+
+# the CLI phase's unmerged MTZ: 1M observations over P 21 21 21 at 1.5 A
+# (~52k reflections in the ASU), 2,000 images, the 10 metadata keys below
+CLI_OBS, CLI_IMAGES, CLI_STEPS = 1_000_000, 2_000, 300
+CLI_CELL, CLI_SPACEGROUP, CLI_DMIN = (60.0, 70.0, 80.0, 90.0, 90.0, 90.0), \
+    "P 21 21 21", 1.5
+CLI_KEYS = "dHKL,image_id,Hobs,Kobs,Lobs,XDET,YDET,BG,SIGBG,FRACTIONCALC"
+# the merged F's least correlation with the generator's true F after the
+# CLI phase's 300 steps (0.8704 in the first card run, seed 0)
+CLI_MIN_CC = 0.85
+
+
+def synthetic_mtz(seed, n_obs, n_images, cell, spacegroup, dmin):
+    """An unmerged data set made with numpy from the seed: ((columns, MTZ
+    types) for write_mtz, the ASU's Miller indices, their true F). Every
+    reflection of the ASU to dmin has F ~ sqrt(Exp(1)) (Wilson, acentric);
+    each observation picks a reflection, an image (BATCH 1..n_images) and a
+    symmetry equivalent with either Friedel sign (its observed H, K, L;
+    M/ISYM asks the writer to store the ASU index and the orientation);
+    XDET, YDET, BG, SIGBG and FRACTIONCALC are detector-like columns.
+    I = s F^2 + SIGI N(0, 1), SIGI = 0.05 + 0.05 s F^2, with a scale s =
+    exp(0.3 N(0, 1) per image + 0.2 (XDET - 0.5)) the model can learn from
+    the metadata."""
+    from careless_tpu_torch.xtal import SpaceGroup, UnitCell
+
+    rng = np.random.default_rng(seed)
+    sg = SpaceGroup.from_name(spacegroup)
+    uc = UnitCell(*cell)
+    hkl_asu = sg.generate_reciprocal_asu(uc, dmin)
+    f_true = np.sqrt(rng.exponential(1.0, len(hkl_asu)))
+    refl = rng.integers(0, len(hkl_asu), n_obs)
+    image = rng.integers(0, n_images, n_obs)
+    rots = np.stack([op.rot_array for op in sg.ops])
+    op = rng.integers(0, len(rots), n_obs)
+    sign = np.where(rng.random(n_obs) < 0.5, -1, 1)
+    hkl = np.einsum("ni,nij->nj", hkl_asu[refl], rots[op]) * sign[:, None]
+    xdet = rng.random(n_obs).astype(np.float32)
+    ydet = rng.random(n_obs).astype(np.float32)
+    scale = np.exp(0.3 * rng.normal(size=n_images)[image]
+                   + 0.2 * (xdet - 0.5))
+    i_true = scale * f_true[refl] ** 2
+    sig = 0.05 + 0.05 * i_true
+    cols = {"H": hkl[:, 0].astype(np.int32), "K": hkl[:, 1].astype(np.int32),
+            "L": hkl[:, 2].astype(np.int32),
+            "M/ISYM": np.zeros(n_obs, np.int32),
+            "BATCH": (image + 1).astype(np.int32),
+            "I": (i_true + sig * rng.normal(size=n_obs)).astype(np.float32),
+            "SIGI": sig.astype(np.float32), "XDET": 2048 * xdet,
+            "YDET": 2048 * ydet,
+            "BG": rng.gamma(2.0, 5.0, n_obs).astype(np.float32),
+            "SIGBG": rng.uniform(1.0, 3.0, n_obs).astype(np.float32),
+            "FRACTIONCALC": rng.uniform(0.5, 1.0, n_obs).astype(np.float32)}
+    types_ = {"H": "H", "K": "H", "L": "H", "M/ISYM": "Y", "BATCH": "B",
+              "I": "J", "SIGI": "Q", "XDET": "R", "YDET": "R", "BG": "R",
+              "SIGBG": "R", "FRACTIONCALC": "R"}
+    return (cols, types_), hkl_asu, f_true
 
 
 def model_on(device, seed, n_obs, n_refl, n_images, d_meta, n_layers,
@@ -1763,6 +1853,93 @@ def wide_slice_phase(torch, dev, seed):
     return {k: v for k, v in launches.items() if k.startswith("trunk_wide")}
 
 
+def cli_phase(torch, dev, seed):
+    """The mono merge through the port's CLI, on the card: a seeded
+    unmerged MTZ (synthetic_mtz: CLI_OBS observations, CLI_IMAGES images,
+    ~52k reflections, written by the port's writer under build/), then
+    careless_tpu_torch.main.main(["mono", CLI_KEYS, file, out,
+    "--iterations=300"]) in this process, which builds the default slice's
+    model (d = w = 10, 20 layers). Checks: the five output files exist and
+    read back; the merged F's correlation with the true F is at least
+    CLI_MIN_CC; N sums to the observations kept (all of them: no cut asks
+    to drop any); one prediction row per observation; the loss finite and
+    falling; and, counted from 0 just before the call, K1 once a step each
+    way plus the two K1-fwd launches of the prediction pass (scales and
+    predictions), K2 GATHERS_PER_STEP["default"] a step plus the
+    prediction pass's two image-scale gathers, K3 once a step, no K4 or
+    K5. Prints the CLI's set-up, training and output times."""
+    import tempfile
+    from pathlib import Path
+
+    from careless_tpu_torch import kernels
+    from careless_tpu_torch.io.asu import pack_hkl
+    from careless_tpu_torch.main import main as cli_main
+    from careless_tpu_torch.xtal import (DataSet, SpaceGroup, UnitCell,
+                                         read_mtz, write_mtz)
+
+    t0 = time.perf_counter()
+    (cols, types_), hkl_asu, f_true = synthetic_mtz(
+        seed, CLI_OBS, CLI_IMAGES, CLI_CELL, CLI_SPACEGROUP, CLI_DMIN)
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        mtz, out = str(Path(tmp) / "unmerged.mtz"), str(Path(tmp) / "merged")
+        write_mtz(DataSet(cols, cell=UnitCell(*CLI_CELL),
+                          spacegroup=SpaceGroup.from_name(CLI_SPACEGROUP),
+                          mtz_dtypes=types_), mtz)
+        made = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        times = cli_main(["mono", CLI_KEYS, mtz, out,
+                          f"--iterations={CLI_STEPS}",
+                          "--disable-progress-bar", f"--seed={seed}"])
+        torch.cuda.synchronize()
+        launches = dict(kernels.LAUNCHES)
+        for suffix in ("_0.mtz", "_history.csv", "_predictions_0.mtz",
+                       "_scale.npz", "_structure_factor.npz"):
+            check(Path(out + suffix).exists(), f"cli: no {suffix} written")
+        merged = read_mtz(out + "_0.mtz")
+        preds = read_mtz(out + "_predictions_0.mtz")
+        with open(out + "_history.csv") as f:
+            lines = f.read().splitlines()[1:]
+        loss = [float(line.split(",")[1]) for line in lines]
+        npz = {s: sorted(np.load(out + s).files)
+               for s in ("_scale.npz", "_structure_factor.npz")}
+    kept = len(preds)
+    check(kept == CLI_OBS, f"cli: {kept} prediction rows for {CLI_OBS} "
+          "observations")
+    n_sum = float(merged["N"].astype(np.float64).sum())
+    check(n_sum == kept, f"cli: N sums to {n_sum}, {kept} observations")
+    keys = pack_hkl(hkl_asu)
+    at = np.searchsorted(keys, pack_hkl(merged.get_hkls()))
+    check(np.array_equal(keys[np.minimum(at, len(keys) - 1)],
+                         pack_hkl(merged.get_hkls())),
+          "cli: a merged reflection is not in the generator's ASU")
+    cc = float(np.corrcoef(merged["F"], f_true[at])[0, 1])
+    check(cc >= CLI_MIN_CC, f"cli: merged F correlates {cc:.4f} with the "
+          f"true F, expected at least {CLI_MIN_CC}")
+    check(len(loss) == CLI_STEPS and all(map(math.isfinite, loss))
+          and loss[-1] < loss[0], f"cli: loss not finite and falling: "
+          f"{loss[:2]} ... {loss[-2:]}")
+    check_launches(launches, "cli", {
+        **{k: (CLI_STEPS + 2 if k == "trunk_fwd" else v)
+           for k, v in trunk_counts(CLI_STEPS, True, False).items()},
+        "gather": GATHERS_PER_STEP["default"] * CLI_STEPS + 2,
+        "philox_normal": CLI_STEPS, "fused_ll_fwd": 0, "fused_ll_bwd": 0,
+        "gather_stream": 0})
+    out = dict(observations=kept, reflections=len(merged), cc_true_f=cc,
+               mtz_written_s=made, loss_first_last=[loss[0], loss[-1]],
+               npz_keys={k: len(v) for k, v in npz.items()},
+               launches={k: v for k, v in launches.items() if v})
+    print("cli: " + json.dumps(out), flush=True)
+    print(f"cli set-up s (kernel build if none, read, format, model, "
+          f"plans): {times['setup_s']}", flush=True)
+    print(f"cli steps/s: {times['steps'] / times['train_s']}", flush=True)
+    print(f"cli output s (results, predictions, writing): "
+          f"{times['output_s']}", flush=True)
+    return out
+
+
 def trunk_counts(steps, head, bf16, wide=False):
     """The K1 launch counts of a slice that runs the (head, bf16)
     instantiation (of csrc/trunk_wide.cu when wide) once per step in each
@@ -1887,6 +2064,7 @@ def main():
 
     scaler_launches = scaler_slices_phase(torch, dev, args.seed)
     wide_launches = wide_slice_phase(torch, dev, args.seed)
+    cli_phase(torch, dev, args.seed)
 
     rows["gather_stream"], launches_laue, held, rows[LAUE_PERM_ROW] = \
         laue_phase(torch, dev, gen, args.seed, peak_flops, peak_bw)

@@ -29,7 +29,7 @@ import torch
 from careless_tpu_torch import kernels
 from careless_tpu_torch.ops.fused_elbo import (
     plain_fused_likelihood_grads, plain_fused_likelihood_sum,
-    plain_prng_normal, studentt_log_norm)
+    plain_prng_normal, pointwise_ll, studentt_log_norm)
 from careless_tpu_torch.kernels._build import library
 from careless_tpu_torch.ops.fused_mlp import (fused_mlp_trunk,
                                               fused_mlp_trunk_head,
@@ -577,12 +577,18 @@ def test_philox_kernel_at_unaligned_offsets(cuda, n, offset):
     torch.testing.assert_close(got, want, rtol=0, atol=2e-5)
 
 
-@pytest.mark.parametrize("n", [0, 1, 255, 256, 257, 1_000_000])
-def test_fused_ll_parts_match_the_kernel(cuda, n):
-    """kernels.fused_ll_parts, which sizes K4's partial sums, is
-    csrc/fused_ll.cu's count (at least one)."""
-    assert kernels.fused_ll_parts(n) == max(1,
-                                            library().ct_fused_ll_parts(n))
+@pytest.mark.parametrize("n", [0, 1, 255, 256, 257, 1_000_000, 1_000_003])
+@pytest.mark.parametrize("sm_count", [1, 132, None])
+def test_fused_ll_parts_match_the_kernel(cuda, n, sm_count):
+    """kernels.fused_ll_parts and fused_ll_bwd_parts, which size K4's grid
+    and partial sums, are csrc/fused_ll.cu's counts (at least one), on a
+    card of 1 or 132 SMs and on this one."""
+    if sm_count is None:
+        sm_count = torch.cuda.get_device_properties(
+            cuda).multi_processor_count
+    assert kernels.fused_ll_parts(n, sm_count) == \
+        library().ct_fused_ll_parts(n, sm_count)
+    assert kernels.fused_ll_bwd_parts(n) == library().ct_fused_ll_bwd_parts(n)
 
 
 @pytest.mark.parametrize("with_bits", [False, True])
@@ -709,6 +715,97 @@ def test_fused_ll_philox_is_k3(cuda, kind, dof):
     own = kernels.fused_ll_bwd(*args, None, None, ev, ct, **cfg)
     fed = kernels.fused_ll_bwd(*args, None, k3, ev, ct, **cfg)
     assert all(a is b or torch.equal(a, b) for a, b in zip(own, fed))
+
+
+@pytest.mark.parametrize("kind,dof", K4_KINDS)
+@pytest.mark.parametrize("n", [1, 3, 255, 1_000_003])
+def test_fused_ll_fwd_ragged(cuda, kind, dof, n):
+    """K4-fwd at offsets 0, 1, 2, 3 and n (ragged head and tail quads, and
+    16-byte loads only where offset and every address are aligned: the
+    inputs also as views one element in), with a mask, with supplied noise
+    and with its own Philox: the sum at rtol 1e-5 of plain's and within
+    1e-5 of the sum of |mask ll| (f32 sums in another order), its own eps
+    bitwise K3's (fed in, the same sum bit for bit), and each call bit for
+    bit repeatable."""
+    seed = 0x5EED | (11 << 32)
+    ins, mask, ev, noise = _k4_inputs(n + 1, cuda, 9)
+    whole = list(ins.values()) + [mask, noise]
+    t_const = studentt_log_norm(dof) if dof else 0.0
+    for start in (0, 1):
+        args = [x[start:start + n] for x in whole]
+        loc, scale, a, f, iobs, sig, m, nz = args
+        for offset in (0, 1, 2, 3, n):
+            cfg = dict(kind=kind, dof=dof, seed=seed, offset=offset,
+                       t_const=t_const)
+            k3 = kernels.philox_normal(n, seed, offset, cuda)
+            for supplied in (nz, None):
+                eps = supplied if supplied is not None else \
+                    plain_prng_normal(n, seed, offset, cuda)
+                out = kernels.fused_ll_fwd(loc, scale, a, f, iobs, sig, m,
+                                           supplied, ev, **cfg)
+                want = plain_fused_likelihood_sum(loc, scale, a, f, iobs,
+                                                  sig, m, ev, eps, kind=kind,
+                                                  dof=dof)
+                ipred = (a * loc + a.abs() * scale * eps) * f * f
+                l1 = (m * pointwise_ll(kind, dof, ev, iobs, sig, ipred)
+                      ).abs().sum().item()
+                assert abs(out.item() - want.item()) <= 1e-5 * l1, \
+                    (start, offset, supplied is None)
+                assert torch.equal(out, kernels.fused_ll_fwd(
+                    loc, scale, a, f, iobs, sig, m, supplied, ev, **cfg))
+            assert torch.equal(
+                kernels.fused_ll_fwd(loc, scale, a, f, iobs, sig, m, None,
+                                     ev, **cfg),
+                kernels.fused_ll_fwd(loc, scale, a, f, iobs, sig, m, k3, ev,
+                                     **cfg)), (start, offset)
+
+
+def test_fused_ll_tickets_return_to_zero(cuda):
+    """After launches of both directions at every kind, with and without
+    the Ev11 sums, at grids of 1 to ~3,900 blocks, the two device tickets
+    of csrc/fused_ll.cu's last-block sums read 0, ready for the next."""
+    import ctypes
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    ct = torch.tensor(0.5, device=cuda)
+    for n in (1, 300, 1_000_000):
+        ins, _, ev, _ = _k4_inputs(n, cuda, 12)
+        for kind, dof in K4_KINDS:
+            cfg = dict(kind=kind, dof=dof, seed=5, offset=n,
+                       t_const=studentt_log_norm(dof) if dof else 0.0)
+            kernels.fused_ll_fwd(*ins.values(), None, None, ev, **cfg)
+            kernels.fused_ll_bwd(*ins.values(), None, None, ev, ct, **cfg)
+        assert kernels.fused_ll_parts(n, sms) >= 1
+    tickets = (ctypes.c_uint32 * 2)()
+    assert library().ct_fused_ll_tickets(tickets) == 0
+    assert list(tickets) == [0, 0]
+
+
+def test_fused_ll_fwd_is_one_launch_of_any_grid(cuda):
+    """K4-fwd writes its sum in one launch whatever its grid (the last
+    block's ticket wraps back to 0 for the next launch): through the C
+    entry point at 1, 2, 7 and the launcher's blocks, each call within
+    1e-5 of plain's sum and bit for bit repeatable."""
+    n, seed, offset = 100_001, 0x77 | (5 << 32), 2
+    ins, mask, ev, _ = _k4_inputs(n, cuda, 10)
+    args = list(ins.values())
+    want = plain_fused_likelihood_sum(
+        *args, mask, ev, plain_prng_normal(n, seed, offset, cuda),
+        kind="normal", dof=0.0)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for parts in (1, 2, 7, kernels.fused_ll_parts(n, sms)):
+        sums = []
+        for _ in range(2):
+            part = torch.empty(parts, device=cuda)
+            out = torch.empty((), device=cuda)
+            err = library().ct_fused_ll_fwd(
+                *(x.data_ptr() for x in args), mask.data_ptr(), None,
+                ev.data_ptr(), part.data_ptr(), out.data_ptr(), n, parts, 0,
+                0.0, 0.0, seed & 0xFFFFFFFF, seed >> 32, offset,
+                torch.cuda.current_stream().cuda_stream)
+            assert err == 0
+            sums.append(out.clone())
+        torch.testing.assert_close(sums[0], want, rtol=1e-5, atol=0)
+        assert torch.equal(sums[0], sums[1])
 
 
 def _k5_case(name, rng):

@@ -1,6 +1,7 @@
 """careless_tpu_torch, chip_smoke.py and the port's tools (tools/*.py, which
-run on the card beside it) import neither JAX, optax nor the JAX package
-(careless_tpu itself or any careless_tpu.* module). Checked twice:
+run on the card beside it) import neither JAX, optax, pandas (which the
+card's machine does not have) nor the JAX package (careless_tpu itself or
+any careless_tpu.* module). Checked twice:
 statically over every import statement, and by importing every module in a
 fresh interpreter and inspecting sys.modules.
 
@@ -21,7 +22,7 @@ PORT_FILES = sorted((ROOT / "careless_tpu_torch").rglob("*.py")) + [
 
 
 def forbidden(module: str) -> bool:
-    for name in ("jax", "jaxlib", "optax", "careless_tpu"):
+    for name in ("jax", "jaxlib", "optax", "pandas", "careless_tpu"):
         if module == name or module.startswith(name + "."):
             return True
     return False
@@ -30,6 +31,7 @@ def forbidden(module: str) -> bool:
 def test_forbidden_matches_modules_not_prefixes():
     assert forbidden("careless_tpu") and forbidden("careless_tpu.ops.x")
     assert forbidden("jax.numpy") and forbidden("optax")
+    assert forbidden("pandas") and forbidden("pandas.core.frame")
     assert not forbidden("careless_tpu_torch")
     assert not forbidden("careless_tpu_torch.ops") and not forbidden("jaxy")
 
@@ -72,6 +74,9 @@ print(json.dumps(sorted(sys.modules)))
                 "models.likelihoods.mono", "models.merging.variational",
                 "ops.chain_layout", "ops.conv_runs",
                 "models.likelihoods.laue", "ops.fused_mlp",
-                "models.scaling.nn", "models.scaling.image"):
+                "models.scaling.nn", "models.scaling.image", "main",
+                "parser", "io.formatter", "io.asu", "xtal.mtz",
+                "xtal.dataset", "xtal.symmetry", "utils.checkpoint",
+                "utils.positional_encoding"):
         assert "careless_tpu_torch." + mod in loaded
     assert [m for m in loaded if forbidden(m)] == []
