@@ -1,18 +1,21 @@
 """Input formatters: reflection files -> packed Inputs + ASU collection.
 
-The port's own copy of careless_tpu/io/formatter.py's helpers,
-DataFormatter and MonoFormatter, on the numpy DataSet (no pandas). Per-file
-prep (resolution cutoff, systematic absences, Hobs/Kobs/Lobs metadata, ASU
-mapping, MTZ-dtype-based key guessing, I/sigI cutoff), global
+The port's own copy of careless_tpu/io/formatter.py on the numpy DataSet
+(no pandas): its helpers, DataFormatter, MonoFormatter and LaueFormatter.
+Per-file prep (resolution cutoff, systematic absences, Hobs/Kobs/Lobs
+metadata, ASU mapping, MTZ-dtype-based key guessing, I/sigI cutoff; for
+Laue the harmonic expansion to dmin and the wavelength band), global
 concatenation with file_id/asu_id columns, the ASU collection built at the
 global dmin, global image renumbering (the sorted (file_id, image_id)
 pairs, numbered as pandas' groupby().ngroup() numbers them), metadata
 z-scoring + positional encodings, and packing into the flat
-per-observation arrays of the port's Inputs. Not ported yet: .stream
-(CrystFEL) input and the Laue formatter (`poly`).
+per-observation arrays of the port's Inputs (for Laue with harmonic-group
+ids and group-indexed intensities). MTZ and CrystFEL .stream files are
+read; `poly` refuses .stream, as the JAX package does.
 """
 from __future__ import annotations
 
+import math
 import warnings
 from dataclasses import dataclass, field
 from typing import List, Optional, Sequence, Tuple
@@ -21,6 +24,7 @@ import numpy as np
 
 from ..device import DeviceLike
 from ..models.base import Inputs
+from ..utils.laue import expand_harmonics
 from ..utils.positional_encoding import positional_encoding
 from ..xtal import DataSet, SpaceGroup, concat_datasets, read_mtz
 from .asu import ReciprocalASU, ReciprocalASUCollection
@@ -86,9 +90,8 @@ def _load(filename: str) -> DataSet:
     if filename.endswith(".mtz"):
         return read_mtz(filename)
     if filename.endswith(".stream"):
-        raise NotImplementedError(
-            ".stream (CrystFEL) input is not ported yet: convert it to an "
-            "MTZ, or run the JAX package")
+        from ..xtal.stream import read_crystfel
+        return read_crystfel(filename)
     raise ValueError(f"Unsupported reflection file type: {filename}")
 
 
@@ -110,8 +113,20 @@ def _parse_spacegroups(spec: Optional[str], n_files: int
 
 def _ngroup(*keys: np.ndarray) -> np.ndarray:
     """Group numbers of the rows' key tuples, the groups numbered in the
-    sorted order of their keys (pandas' groupby(keys).ngroup())."""
-    stacked = np.stack([np.asarray(k, np.int64) for k in keys], axis=1)
+    sorted order of their keys (pandas' groupby(keys).ngroup()). Keys whose
+    ranges fit 62 bits together are packed into one int64 in the same
+    order, which np.unique sorts far faster than rows."""
+    cols = [np.asarray(k, np.int64).reshape(-1) for k in keys]
+    if cols and len(cols[0]):
+        lows = [int(c.min()) for c in cols]
+        spans = [int(c.max()) - lo + 1 for c, lo in zip(cols, lows)]
+        if math.prod(spans) < 2 ** 62:
+            packed = np.zeros(len(cols[0]), np.int64)
+            for c, lo, span in zip(cols, lows, spans):
+                packed = packed * span + (c - lo)
+            _, inverse = np.unique(packed, return_inverse=True)
+            return inverse.reshape(-1).astype(np.int64)
+    stacked = np.stack(cols, axis=1)
     _, inverse = np.unique(stacked, axis=0, return_inverse=True)
     return inverse.reshape(-1).astype(np.int64)
 
@@ -175,10 +190,14 @@ class DataFormatter:
         data, rac = self.get_data_and_asu_collection(datasets)
         return self.finalize(data, rac, device)
 
+    def read_files(self, files: Sequence[str]) -> List[DataSet]:
+        """The reflection files as DataSets, unformatted."""
+        return [_load(f) for f in files]
+
     def format_files(self, files: Sequence[str], device: DeviceLike = None
                      ) -> Tuple[Inputs, ReciprocalASUCollection]:
         """Inputs on `device` (None: the card) and the ASU collection."""
-        return self((_load(f) for f in files), device)
+        return self(self.read_files(files), device)
 
     # ------------------------------------------------------------ key logic
     def _resolve_keys(self, ds: DataSet) -> Tuple[str, str, str]:
@@ -270,3 +289,121 @@ class MonoFormatter(DataFormatter):
             device=device,
         )
         return inputs, rac
+
+
+@dataclass
+class LaueFormatter(DataFormatter):
+    """Polychromatic pipeline: each observation expanded to its harmonics
+    out to dmin, the harmonics outside the wavelength band dropped, and the
+    rows of one (image, central ray) grouped into a harmonic group whose
+    intensity is the observation's."""
+
+    wavelength_key: str = "Wavelength"
+    lam_min: Optional[float] = None
+    lam_max: Optional[float] = None
+
+    @classmethod
+    def from_parser(cls, parser) -> "LaueFormatter":
+        lmin = lmax = None
+        if parser.wavelength_range is not None:
+            lmin, lmax = parser.wavelength_range
+        pe_keys = (parser.positional_encoding_keys.split(",")
+                   if parser.positional_encoding_keys else None)
+        return cls(
+            wavelength_key=parser.wavelength_key,
+            intensity_key=parser.intensity_key,
+            uncertainty_key=parser.uncertainty_key,
+            image_key=parser.image_key,
+            metadata_keys=parser.metadata_keys.split(","),
+            separate_outputs=parser.separate_files,
+            anomalous=parser.anomalous,
+            lam_min=lmin,
+            lam_max=lmax,
+            dmin=parser.dmin,
+            isigi_cutoff=parser.isigi_cutoff,
+            positional_encoding_keys=pe_keys,
+            encoding_bit_depth=parser.positional_encoding_frequencies,
+            spacegroups=_parse_spacegroups(parser.spacegroups,
+                                           len(parser.reflection_files)),
+            standardize=parser.standardize_metadata,
+        )
+
+    def prep_dataset(self, ds: DataSet, spacegroup: Optional[SpaceGroup] = None,
+                     inplace: bool = True) -> DataSet:
+        """dmin defaults to the file's own, and the band to the file's own
+        wavelengths."""
+        if not inplace:
+            ds = ds.copy()
+        if spacegroup is not None:
+            ds.spacegroup = spacegroup
+        ds.compute_dHKL(inplace=True)
+        dmin = self.dmin
+        if dmin is None or dmin == 0.0:
+            dmin = float(ds["dHKL"].min())
+        lam_min = self.lam_min
+        if lam_min is None:
+            lam_min = float(ds[self.wavelength_key].min())
+        lam_max = self.lam_max
+        if lam_max is None:
+            lam_max = float(ds[self.wavelength_key].max())
+
+        ds = expand_harmonics(ds, dmin, self.wavelength_key)
+
+        hkls = ds.get_hkls()
+        ds["Hobs"], ds["Kobs"], ds["Lobs"] = hkls.T
+
+        lam = ds[self.wavelength_key]
+        ds.drop_rows((lam < lam_min) | (lam > lam_max))
+        ds.remove_absences(inplace=True)
+        ds.hkl_to_asu(inplace=True, anomalous=self.anomalous)
+
+        image_key, intensity_key, uncertainty_key = self._resolve_keys(ds)
+        ds["intensity"] = ds[intensity_key].copy()
+        ds["uncertainty"] = ds[uncertainty_key].copy()
+        ds["image_id"] = ds[image_key].copy()
+        if self.isigi_cutoff is not None:
+            bad = ds["intensity"] / ds["uncertainty"] < self.isigi_cutoff
+            ds.drop_rows(bad)
+        return ds
+
+    def finalize(self, data: DataSet, rac: ReciprocalASUCollection,
+                 device: DeviceLike = None
+                 ) -> Tuple[Inputs, ReciprocalASUCollection]:
+        """harmonic_id numbers the (image_id, H_0, K_0, L_0) groups in
+        sorted order; each group's intensity and uncertainty are its first
+        row's, packed by group id and padded to the row count with 1.0."""
+        data = data.copy()
+        data["harmonic_id"] = _ngroup(data["image_id"], data["H_0"],
+                                      data["K_0"], data["L_0"])
+
+        metadata = self._finalize_metadata(data)
+        refl_id = rac.to_refl_id(data["asu_id"], data.get_hkls())
+
+        harmonic_id = data["harmonic_id"]
+        _, idx = np.unique(harmonic_id, return_index=True)
+        iobs = data["intensity"].astype(np.float32)[idx]
+        sigma = data["uncertainty"].astype(np.float32)[idx]
+        n = len(refl_id)
+        iobs = np.pad(iobs, (0, n - len(iobs)), constant_values=1.0)
+        sigma = np.pad(sigma, (0, n - len(sigma)), constant_values=1.0)
+
+        inputs = Inputs.from_arrays(
+            refl_id=refl_id,
+            image_id=data["image_id"],
+            file_id=data["file_id"],
+            metadata=metadata,
+            intensities=iobs,
+            uncertainties=sigma,
+            wavelength=data[self.wavelength_key].astype(np.float32),
+            harmonic_id=harmonic_id,
+            device=device,
+        )
+        return inputs, rac
+
+    def read_files(self, files: Sequence[str]) -> List[DataSet]:
+        for file in files:
+            if file.endswith(".stream"):
+                raise ValueError(
+                    "careless poly does not support .stream files. "
+                    "Use careless mono instead.")
+        return super().read_files(files)

@@ -12,13 +12,18 @@ products, alone, under per-image scales (HybridImageScaler) or followed by
 --mc-samples and the --fused-kernel auto/on/off policy). Options outside
 the ported slice raise NotImplementedError naming the flag. The outputs
 (manager.py:266-415): get_results (merged F/SigF, I from the moments,
-redundancy N, the posterior's parameters; reflections with N > 0) and
-get_predictions (per-observation tables), with _unstack_anomalous's
-(+)/(-) columns in PHENIX order, as numpy DataSets (no pandas).
+redundancy N over every row, Laue's expanded harmonics included, the
+posterior's parameters; reflections with N > 0) and get_predictions
+(per-observation tables; for Laue one row per harmonic group), with
+_unstack_anomalous's (+)/(-) columns in PHENIX order, as numpy DataSets
+(no pandas). Training and the outputs run on the planned copy of the
+inputs (planned_inputs: mono rows sorted by refl_id, Laue rows in the
+harmonic-chain layout), whose maps put the outputs back in row and group
+order.
 """
 from __future__ import annotations
 
-from typing import Iterator, Optional, Tuple
+from typing import Iterator, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -51,6 +56,13 @@ _PRED_DTYPES = {"H": "H", "K": "H", "L": "H", "asu_id": "I", "image_id": "I",
                 "Ipred": "J", "SigIpred": "Q", "Scale": "J", "SigScale": "Q"}
 
 
+class Planned(NamedTuple):
+    """The planned copy of an Inputs and its maps back."""
+    inputs: Inputs                  # reordered rows with plans
+    order: torch.Tensor             # original row of each planned row
+    groups: Optional[torch.Tensor]  # Laue: original group of each group
+
+
 def _numpy(t) -> np.ndarray:
     return t.detach().cpu().numpy() if isinstance(t, torch.Tensor) \
         else np.asarray(t)
@@ -66,7 +78,7 @@ class DataManager:
         self.inputs = inputs.to(self.device)
         self.asu_collection = asu_collection
         self.parser = parser
-        self._planned = None   # (inputs, planned copy, row order)
+        self._planned = None   # (inputs, Planned)
 
     @property
     def n_refl(self) -> int:
@@ -188,23 +200,23 @@ class DataManager:
             global_clipnorm=parser.global_clipnorm, freeze=tuple(freeze))
         return model, params, trainer
 
-    def planned_inputs(self, inputs: Optional[Inputs] = None
-                       ) -> Tuple[Inputs, torch.Tensor]:
-        """(rows of a mono `inputs` (default: this manager's) stably sorted
-        by refl_id with the gather plans at the global table sizes, the
-        original row of each sorted row): what training and the outputs
-        run on. Built once per Inputs."""
+    def planned_inputs(self, inputs: Optional[Inputs] = None) -> Planned:
+        """The rows of `inputs` (default: this manager's) that training and
+        the outputs run on, with the gather plans at the global table
+        sizes: mono rows stably sorted by refl_id, Laue rows in the
+        harmonic-chain layout (sorted_by_harmonic(n_refl), its groups
+        renumbered), as careless_tpu/main.py:245-256 lays them out. Built
+        once per Inputs."""
         inputs = self.inputs if inputs is None else inputs
         if self._planned is None or self._planned[0] is not inputs:
             if inputs.is_laue:
-                raise NotImplementedError(
-                    "Laue outputs come with the poly subcommand, which is "
-                    "not ported yet")
-            order = torch.sort(inputs.refl_id.long(), stable=True).indices
-            planned = inputs.select(order).with_plans(self.n_refl,
-                                                      self.n_images)
-            self._planned = (inputs, planned, order)
-        return self._planned[1], self._planned[2]
+                rows, order, groups = inputs.harmonic_layout(self.n_refl)
+            else:
+                order = torch.sort(inputs.refl_id.long(), stable=True).indices
+                rows, groups = inputs.select(order), None
+            self._planned = (inputs, Planned(
+                rows.with_plans(self.n_refl, self.n_images), order, groups))
+        return self._planned[1]
 
     # --------------------------------------------------------------- output
     def get_results(self, posterior_dist, inputs: Optional[Inputs] = None,
@@ -265,31 +277,42 @@ class DataManager:
     def get_predictions(self, model: VariationalMergingModel, params: dict,
                         inputs: Optional[Inputs] = None, test_value: int = 0
                         ) -> Iterator[DataSet]:
-        """Per-observation prediction tables, one per ASU, rows in the
-        order of `inputs` (manager.py:319-369). The moments are computed
-        on the planned copy (planned_inputs) and put back in row order."""
+        """Prediction tables, one per ASU (manager.py:319-369): mono one
+        row per observation in the order of `inputs`, Laue one row per
+        harmonic group in group-id order, taken at the group's first row.
+        The moments are the model's (prediction_mean_stddev and
+        scale_mean_stddev; Laue's summed over each group by the
+        likelihood's convolve, the run sums that training takes), computed
+        on the planned copy (planned_inputs) and put back in row or group
+        order."""
         if inputs is None:
             inputs = self.inputs
-        if inputs.is_laue:
-            raise NotImplementedError(
-                "Laue prediction tables come with the poly subcommand, "
-                "which is not ported yet")
         refl_id = _numpy(inputs.refl_id)
         asu_id, H = self.asu_collection.to_asu_id_and_miller_index(refl_id)
         file_id = _numpy(inputs.file_id)
         image_id = _numpy(inputs.image_id)
-        first_idx = np.arange(len(refl_id))   # mono: every row its own
+        planned = self.planned_inputs(inputs)
+        if inputs.is_laue:
+            _, first_idx = np.unique(_numpy(inputs.harmonic_id),
+                                     return_index=True)
+        else:
+            first_idx = np.arange(len(refl_id))   # every row its own
 
-        planned, order = self.planned_inputs(inputs)
-
-        def unsorted(t):
+        def unplanned(t):
+            if not inputs.is_laue:
+                dest = planned.order
+            elif planned.groups is None:
+                return _numpy(t)
+            else:   # group g's sum sits at its renumbered id
+                dest = planned.groups
+                t = t[:dest.shape[0]]
             out = torch.empty_like(t)
-            out[order] = t
+            out[dest] = t
             return _numpy(out)
-        ipred, sigipred = map(unsorted,
-                              model.prediction_mean_stddev(params, planned))
-        scale, sigscale = map(unsorted,
-                              model.scale_mean_stddev(params, planned))
+        ipred, sigipred = map(unplanned, model.prediction_mean_stddev(
+            params, planned.inputs))
+        scale, sigscale = map(unplanned, model.scale_mean_stddev(
+            params, planned.inputs))
         iobs = _numpy(inputs.intensities)
         sig_iobs = _numpy(inputs.uncertainties)
 

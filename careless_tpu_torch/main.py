@@ -1,16 +1,21 @@
 """The port's CLI: `python -m careless_tpu_torch.main mono <metadata keys>
-<file.mtz ...> <out>` merges on the card (or on the CPU with --disable-gpu)
-and writes careless_tpu/main.py's file set: `<out>_<i>.mtz` (one per ASU),
-`<out>_history.csv`, `<out>_predictions_<i>.mtz`, `<out>_scale.npz` and
+<file.{mtz,stream} ...> <out>` (or `poly <metadata keys> <file.mtz ...>
+<out>` for Laue data) merges on the card (or on the CPU with
+--disable-gpu) and writes careless_tpu/main.py's file set:
+`<out>_<i>.mtz` (one per ASU), `<out>_history.csv`,
+`<out>_predictions_<i>.mtz`, `<out>_scale.npz` and
 `<out>_structure_factor.npz`; `devices` lists the CUDA devices.
+`--scale-file` and `--structure-factor-file` start from the parameters of
+an earlier merge (written by either package); with `--freeze-scales` the
+scales stay as loaded.
 
-Counterpart of careless_tpu/main.py's main and run_careless for mono,
-without crossvalidation. Options that are not ported yet (poly, a test
-fraction, half-dataset merging, warm start, resume and checkpoints,
-several devices, profiling, the pickled data manager) and the flags that
-steer only JAX raise NotImplementedError naming the flag when given a value
-other than the default, so a JAX command line parses here and never runs
-something else than it asks for.
+Counterpart of careless_tpu/main.py's main and run_careless, without
+crossvalidation. Options that are not ported yet (a test fraction,
+half-dataset merging, resume and checkpoints, several devices, profiling,
+the pickled data manager) and the flags that steer only JAX raise
+NotImplementedError naming the flag when given a value other than the
+default, so a JAX command line parses here and never runs something else
+than it asks for.
 """
 from __future__ import annotations
 
@@ -35,9 +40,6 @@ _UNPORTED = (
     ("--save-data-manager", "save_data_manager", bool),
     ("--test-fraction", "test_fraction", lambda v: v is not None),
     ("--merge-half-datasets", "merge_half_datasets", bool),
-    ("--scale-file", "scale_file", lambda v: v is not None),
-    ("--structure-factor-file", "structure_factor_file",
-     lambda v: v is not None),
     ("--resume-from", "resume_from", lambda v: v is not None),
     ("--checkpoint-every", "checkpoint_every", bool),
 )
@@ -56,9 +58,6 @@ def main(argv=None) -> Optional[dict]:
 def check_ported(parser) -> None:
     """Raise NotImplementedError naming the first flag whose value asks for
     something the port does not do."""
-    if parser.type == "poly":
-        raise NotImplementedError("the poly (Laue) subcommand is not ported "
-                                  "yet; run the JAX package")
     for flag, attr, selects in _UNPORTED:
         if selects(getattr(parser, attr, None)):
             raise NotImplementedError(f"{flag} is not ported yet")
@@ -106,9 +105,12 @@ def _sync(dev: torch.device) -> None:
 def run_careless(parser, device: DeviceLike = None) -> Optional[dict]:
     """One merge from the parsed flags on `device` (None: --disable-gpu's
     CPU or card --device-id). Returns the host seconds of its parts:
-    set-up (the kernels' build where the checkout has none yet, read,
-    format, model, plans), training, and output (results, predictions,
-    writing)."""
+    set-up (setup_s, the sum of build_s, the kernels' build where the
+    checkout has none yet; read_s, the reflection files; format_s, the
+    formatter; model_s, the data manager, model and warm start; plans_s,
+    the row layout and gather plans, Laue's harmonic-chain layout
+    included), training (train_s, over `steps` steps), and output
+    (output_s: results, predictions, writing)."""
     if parser.type == "devices":
         print("#############################################")
         print("# PyTorch can access the following devices  #")
@@ -119,30 +121,49 @@ def run_careless(parser, device: DeviceLike = None) -> Optional[dict]:
         return None
     check_ported(parser)
 
-    from .io.formatter import MonoFormatter
+    from .io.formatter import LaueFormatter, MonoFormatter
     from .io.manager import DataManager
-    from .utils.checkpoint import save_params
+    from .utils.checkpoint import load_params, save_params
     from .xtal import write_mtz
 
     dev = cli_device(parser, device)
+    times = {}
     t0 = time.perf_counter()
+
+    def lap(name):
+        nonlocal t0
+        _sync(dev)
+        t1 = time.perf_counter()
+        times[name] = t1 - t0
+        t0 = t1
+
     if dev.type == "cuda":
         from .kernels._build import library
         library()   # built at the checkout's first run: set-up, not training
-    formatter = MonoFormatter.from_parser(parser)
-    inputs, rac = formatter.format_files(parser.reflection_files, device=dev)
+    lap("build_s")
+    formatter = (LaueFormatter if parser.type == "poly"
+                 else MonoFormatter).from_parser(parser)
+    datasets = formatter.read_files(parser.reflection_files)
+    lap("read_s")
+    inputs, rac = formatter(datasets, device=dev)
+    del datasets
+    lap("format_s")
     dm = DataManager(inputs, rac, parser=parser, device=dev)
     model, params, trainer = dm.build_model()
-    train, _ = dm.planned_inputs()
+    if parser.scale_file is not None:
+        params["scaler"] = load_params(parser.scale_file, params["scaler"])
+    if parser.structure_factor_file is not None:
+        params["posterior"] = load_params(parser.structure_factor_file,
+                                          params["posterior"])
+    lap("model_s")
+    train = dm.planned_inputs().inputs
     generator = seeded_generator(parser.seed, dev)
-    _sync(dev)
-    t1 = time.perf_counter()
+    lap("plans_s")
     params, history = trainer.train(params, generator, train,
                                     parser.iterations,
                                     chunk_size=parser.steps_per_compile,
                                     device=dev)
-    _sync(dev)
-    t2 = time.perf_counter()
+    lap("train_s")
 
     base = parser.output_base
     posterior_dist = model.posterior.distribution(params["posterior"])
@@ -154,7 +175,7 @@ def run_careless(parser, device: DeviceLike = None) -> Optional[dict]:
     for file_id, ds in enumerate(dm.get_predictions(model, params,
                                                     test_value=0)):
         write_mtz(ds, base + f"_predictions_{file_id}.mtz")
-    t3 = time.perf_counter()
+    lap("output_s")
 
     if parser.embed:
         try:
@@ -162,8 +183,11 @@ def run_careless(parser, device: DeviceLike = None) -> Optional[dict]:
             embed(colors="Linux")
         except ImportError:
             pass
-    return {"setup_s": t1 - t0, "train_s": t2 - t1, "output_s": t3 - t2,
-            "steps": len(next(iter(history.values()), []))}
+    times["setup_s"] = sum(times[k] for k in ("build_s", "read_s",
+                                              "format_s", "model_s",
+                                              "plans_s"))
+    times["steps"] = len(next(iter(history.values()), []))
+    return times
 
 
 if __name__ == "__main__":

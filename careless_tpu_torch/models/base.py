@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Optional, Union
+from typing import Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -137,6 +137,15 @@ class Inputs:
         (ops/chain_layout.py), in which the refl gather windows in both
         directions; groups are renumbered to their new order and the
         group-indexed intensities and uncertainties repacked to match."""
+        return self.harmonic_layout(n_refl)[0]
+
+    def harmonic_layout(self, n_refl: Optional[int] = None
+                        ) -> Tuple["Inputs", torch.Tensor,
+                                   Optional[torch.Tensor]]:
+        """(sorted_by_harmonic(n_refl), the original row of each of its
+        rows, the original group id of each renumbered group or None where
+        the groups keep their ids): the maps that put values computed on
+        the reordered rows back in the original row and group order."""
         if not self.is_laue:
             raise ValueError("sorted_by_harmonic applies to Laue inputs only")
         hid = self.harmonic_id.cpu().numpy()
@@ -147,9 +156,11 @@ class Inputs:
             order = np.argsort(hid, kind="stable")
         else:
             order = chain_row_order(self.refl_id.cpu().numpy(), hid, n_refl)
-        rows = self.select(torch.as_tensor(order, device=self.device))
+        rows_of = torch.as_tensor(order, device=self.device)
+        rows = self.select(rows_of)
         iobs, sig, new_hid = (self.intensities, self.uncertainties,
                               rows.harmonic_id)
+        old_of_new = None
         if n_refl is not None and dense:
             h_sorted = hid[order]
             change = np.concatenate([[True], h_sorted[1:] != h_sorted[:-1]])
@@ -161,8 +172,9 @@ class Inputs:
             iobs, sig = iobs.clone(), sig.clone()
             iobs[:n_groups] = self.intensities[old_of_new]
             sig[:n_groups] = self.uncertainties[old_of_new]
-        return rows.replace(intensities=iobs, uncertainties=sig,
+        rows = rows.replace(intensities=iobs, uncertainties=sig,
                             harmonic_id=new_hid)
+        return rows, rows_of, old_of_new
 
     def with_plans(self, n_refl: int, n_images: int) -> "Inputs":
         """Attach the gather plans. Both sizes MUST be the GLOBAL table

@@ -9,7 +9,8 @@ prediction.
 
 The training path takes the run-aligned form (ops/conv_runs.py) when the
 inputs carry a ConvRunPlan: no gathers, the log-prob at each group's first
-row, plus the static tail of never-hit group rows. Otherwise the
+row, plus the static tail of never-hit group rows; the outputs' convolve
+(the prediction table's moments) takes the same run sums. Otherwise the
 convolution is the planned segment sum (ops/plan_gather.plan_convolve),
 whose backward is a gather by harmonic_id through K5 past the VMEM cap.
 """
@@ -40,8 +41,17 @@ class ConvolvedLikelihood:
         self.row_distribution = row_distribution
 
     def convolve(self, value: torch.Tensor) -> torch.Tensor:
-        """Sum (N,) values over harmonic_id into same-length buckets."""
-        return plan_convolve(value, self.harmonic_id, self.plan)
+        """Sum (..., N) values over harmonic_id into same-length buckets: with
+        a run plan, each run's shifted adds (training's sums) put at its
+        group's bucket; else the planned segment sum."""
+        rp = self.run_plan
+        if rp is None:
+            return plan_convolve(value, self.harmonic_id, self.plan)
+        starts = rp.run_len > 0
+        out = torch.zeros_like(value)
+        out[..., self.harmonic_id[starts].long()] = \
+            conv_start_sums(value, rp)[..., starts]
+        return out
 
     def log_prob(self, value: torch.Tensor) -> torch.Tensor:
         return self.distribution.log_prob(self.convolve(value))

@@ -59,7 +59,7 @@ subs = parser.add_subparsers(title="Experiment Type", required=True, dest="type"
 mono_sub = subs.add_parser("mono", help="Process monochromatic diffraction data.",
                            formatter_class=CustomFormatter)
 poly_sub = subs.add_parser("poly", help="Process polychromatic, 'Laue', "
-                                        "diffraction data (not ported yet).",
+                                        "diffraction data.",
                            formatter_class=CustomFormatter)
 devices_sub = subs.add_parser("devices", help="Print available devices",
                               formatter_class=CustomFormatter)

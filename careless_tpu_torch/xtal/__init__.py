@@ -1,6 +1,6 @@
 """Host-side crystallography for the port: unit cells, space groups, the
-numpy DataSet and MTZ I/O (numpy only; counterpart of careless_tpu/xtal/).
-The CrystFEL .stream and XDS readers are not ported yet."""
+numpy DataSet, MTZ I/O, and the CrystFEL .stream (stream.py) and XDS
+(xds.py) readers (numpy only; counterpart of careless_tpu/xtal/)."""
 from .cell import UnitCell
 from .dataset import DataSet, concat_datasets
 from .mtz import read_mtz, write_mtz

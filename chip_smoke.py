@@ -71,7 +71,19 @@ Phases, each printed on its own lines:
      five output files, the merged F against the generator's true F, N
      against the observations, one prediction row per observation, and the
      kernels' launches (cli_phase), with the CLI's set-up, steps/s and
-     output times on lines of their own;
+     output times on lines of their own; then the Laue merge through
+     `main(["poly", ...])` on a seeded 3,000,000-spot Laue MTZ (PYP in
+     P 63 to 1.6 A, band 0.95-1.25 A, 4,000 images, 10 metadata keys;
+     synthetic_laue_mtz), 300 steps, its merged F against the true F, N
+     against the expanded rows, one prediction row per harmonic group, K5
+     once a step, the path's kernels held at its shapes, and the "on" merge
+     from the first run's scales, frozen, whose scale file comes back bit
+     for bit (poly_cli_phase); then a serial-crystallography merge from a
+     seeded CrystFEL stream of 500,000 reflections on 2,500 crystals
+     through `main(["mono", ...])`, 300 steps, the path's K1, K2 and K3
+     held at its shapes, its merged F against the true F, with the stream's parse
+     seconds (stream_cli_phase); each with
+     set-up by part, steps/s, output seconds and peak GB;
   6. the Laue slice (`careless-tpu poly` defaults) at 10,000,000
      observations, 500,000 reflections and 20,000 images on the harmonic-
      chain layout: the host set-up timed step by step, every kernel of the
@@ -1344,6 +1356,199 @@ def synthetic_mtz(seed, n_obs, n_images, cell, spacegroup, dmin):
     return (cols, types_), hkl_asu, f_true
 
 
+# the poly CLI phase's Laue MTZ: PYP in P 63 to 1.6 A (13,872 reflections
+# in the ASU), a pink-beam band of 0.95-1.25 A, 3,000,000 spots on 4,000
+# images, the 10 metadata keys below (d = w = 10 at 20 layers)
+POLY_SPOTS, POLY_IMAGES, POLY_STEPS, POLY_WARM_STEPS = \
+    3_000_000, 4_000, 300, 20
+POLY_CELL, POLY_SPACEGROUP, POLY_DMIN, POLY_BAND = \
+    (66.9, 66.9, 40.8, 90.0, 90.0, 120.0), "P 63", 1.6, (0.95, 1.25)
+POLY_KEYS = "dHKL,image_id,Wavelength,XDET,YDET,Hobs,Kobs,Lobs,BG,SIGBG"
+# the merged F's least correlation with the generator's true F after the
+# poly CLI phase's 300 steps (0.7920 in the first card run, seed 0)
+POLY_MIN_CC = 0.75
+
+
+def primitive_rays(cell, dmin):
+    """(n, 3) Miller indices of every central ray to dmin in P 1: the
+    reflections with d >= dmin whose indices share no factor."""
+    from careless_tpu_torch.xtal import UnitCell
+
+    uc = UnitCell(*cell)
+    r = [int(math.ceil(x / dmin)) for x in cell[:3]]
+    grid = np.stack(np.meshgrid(*[np.arange(-m, m + 1) for m in r],
+                                indexing="ij"), -1).reshape(-1, 3)
+    grid = grid[np.abs(grid).sum(1) > 0]
+    keep = (uc.compute_d(grid) >= dmin) \
+        & (np.gcd.reduce(np.abs(grid), axis=1) == 1)
+    return grid[keep]
+
+
+def synthetic_laue_mtz(seed, n_spots, n_images, cell, spacegroup, dmin,
+                       band):
+    """A Laue data set made with numpy from the seed: ((columns, MTZ types)
+    for write_mtz, the ASU's Miller indices, their true F, the number of
+    harmonics each spot holds). Every reflection of the ASU to dmin has F ~
+    sqrt(Exp(1)). Each image holds n_spots / n_images spots on distinct
+    central rays H_0 (primitive_rays), as a detector does; a spot reports
+    one harmonic n H_0 of its ray (n uniform up to the ray's last harmonic
+    within dmin) at a wavelength uniform in the band. Its intensity is
+    s sum_n F(n H_0)^2 over the harmonics the Laue formatter keeps (within
+    the file's dmin and wavelength range, not systematically absent; the
+    formatter's own float32 arithmetic), plus noise SIGI N(0, 1), SIGI =
+    0.05 + 0.05 s sum_n F^2, s = exp(0.3 N(0, 1) per image + 0.2 (XDET -
+    0.5)). Spots whose reported harmonic is absent are not made."""
+    from careless_tpu_torch.io.asu import pack_hkl
+    from careless_tpu_torch.xtal import SpaceGroup, UnitCell
+
+    rng = np.random.default_rng(seed)
+    sg = SpaceGroup.from_name(spacegroup)
+    uc = UnitCell(*cell)
+    hkl_asu = sg.generate_reciprocal_asu(uc, dmin)
+    f_true = np.sqrt(rng.exponential(1.0, len(hkl_asu)))
+    rays = primitive_rays(cell, dmin)
+    ray_nmax = np.floor(uc.compute_d(rays) / dmin).astype(np.int64)
+    # distinct (image, ray) pairs, a few more drawn than kept
+    draw = int(n_spots * 1.02) + 64
+    pair = np.unique(rng.integers(0, n_images, draw) * len(rays)
+                     + rng.integers(0, len(rays), draw))
+    image, ray = pair // len(rays), pair % len(rays)
+    n_rep = 1 + (rng.random(len(ray)) * ray_nmax[ray]).astype(np.int64)
+    hkl = rays[ray] * n_rep[:, None]
+    ok = ~sg.is_absent(hkl)
+    pick = np.sort(rng.choice(np.flatnonzero(ok), n_spots, replace=False))
+    image, ray, n_rep, hkl = image[pick], ray[pick], n_rep[pick], hkl[pick]
+    lam = rng.uniform(*band, n_spots).astype(np.float32)
+
+    # the harmonics the formatter keeps, in its arithmetic
+    d32 = uc.compute_d(hkl).astype(np.float32)
+    d_min = float(d32.min())
+    lam_lo, lam_hi = float(lam.min()), float(lam.max())
+    n_max = np.floor_divide(d32.astype(np.float64) * n_rep, d_min
+                            ).astype(np.int64)
+    spot, n = np.nonzero(np.arange(1, n_max.max() + 1)[None, :]
+                         <= n_max[:, None])
+    n = n + 1
+    lam_n = (lam.astype(np.float64)[spot] * n_rep[spot] / n
+             ).astype(np.float32)
+    h_n = rays[ray[spot]] * n[:, None]
+    kept = (lam_n >= lam_lo) & (lam_n <= lam_hi) & ~sg.is_absent(h_n)
+    asu, _ = sg.map_to_asu(h_n[kept], anomalous=False)
+    keys = pack_hkl(hkl_asu)
+    at = np.searchsorted(keys, pack_hkl(asu))
+    f2_sum = np.bincount(spot[kept], weights=f_true[at] ** 2,
+                         minlength=n_spots)
+    harmonics = np.bincount(spot[kept], minlength=n_spots)
+
+    xdet = rng.random(n_spots).astype(np.float32)
+    ydet = rng.random(n_spots).astype(np.float32)
+    scale = np.exp(0.3 * rng.normal(size=n_images)[image]
+                   + 0.2 * (xdet - 0.5))
+    i_true = scale * f2_sum
+    sig = 0.05 + 0.05 * i_true
+    cols = {"H": hkl[:, 0].astype(np.int32), "K": hkl[:, 1].astype(np.int32),
+            "L": hkl[:, 2].astype(np.int32),
+            "BATCH": (image + 1).astype(np.int32),
+            "I": (i_true + sig * rng.normal(size=n_spots)).astype(np.float32),
+            "SIGI": sig.astype(np.float32), "Wavelength": lam,
+            "XDET": 2048 * xdet, "YDET": 2048 * ydet,
+            "BG": rng.gamma(2.0, 5.0, n_spots).astype(np.float32),
+            "SIGBG": rng.uniform(1.0, 3.0, n_spots).astype(np.float32)}
+    types_ = {"H": "H", "K": "H", "L": "H", "BATCH": "B", "I": "J",
+              "SIGI": "Q", "Wavelength": "R", "XDET": "R", "YDET": "R",
+              "BG": "R", "SIGBG": "R"}
+    return (cols, types_), hkl_asu, f_true, harmonics
+
+
+# the stream CLI phase: a serial-crystallography merge of lysozyme-like
+# crystals (P 43 21 2) to 2.0 A, 2,500 crystals of 200 reflections each,
+# 300 steps (at 100 the merged F had not left the prior: CC 0.095 on the
+# card; 0.63 after 300 at 100k reflections on the CPU, where 100 gave 0.11)
+STREAM_REFL, STREAM_CRYSTALS, STREAM_STEPS = 500_000, 2_500, 300
+# the merged F's least correlation with the true F after those 300 steps
+STREAM_MIN_CC = 0.5
+STREAM_CELL, STREAM_SPACEGROUP, STREAM_DMIN = \
+    (79.1, 79.1, 38.4, 90.0, 90.0, 90.0), "P 43 21 2", 2.0
+STREAM_KEYS = "BATCH,s1x,s1y,s1z,ewald_offset"
+
+
+def synthetic_stream(seed, path, n_refl, n_crystals, cell, spacegroup, dmin):
+    """Write a CrystFEL stream made with numpy from the seed: each crystal
+    (chunk) at a random orientation and a photon energy of 9,500 eV +-
+    0.2 %, its n_refl / n_crystals reflections those nearest the Ewald
+    sphere among a strided eighth of the P 1 reflections to dmin; I = s
+    F^2 exp(-(e / 0.004)^2 / 2) + SIGI N(0, 1) with e the Ewald offset,
+    SIGI = 0.05 + 0.05 of the noiseless I, s = exp(0.3 N(0, 1)) per
+    crystal. Returns (the ASU's Miller indices, their true F)."""
+    from careless_tpu_torch.io.asu import pack_hkl
+    from careless_tpu_torch.xtal import SpaceGroup, UnitCell
+
+    rng = np.random.default_rng(seed)
+    sg = SpaceGroup.from_name(spacegroup)
+    uc = UnitCell(*cell)
+    hkl_asu = sg.generate_reciprocal_asu(uc, dmin)
+    f_true = np.sqrt(rng.exponential(1.0, len(hkl_asu)))
+    keys = pack_hkl(hkl_asu)
+    r = [int(math.ceil(x / dmin)) for x in cell[:3]]
+    cand = np.stack(np.meshgrid(*[np.arange(-m, m + 1) for m in r],
+                                indexing="ij"), -1).reshape(-1, 3)
+    cand = cand[(np.abs(cand).sum(1) > 0) & (uc.compute_d(cand) >= dmin)
+                & ~sg.is_absent(cand)]
+    asu, _ = sg.map_to_asu(cand, anomalous=False)
+    f_cand = f_true[np.searchsorted(keys, pack_hkl(asu))]
+    per = n_refl // n_crystals
+    b_star = np.linalg.inv(uc.orthogonalization_matrix())   # rows a*, b*, c*
+    lines = ["CrystFEL stream format 2.3", "Generated by chip_smoke.py",
+             "----- Begin unit cell -----",
+             "CrystFEL unit cell file version 1.0", "",
+             "lattice_type = tetragonal", "centering = P", "unique_axis = c",
+             *(f"{k} = {v:.2f} {u}" for k, v, u in zip(
+                 ("a", "b", "c", "al", "be", "ga"), cell,
+                 ("A", "A", "A", "deg", "deg", "deg"))),
+             "----- End unit cell -----"]
+    for c in range(n_crystals):
+        q = rng.normal(size=4)
+        w, x, y, z = q / np.linalg.norm(q)
+        rot = np.array([[1 - 2 * (y * y + z * z), 2 * (x * y - z * w),
+                         2 * (x * z + y * w)],
+                        [2 * (x * y + z * w), 1 - 2 * (x * x + z * z),
+                         2 * (y * z - x * w)],
+                        [2 * (x * z - y * w), 2 * (y * z + x * w),
+                         1 - 2 * (x * x + y * y)]])
+        amat = b_star @ rot.T
+        energy = 9500.0 * (1 + 0.002 * rng.normal())
+        k0 = energy / 12398.419843320026
+        sub = slice(int(rng.integers(0, 8)), None, 8)
+        svec = cand[sub] @ amat
+        e = np.linalg.norm(svec + [0.0, 0.0, k0], axis=1) - k0
+        near = np.argpartition(np.abs(e), per)[:per]
+        hkl = cand[sub][near]
+        i_true = (np.exp(0.3 * rng.normal()) * f_cand[sub][near] ** 2
+                  * np.exp(-0.5 * (e[near] / 0.004) ** 2))
+        sig = 0.05 + 0.05 * i_true
+        inten = i_true + sig * rng.normal(size=per)
+        fs, ss = rng.uniform(0, 2000, (2, per))
+        lines += ["----- Begin chunk -----", "Image filename: sim.h5",
+                  f"Event: //{c}", f"photon_energy_eV = {energy:.6f}",
+                  "--- Begin crystal",
+                  *(f"{n} = {v[0]:+.7f} {v[1]:+.7f} {v[2]:+.7f} nm^-1"
+                    for n, v in zip(("astar", "bstar", "cstar"), amat * 10)),
+                  "Reflections measured after indexing",
+                  "   h    k    l          I   sigma(I)       peak "
+                  "background  fs/px  ss/px panel"]
+        lines += [f"{h:4d} {k:4d} {l:4d} {i:10.2f} {s:10.2f} {p:10.2f} "
+                  f"{b:10.2f} {f:6.1f} {g:6.1f} p0"
+                  for (h, k, l), i, s, p, b, f, g in zip(
+                      hkl.tolist(), inten.tolist(), sig.tolist(),
+                      (2 * inten).tolist(), [10.0] * per, fs.tolist(),
+                      ss.tolist())]
+        lines += ["End of reflections", "--- End crystal",
+                  "----- End chunk -----"]
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    return hkl_asu, f_true
+
+
 def model_on(device, seed, n_obs, n_refl, n_images, d_meta, n_layers,
              flags=None, laue=False, times=None):
     """The model of the CLI's defaults with `flags` on top, built by
@@ -1743,8 +1948,8 @@ def laue_phase(torch, dev, gen, seed, peak_flops, peak_bw):
     pp = refl.inner.perm_plan
     check(pp is not None and pp.stream,
           "Laue slice: the chain plan's backward permute does not stream")
-    held, perm_row = laue_kernels(torch, dev, gen, inputs, peak_flops,
-                                  peak_bw)
+    held, perm_row = step_kernels(torch, dev, gen, inputs, "laue",
+                                  peak_flops, peak_bw, "laue")
     x = torch.randn(inputs.n_obs, generator=gen, device=dev)
     row = k5_case(torch, dev, gen, x, pp.ids2d, pp.bases, pp.window,
                   pp.block_rows, refl.inner.perm, peak_flops, peak_bw,
@@ -1763,15 +1968,19 @@ def laue_phase(torch, dev, gen, seed, peak_flops, peak_bw):
     return row, launches, held, perm_row
 
 
-def laue_kernels(torch, dev, gen, inputs, peak_flops, peak_bw):
-    """Each kernel the Laue step launches besides K5 (k5_case holds that),
-    held against its plain version at this run's shapes and timed, at
-    kernel_phase's tolerances: K1 on the inputs' metadata, K3 for the
-    step's N normals, and K2 at each (table, ids) pair of the step, on
-    random tables of the step's sizes by the plans' own ids. Returns each
+def step_kernels(torch, dev, gen, inputs, slice_, peak_flops, peak_bw,
+                 label):
+    """Each kernel a training step on the planned `inputs` launches besides
+    K5 (k5_case holds that), held against its plain version at this run's
+    shapes and timed, at kernel_phase's tolerances: K1 on the inputs'
+    metadata, K3 for the step's N normals, and K2 at each (table, ids)
+    pair of the step (GATHERS_PER_STEP[slice_] of them: the refl plan's,
+    through the chain permute on Laue, and the image plan's; a gather
+    that streams is K5's), on random
+    tables of the step's sizes by the plans' own ids. Returns each
     kernel's largest error, and K2's row at the image cotangent's random
-    permute (LAUE_PERM_PAIR), the step's one K2 launch whose table is
-    too large to stay in L2 beside its ids and output."""
+    permute (LAUE_PERM_PAIR), on Laue the step's one K2 launch whose table
+    is too large to stay in L2 beside its ids and output."""
     import careless_tpu_torch.ops.plan_gather as pg
 
     n, plans = inputs.n_obs, inputs.plans
@@ -1779,33 +1988,45 @@ def laue_kernels(torch, dev, gen, inputs, peak_flops, peak_bw):
     n_refl, n_images = refl.table_size, image.table_size
     m = (n + pg._CHUNK) // pg._CHUNK   # segment-sum chunks over N entries
     rows = trunk_rows(torch, gen, inputs.metadata, peak_flops, peak_bw)
-    pairs = {
-        "z_f by sigma (forward permute)": (n_refl, refl.sigma),
-        "permuted z_f by renumbered refl_id": (n_refl, refl.inner.ids),
-        "refl segment-sum boundaries": (m * pg._CHUNK, refl.inner.pos),
-        "refl chunk prefixes": (2 * m, refl.inner.cp_ids),
-        "cotangent by sigma_inv (backward permute)": (n_refl,
-                                                      refl.sigma_inv),
+    chain = isinstance(refl, pg.ChainGatherPlan)
+    inner = refl.inner if chain else refl
+    pairs = {}
+    if chain:
+        pairs["z_f by sigma (forward permute)"] = (n_refl, refl.sigma)
+    k5 = inner.perm_plan is not None and inner.perm_plan.stream
+    pairs.update({
+        "z_f by refl_id": (n_refl, None if inner.stream else inner.ids),
+        "refl cotangent by perm": (n, None if k5 else inner.perm),
+        "refl segment-sum boundaries": (m * pg._CHUNK, inner.pos),
+        "refl chunk prefixes": (2 * m, inner.cp_ids),
+    })
+    if chain:
+        pairs["cotangent by sigma_inv (backward permute)"] = (
+            n_refl, refl.sigma_inv)
+    pairs.update({
         "image scales by image_id": (n_images, image.ids),
         LAUE_PERM_PAIR: (n, image.perm),
         "image segment-sum boundaries": (m * pg._CHUNK, image.pos),
         "image chunk prefixes": (2 * m, image.cp_ids),
-    }
-    check(image.perm is not None, "Laue: the image ids are sorted; the "
+    })
+    pairs = {k: v for k, v in pairs.items() if v[1] is not None}
+    check(image.perm is not None, f"{label}: the image ids are sorted; the "
           "step has no image cotangent permute")
-    gathers = {label: gather_row(torch, gen, size, ids, label, peak_flops,
-                                 peak_bw, calls=LAUE_HOST_CALLS)
-               for label, (size, ids) in pairs.items() if ids is not None}
+    check(len(pairs) == GATHERS_PER_STEP[slice_], f"{label}: {len(pairs)} "
+          f"K2 pairs a step, expected {GATHERS_PER_STEP[slice_]}")
+    gathers = {k: gather_row(torch, gen, size, ids, k, peak_flops, peak_bw,
+                             calls=LAUE_HOST_CALLS)
+               for k, (size, ids) in pairs.items()}
     rows["philox_normal"] = philox_row(torch, dev, gen, n, 0, peak_flops,
                                        peak_bw)
-    print(f"laue kernels at {n} observations: " + json.dumps(
+    print(f"{label} kernels at {n} observations: " + json.dumps(
         {**rows, "gather": gathers}), flush=True)
     held = {k: v["max_abs_err"] for k, v in rows.items()}
     held["gather"] = max(v["max_abs_err"] for v in gathers.values())
     return held, dict(gathers[LAUE_PERM_PAIR], launch_site=(
-        f"{LAUE_PERM_PAIR}: one of the Laue step's "
-        f"{GATHERS_PER_STEP['laue']} K2 launches; launches counts all K2 "
-        "launches of the Laue run"))
+        f"{LAUE_PERM_PAIR}: one of the {label} step's "
+        f"{GATHERS_PER_STEP[slice_]} K2 launches; launches counts all K2 "
+        f"launches of the {label} run"))
 
 
 def scaler_slices_phase(torch, dev, seed, steps=STEPS_SCALER):
@@ -1872,10 +2093,9 @@ def cli_phase(torch, dev, seed):
     from pathlib import Path
 
     from careless_tpu_torch import kernels
-    from careless_tpu_torch.io.asu import pack_hkl
     from careless_tpu_torch.main import main as cli_main
     from careless_tpu_torch.xtal import (DataSet, SpaceGroup, UnitCell,
-                                         read_mtz, write_mtz)
+                                         write_mtz)
 
     t0 = time.perf_counter()
     (cols, types_), hkl_asu, f_true = synthetic_mtz(
@@ -1889,33 +2109,21 @@ def cli_phase(torch, dev, seed):
                           mtz_dtypes=types_), mtz)
         made = time.perf_counter() - t0
         torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         kernels.reset_launches()
         times = cli_main(["mono", CLI_KEYS, mtz, out,
                           f"--iterations={CLI_STEPS}",
                           "--disable-progress-bar", f"--seed={seed}"])
         torch.cuda.synchronize()
         launches = dict(kernels.LAUNCHES)
-        for suffix in ("_0.mtz", "_history.csv", "_predictions_0.mtz",
-                       "_scale.npz", "_structure_factor.npz"):
-            check(Path(out + suffix).exists(), f"cli: no {suffix} written")
-        merged = read_mtz(out + "_0.mtz")
-        preds = read_mtz(out + "_predictions_0.mtz")
-        with open(out + "_history.csv") as f:
-            lines = f.read().splitlines()[1:]
-        loss = [float(line.split(",")[1]) for line in lines]
-        npz = {s: sorted(np.load(out + s).files)
-               for s in ("_scale.npz", "_structure_factor.npz")}
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        merged, preds, loss, npz = read_cli_outputs(out)
     kept = len(preds)
     check(kept == CLI_OBS, f"cli: {kept} prediction rows for {CLI_OBS} "
           "observations")
     n_sum = float(merged["N"].astype(np.float64).sum())
     check(n_sum == kept, f"cli: N sums to {n_sum}, {kept} observations")
-    keys = pack_hkl(hkl_asu)
-    at = np.searchsorted(keys, pack_hkl(merged.get_hkls()))
-    check(np.array_equal(keys[np.minimum(at, len(keys) - 1)],
-                         pack_hkl(merged.get_hkls())),
-          "cli: a merged reflection is not in the generator's ASU")
-    cc = float(np.corrcoef(merged["F"], f_true[at])[0, 1])
+    cc = cc_true_f("cli", merged, hkl_asu, f_true)
     check(cc >= CLI_MIN_CC, f"cli: merged F correlates {cc:.4f} with the "
           f"true F, expected at least {CLI_MIN_CC}")
     check(len(loss) == CLI_STEPS and all(map(math.isfinite, loss))
@@ -1932,12 +2140,276 @@ def cli_phase(torch, dev, seed):
                npz_keys={k: len(v) for k, v in npz.items()},
                launches={k: v for k, v in launches.items() if v})
     print("cli: " + json.dumps(out), flush=True)
-    print(f"cli set-up s (kernel build if none, read, format, model, "
-          f"plans): {times['setup_s']}", flush=True)
-    print(f"cli steps/s: {times['steps'] / times['train_s']}", flush=True)
-    print(f"cli output s (results, predictions, writing): "
-          f"{times['output_s']}", flush=True)
+    print_cli_times("cli", times, peak_gb)
     return out
+
+
+def read_cli_outputs(out):
+    """(merged MTZ, prediction MTZ, loss per step, npz keys) of a CLI run
+    whose five files must all exist."""
+    from pathlib import Path
+
+    from careless_tpu_torch.xtal import read_mtz
+
+    for suffix in ("_0.mtz", "_history.csv", "_predictions_0.mtz",
+                   "_scale.npz", "_structure_factor.npz"):
+        check(Path(out + suffix).exists(), f"cli: no {out}{suffix} written")
+    with open(out + "_history.csv") as f:
+        loss = [float(line.split(",")[1])
+                for line in f.read().splitlines()[1:]]
+    npz = {s: sorted(np.load(out + s).files)
+           for s in ("_scale.npz", "_structure_factor.npz")}
+    return (read_mtz(out + "_0.mtz"), read_mtz(out + "_predictions_0.mtz"),
+            loss, npz)
+
+
+def cc_true_f(label, merged, hkl_asu, f_true):
+    """The merged F's correlation with the generator's true F, every merged
+    reflection checked to be one of the generator's ASU."""
+    from careless_tpu_torch.io.asu import pack_hkl
+
+    keys = pack_hkl(hkl_asu)
+    got = pack_hkl(merged.get_hkls())
+    at = np.searchsorted(keys, got)
+    check(np.array_equal(keys[np.minimum(at, len(keys) - 1)], got),
+          f"{label}: a merged reflection is not in the generator's ASU")
+    return float(np.corrcoef(merged["F"], f_true[at])[0, 1])
+
+
+def print_cli_times(label, times, peak_gb):
+    print(f"{label} set-up s: {times['setup_s']} (kernel build if none "
+          f"{times['build_s']}, read {times['read_s']}, format "
+          f"{times['format_s']}, model {times['model_s']}, plans "
+          f"{times['plans_s']})", flush=True)
+    print(f"{label} steps/s: {times['steps'] / times['train_s']}",
+          flush=True)
+    print(f"{label} output s (results, predictions, writing): "
+          f"{times['output_s']}", flush=True)
+    print(f"{label} peak GB: {peak_gb}", flush=True)
+
+
+def poly_cli_phase(torch, dev, gen, seed, peak_flops, peak_bw):
+    """The Laue merge through the port's CLI, on the card: a seeded Laue
+    MTZ (synthetic_laue_mtz: POLY_SPOTS spots on POLY_IMAGES images in
+    P 63, PYP's cell, to 1.6 A, band 0.95-1.25 A, 10 metadata keys;
+    written by the port's writer under build/), then
+    careless_tpu_torch.main.main(["poly", POLY_KEYS, file, out,
+    "--iterations=300"]) in this process (d = w = 10, 20 layers; the
+    expanded table passes 2,097,152 rows, so the chain permute's backward
+    streams through K5). Checks: the five files exist and read back; the
+    merged F's correlation with the true F is at least POLY_MIN_CC; N sums
+    to the expanded rows the formatter keeps (the generator's count); one
+    prediction row per harmonic group (one per spot); the loss finite and
+    falling; and, counted from 0 just before the call, K1 once a step each
+    way, K2 GATHERS_PER_STEP["laue"] a step, K3 and K5 once a step, no K4,
+    plus the prediction pass's two K1-fwd and two image-scale K2 (the
+    scaler applied once for each of the model's two moments; the group
+    sums are the run plan's shifted adds, no kernel). Then the kernels of
+    the path, held against their plain versions at its shapes (step_kernels and
+    k5_case on the planned inputs that the same formatter and data
+    manager calls give), and the "on" merge of a time-resolved pair:
+    POLY_WARM_STEPS steps on the same file from --scale-file <first
+    run>_scale.npz --freeze-scales, whose scale file must equal the first
+    run's bit for bit and whose loss must be finite. Returns the launches
+    of the first run and each held kernel's largest error."""
+    import tempfile
+    from pathlib import Path
+
+    from careless_tpu_torch import kernels
+    from careless_tpu_torch.io.formatter import LaueFormatter
+    from careless_tpu_torch.io.manager import DataManager
+    from careless_tpu_torch.main import main as cli_main
+    from careless_tpu_torch.parser import parser as cli_parser
+    from careless_tpu_torch.xtal import (DataSet, SpaceGroup, UnitCell,
+                                         write_mtz)
+
+    t0 = time.perf_counter()
+    (cols, types_), hkl_asu, f_true, harmonics = synthetic_laue_mtz(
+        seed, POLY_SPOTS, POLY_IMAGES, POLY_CELL, POLY_SPACEGROUP,
+        POLY_DMIN, POLY_BAND)
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        mtz, out = str(Path(tmp) / "laue.mtz"), str(Path(tmp) / "off")
+        write_mtz(DataSet(cols, cell=UnitCell(*POLY_CELL),
+                          spacegroup=SpaceGroup.from_name(POLY_SPACEGROUP),
+                          mtz_dtypes=types_), mtz)
+        del cols
+        made = time.perf_counter() - t0
+        argv = ["poly", POLY_KEYS, mtz, out, f"--iterations={POLY_STEPS}",
+                "--disable-progress-bar", f"--seed={seed}"]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        times = cli_main(argv)
+        torch.cuda.synchronize()
+        launches = dict(kernels.LAUNCHES)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        merged, preds, loss, npz = read_cli_outputs(out)
+
+        # the kernels at this path's shapes, on the inputs main() trains on
+        args = cli_parser.parse_args(argv)
+        inputs, rac = LaueFormatter.from_parser(args).format_files(
+            [mtz], device=dev)
+        planned = DataManager(inputs, rac, parser=args,
+                              device=dev).planned_inputs().inputs
+        del inputs
+        held, _ = step_kernels(torch, dev, gen, planned, "laue", peak_flops,
+                               peak_bw, "poly cli")
+        pp = planned.plans.refl.inner.perm_plan
+        check(pp is not None and pp.stream, "poly cli: the chain plan's "
+              "backward permute does not stream")
+        x = torch.randn(planned.n_obs, generator=gen, device=dev)
+        held["gather_stream"] = k5_case(
+            torch, dev, gen, x, pp.ids2d, pp.bases, pp.window, pp.block_rows,
+            planned.plans.refl.inner.perm, peak_flops, peak_bw,
+            f"poly cli chain permute, {planned.n_obs} rows",
+            calls=LAUE_HOST_CALLS)["max_abs_err"]
+        del x, planned
+
+        warm = str(Path(tmp) / "on")
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        warm_times = cli_main(
+            ["poly", POLY_KEYS, mtz, warm, f"--iterations={POLY_WARM_STEPS}",
+             "--disable-progress-bar", f"--seed={seed + 1}",
+             f"--scale-file={out}_scale.npz", "--freeze-scales"])
+        torch.cuda.synchronize()
+        warm_launches = dict(kernels.LAUNCHES)
+        warm_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        _, warm_preds, warm_loss, _ = read_cli_outputs(warm)
+        first, second = (np.load(f"{o}_scale.npz") for o in (out, warm))
+        check(first.files == second.files and all(
+            first[k].tobytes() == second[k].tobytes() for k in first.files),
+            "poly cli: --freeze-scales did not keep the scale file bit for "
+            "bit")
+    kept = int(harmonics.sum())
+    check(len(preds) == POLY_SPOTS == len(warm_preds),
+          f"poly cli: {len(preds)} prediction rows for {POLY_SPOTS} "
+          "harmonic groups")
+    n_sum = float(merged["N"].astype(np.float64).sum())
+    check(n_sum == kept, f"poly cli: N sums to {n_sum}, the formatter "
+          f"keeps {kept} expanded rows")
+    cc = cc_true_f("poly cli", merged, hkl_asu, f_true)
+    check(cc >= POLY_MIN_CC, f"poly cli: merged F correlates {cc:.4f} with "
+          f"the true F, expected at least {POLY_MIN_CC}")
+    check(len(loss) == POLY_STEPS and all(map(math.isfinite, loss))
+          and loss[-1] < loss[0], f"poly cli: loss not finite and falling: "
+          f"{loss[:2]} ... {loss[-2:]}")
+    check(len(warm_loss) == POLY_WARM_STEPS
+          and all(map(math.isfinite, warm_loss)),
+          f"poly cli warm start: loss not finite: {warm_loss[:3]} ...")
+    per_step = {"gather": GATHERS_PER_STEP["laue"], "philox_normal": 1,
+                "fused_ll_fwd": 0, "fused_ll_bwd": 0, "gather_stream": 1}
+    for label, counts, steps in (("poly cli", launches, POLY_STEPS),
+                                 ("poly cli warm start", warm_launches,
+                                  POLY_WARM_STEPS)):
+        check_launches(counts, label, {
+            **{k: (steps + 2 if k == "trunk_fwd" else v)
+               for k, v in trunk_counts(steps, True, False).items()},
+            **{k: v * steps + 2 * (k == "gather")
+               for k, v in per_step.items()}})
+    multi = float((harmonics >= 2).mean())
+    check(multi > 0, "poly cli: no harmonic group holds two harmonics")
+    result = dict(spots=POLY_SPOTS, expanded_rows=kept,
+                  multi_harmonic_group_share=multi,
+                  reflections=len(merged), cc_true_f=cc,
+                  mtz_written_s=made, loss_first_last=[loss[0], loss[-1]],
+                  warm_loss_first_last=[warm_loss[0], warm_loss[-1]],
+                  npz_keys={k: len(v) for k, v in npz.items()},
+                  launches={k: v for k, v in launches.items() if v},
+                  warm_launches={k: v for k, v in warm_launches.items() if v},
+                  held_max_abs_err=held)
+    print("poly cli: " + json.dumps(result), flush=True)
+    print_cli_times("poly cli", times, peak_gb)
+    print_cli_times("poly cli warm start", warm_times, warm_peak_gb)
+    return launches, held
+
+
+def stream_cli_phase(torch, dev, gen, seed, peak_flops, peak_bw):
+    """A serial-crystallography merge from a CrystFEL stream through the
+    port's CLI, on the card: a seeded stream (synthetic_stream:
+    STREAM_REFL reflections of STREAM_CRYSTALS crystals in P 43 21 2 to
+    2.0 A, written under build/), then careless_tpu_torch.main.main(
+    ["mono", STREAM_KEYS, file, out, "--spacegroups=P 43 21 2",
+    "--iterations=300"]) in this process: the stream read by the port's
+    pure-Python reader, d = w = 5 (the five stream metadata keys), 20
+    layers. Checks: the five files; one prediction row per reflection; N
+    sums to them; the merged F's correlation with the true F at least
+    STREAM_MIN_CC; the loss finite and falling; K1 once a step each way
+    (plus the prediction pass's two K1-fwd), K2 GATHERS_PER_STEP["default"]
+    a step (plus two), K3 once a step, no K4 or K5. Then the kernels of
+    the path, held against their plain versions at its shapes
+    (step_kernels on the planned inputs that the same formatter and data
+    manager calls give). Prints the read (parse) seconds among the set-up
+    parts. Returns the launches and each held kernel's largest error."""
+    import tempfile
+    from pathlib import Path
+
+    from careless_tpu_torch import kernels
+    from careless_tpu_torch.io.formatter import MonoFormatter
+    from careless_tpu_torch.io.manager import DataManager
+    from careless_tpu_torch.main import main as cli_main
+    from careless_tpu_torch.parser import parser as cli_parser
+
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        stream, out = str(Path(tmp) / "sim.stream"), str(Path(tmp) / "xfel")
+        t0 = time.perf_counter()
+        hkl_asu, f_true = synthetic_stream(
+            seed, stream, STREAM_REFL, STREAM_CRYSTALS, STREAM_CELL,
+            STREAM_SPACEGROUP, STREAM_DMIN)
+        made = time.perf_counter() - t0
+        argv = ["mono", STREAM_KEYS, stream, out,
+                f"--spacegroups={STREAM_SPACEGROUP}",
+                f"--iterations={STREAM_STEPS}", "--disable-progress-bar",
+                f"--seed={seed}"]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        times = cli_main(argv)
+        torch.cuda.synchronize()
+        launches = dict(kernels.LAUNCHES)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        merged, preds, loss, npz = read_cli_outputs(out)
+
+        # the kernels at this path's shapes, on the inputs main() trains on
+        args = cli_parser.parse_args(argv)
+        inputs, rac = MonoFormatter.from_parser(args).format_files(
+            [stream], device=dev)
+        planned = DataManager(inputs, rac, parser=args,
+                              device=dev).planned_inputs().inputs
+        del inputs
+        held, _ = step_kernels(torch, dev, gen, planned, "default",
+                               peak_flops, peak_bw, "stream cli")
+        del planned
+    check(len(preds) == STREAM_REFL, f"stream cli: {len(preds)} prediction "
+          f"rows for {STREAM_REFL} reflections")
+    n_sum = float(merged["N"].astype(np.float64).sum())
+    check(n_sum == STREAM_REFL, f"stream cli: N sums to {n_sum}")
+    cc = cc_true_f("stream cli", merged, hkl_asu, f_true)
+    check(cc >= STREAM_MIN_CC, f"stream cli: merged F correlates {cc:.4f} "
+          f"with the true F, expected at least {STREAM_MIN_CC}")
+    check(len(loss) == STREAM_STEPS and all(map(math.isfinite, loss))
+          and loss[-1] < loss[0], f"stream cli: loss not finite and "
+          f"falling: {loss[:2]} ... {loss[-2:]}")
+    check_launches(launches, "stream cli", {
+        **{k: (STREAM_STEPS + 2 if k == "trunk_fwd" else v)
+           for k, v in trunk_counts(STREAM_STEPS, True, False).items()},
+        "gather": GATHERS_PER_STEP["default"] * STREAM_STEPS + 2,
+        "philox_normal": STREAM_STEPS, "fused_ll_fwd": 0, "fused_ll_bwd": 0,
+        "gather_stream": 0})
+    result = dict(reflections_in=STREAM_REFL, crystals=STREAM_CRYSTALS,
+                  merged_reflections=len(merged), cc_true_f=cc,
+                  stream_written_s=made, read_s=times["read_s"],
+                  loss_first_last=[loss[0], loss[-1]],
+                  npz_keys={k: len(v) for k, v in npz.items()},
+                  launches={k: v for k, v in launches.items() if v},
+                  held_max_abs_err=held)
+    print("stream cli: " + json.dumps(result), flush=True)
+    print_cli_times("stream cli", times, peak_gb)
+    return launches, held
 
 
 def trunk_counts(steps, head, bf16, wide=False):
@@ -2065,11 +2537,17 @@ def main():
     scaler_launches = scaler_slices_phase(torch, dev, args.seed)
     wide_launches = wide_slice_phase(torch, dev, args.seed)
     cli_phase(torch, dev, args.seed)
+    held_at = {label: phase(torch, dev, gen, args.seed, peak_flops,
+                            peak_bw)[1]
+               for label, phase in (("poly_cli", poly_cli_phase),
+                                    ("stream_cli", stream_cli_phase))}
 
-    rows["gather_stream"], launches_laue, held, rows[LAUE_PERM_ROW] = \
-        laue_phase(torch, dev, gen, args.seed, peak_flops, peak_bw)
-    for k, err in held.items():
-        rows[k]["laue_max_abs_err"] = err
+    rows["gather_stream"], launches_laue, held_at["laue"], \
+        rows[LAUE_PERM_ROW] = laue_phase(torch, dev, gen, args.seed,
+                                         peak_flops, peak_bw)
+    for label, held in held_at.items():
+        for k, err in held.items():
+            rows[k][f"{label}_max_abs_err"] = err
     again = launch_phase(torch, dev, gen, steps=False)
     rows["gather"]["launch_path_host_us_after_profiling"] = again
     for kname, key in K4_HOST.items():

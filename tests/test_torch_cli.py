@@ -10,27 +10,41 @@ the same npz keys. Then the JAX run's trained parameters, read back from
 its npz files and carried into the port (utils/params.py), give through
 the port's get_results (with the anomalous unstack) and get_predictions
 the JAX run's merged and prediction MTZs' values at rtol 1e-5 (f32
-moments computed by two libraries). Also: the parsed mono namespace's
-defaults equal the JAX parser's; flags the port does not run raise
+moments computed by two libraries). The same for `poly` (one JAX and one
+port run of `poly ... --iterations=3` on a seeded Laue MTZ with groups of
+two or more harmonics, tests/test_torch_laue_host.py's): the same files,
+the merged rows and one prediction row per harmonic group, and from the
+JAX run's parameters the merged F and the prediction table row for row at
+rtol 1e-5. Warm start: files written by either package load into the
+other's parameter tree bit for bit; --scale-file with --freeze-scales
+writes the scale file back bit for bit; a missing key or a wrong shape
+raises the JAX package's error. Also: the parsed mono namespace's defaults
+equal the JAX parser's; flags the port does not run raise
 NotImplementedError naming themselves; the history CSV is pandas' to_csv.
 """
 import os
 
+import jax
 import numpy as np
 import pandas as pd
 import pytest
+import torch
 
 import chip_smoke
 from careless_tpu import xtal as jx
 from careless_tpu.main import main as jax_main
 from careless_tpu.parser import parser as jax_parser
-from careless_tpu_torch.io.formatter import MonoFormatter
+from careless_tpu.utils.checkpoint import load_params as jax_load_params
+from careless_tpu_torch.io.formatter import LaueFormatter, MonoFormatter
 from careless_tpu_torch.io.manager import DataManager
 from careless_tpu_torch.main import main as port_main
 from careless_tpu_torch.main import run_careless, write_history
+from careless_tpu_torch.models.merging.variational import flatten_params
 from careless_tpu_torch.parser import parser as port_parser
+from careless_tpu_torch.utils.checkpoint import load_params
 from careless_tpu_torch.utils.params import params_from_jax
 from careless_tpu_torch.xtal import read_mtz
+from tests.test_torch_laue_host import write_laue_mtz
 
 CELL = (40.0, 40.0, 60.0, 90.0, 90.0, 120.0)
 KEYS = "dHKL,image_id,XDET"
@@ -38,6 +52,10 @@ FLAGS = ["--iterations=3", "--anomalous", "--mlp-layers=2",
          "--disable-progress-bar"]
 SUFFIXES = ("_0.mtz", "_history.csv", "_predictions_0.mtz", "_scale.npz",
             "_structure_factor.npz")
+POLY_KEYS = "dHKL,image_id,Wavelength,XDET,YDET"
+POLY_FLAGS = ["--iterations=3", "--mlp-layers=2", "--disable-progress-bar"]
+PARTS = ("scale", "structure_factor")
+TREE = {"scale": "scaler", "structure_factor": "posterior"}
 
 
 @pytest.fixture(scope="module")
@@ -52,6 +70,16 @@ def runs(tmp_path_factory):
     jax_main(["mono", KEYS, mtz, str(d / "jax"), *FLAGS])
     port_main(["mono", KEYS, mtz, str(d / "port"), *FLAGS, "--disable-gpu"])
     return mtz, str(d / "jax"), str(d / "port")
+
+
+@pytest.fixture(scope="module")
+def poly_runs(tmp_path_factory):
+    d = tmp_path_factory.mktemp("poly")
+    mtz = write_laue_mtz(d / "laue.mtz", 3)
+    jax_main(["poly", POLY_KEYS, mtz, str(d / "jax"), *POLY_FLAGS])
+    times = port_main(["poly", POLY_KEYS, mtz, str(d / "port"), *POLY_FLAGS,
+                       "--disable-gpu"])
+    return mtz, str(d / "jax"), str(d / "port"), times
 
 
 def _unflatten(npz) -> dict:
@@ -72,8 +100,7 @@ def _unflatten(npz) -> dict:
     return lists(tree)
 
 
-def test_both_clis_write_the_same_files(runs):
-    _, jax_out, port_out = runs
+def _same_file_sets(jax_out, port_out, n_steps=3):
     for suffix in SUFFIXES:
         assert os.path.exists(jax_out + suffix)
         assert os.path.exists(port_out + suffix), suffix
@@ -87,7 +114,7 @@ def test_both_clis_write_the_same_files(runs):
     for c in ("asu_id", "image_id", "file_id", "test", "Iobs", "SigIobs"):
         assert np.array_equal(t[c], j[c]), c
     t, j = (pd.read_csv(x + "_history.csv") for x in (port_out, jax_out))
-    assert list(t.columns) == list(j.columns) and len(t) == len(j) == 3
+    assert list(t.columns) == list(j.columns) and len(t) == len(j) == n_steps
     assert np.isfinite(t.to_numpy()).all()
     for suffix in ("_scale.npz", "_structure_factor.npz"):
         t, j = np.load(port_out + suffix), np.load(jax_out + suffix)
@@ -96,11 +123,33 @@ def test_both_clis_write_the_same_files(runs):
             assert t[k].shape == j[k].shape and t[k].dtype == j[k].dtype
 
 
-def test_outputs_from_the_jax_parameters_match(runs):
-    mtz, jax_out, _ = runs
-    args = port_parser.parse_args(["mono", KEYS, mtz, "out", *FLAGS])
-    inputs, rac = MonoFormatter.from_parser(args).format_files(
-        [mtz], device="cpu")
+def test_both_clis_write_the_same_files(runs):
+    _, jax_out, port_out = runs
+    _same_file_sets(jax_out, port_out)
+
+
+def test_both_poly_clis_write_the_same_files(poly_runs):
+    """One prediction row per harmonic group, in group order; N counts
+    every expanded row."""
+    mtz, jax_out, port_out, times = poly_runs
+    _same_file_sets(jax_out, port_out)
+    args = port_parser.parse_args(["poly", POLY_KEYS, mtz, "out",
+                                   *POLY_FLAGS])
+    inputs, _ = LaueFormatter.from_parser(args).format_files([mtz],
+                                                             device="cpu")
+    hid = inputs.harmonic_id.numpy()
+    preds = read_mtz(port_out + "_predictions_0.mtz")
+    assert len(preds) == hid.max() + 1 < inputs.n_obs
+    assert float(read_mtz(port_out + "_0.mtz")["N"].sum()) == inputs.n_obs
+    assert times["steps"] == 3 and all(
+        times[k] >= 0 for k in ("build_s", "read_s", "format_s", "model_s",
+                                "plans_s", "train_s", "output_s"))
+
+
+def _outputs_from_jax_parameters(formatter, argv, mtz, jax_out):
+    args = port_parser.parse_args(argv)
+    inputs, rac = formatter.from_parser(args).format_files([mtz],
+                                                           device="cpu")
     dm = DataManager(inputs, rac, parser=args, device="cpu")
     model, params, _ = dm.build_model()
     params["posterior"] = params_from_jax(
@@ -112,12 +161,26 @@ def test_outputs_from_the_jax_parameters_match(runs):
     (preds,) = dm.get_predictions(model, params)
     for got, path in ((merged, "_0.mtz"), (preds, "_predictions_0.mtz")):
         want = read_mtz(jax_out + path)
-        assert got.columns == want.columns
-        assert any(c.endswith("(-)") for c in got.columns) == (path ==
-                                                                "_0.mtz")
+        assert got.columns == want.columns and len(got) == len(want)
         for c in got.columns:
             np.testing.assert_allclose(got[c].astype(np.float32), want[c],
                                        rtol=1e-5, atol=0, err_msg=c)
+    return merged, preds
+
+
+def test_outputs_from_the_jax_parameters_match(runs):
+    mtz, jax_out, _ = runs
+    merged, preds = _outputs_from_jax_parameters(
+        MonoFormatter, ["mono", KEYS, mtz, "out", *FLAGS], mtz, jax_out)
+    assert any(c.endswith("(-)") for c in merged.columns)
+    assert not any(c.endswith("(-)") for c in preds.columns)
+
+
+def test_poly_outputs_from_the_jax_parameters_match(poly_runs):
+    mtz, jax_out, _, _ = poly_runs
+    _outputs_from_jax_parameters(
+        LaueFormatter, ["poly", POLY_KEYS, mtz, "out", *POLY_FLAGS], mtz,
+        jax_out)
 
 
 def test_mono_defaults_parse_as_the_jax_parser(runs):
@@ -134,7 +197,6 @@ def test_mono_defaults_parse_as_the_jax_parser(runs):
     "--run-eagerly", "--platform=cpu", "--rng-impl=rbg", "--jax-debug",
     "--shard-axis=mc", "--num-devices=2", "--profile-dir=p",
     "--save-data-manager", "--test-fraction=0.1", "--merge-half-datasets",
-    "--scale-file=s.npz", "--structure-factor-file=f.npz",
     "--resume-from=c.npz", "--checkpoint-every=5"])
 def test_unported_flags_raise_naming_themselves(runs, flag):
     args = port_parser.parse_args(["mono", KEYS, runs[0], "out", flag])
@@ -142,10 +204,87 @@ def test_unported_flags_raise_naming_themselves(runs, flag):
         run_careless(args, device="cpu")
 
 
-def test_poly_raises_and_devices_lists(runs, capsys):
-    args = port_parser.parse_args(["poly", KEYS, runs[0], "out"])
-    with pytest.raises(NotImplementedError, match="poly"):
-        run_careless(args, device="cpu")
+@pytest.mark.parametrize("part", PARTS)
+def test_warm_start_loads_jax_files(runs, part):
+    """A JAX-written _scale.npz / _structure_factor.npz loads into the
+    port's tree of the same run's model, leaf for leaf bit for bit."""
+    mtz, jax_out, _ = runs
+    args = port_parser.parse_args(["mono", KEYS, mtz, "out", *FLAGS])
+    inputs, rac = MonoFormatter.from_parser(args).format_files(
+        [mtz], device="cpu")
+    _, params, _ = DataManager(inputs, rac, parser=args,
+                               device="cpu").build_model()
+    path = f"{jax_out}_{part}.npz"
+    loaded = load_params(path, params[TREE[part]])
+    stored = np.load(path)
+    flat = flatten_params(loaded)
+    assert [k for k, _ in flat] == sorted(stored.files)
+    for k, v in flat:
+        assert v.dtype == torch.float32
+        assert np.array_equal(v.numpy(), stored[k]), k
+
+
+@pytest.mark.parametrize("part", PARTS)
+def test_port_files_load_into_jax(runs, part):
+    _, jax_out, port_out = runs
+    like = _unflatten(np.load(f"{jax_out}_{part}.npz"))
+    loaded = jax_load_params(f"{port_out}_{part}", like)
+    stored = np.load(f"{port_out}_{part}.npz")
+    flat = jax.tree_util.tree_flatten_with_path(loaded)[0]
+    assert len(flat) == len(stored.files)
+    for path, v in flat:
+        key = "/".join(str(getattr(p, "key", getattr(p, "idx", p)))
+                       for p in path)
+        assert np.array_equal(np.asarray(v), stored[key]), key
+
+
+def test_freeze_scales_keeps_the_scale_file(runs, tmp_path):
+    """The "on" merge of a time-resolved pair: the scales of a first merge
+    loaded and frozen, its structure factors as the start; the scale file
+    written back is the loaded one bit for bit."""
+    mtz, _, port_out = runs
+    out = str(tmp_path / "warm")
+    port_main(["mono", KEYS, mtz, out, *FLAGS, "--disable-gpu",
+               f"--scale-file={port_out}_scale.npz", "--freeze-scales",
+               f"--structure-factor-file={port_out}_structure_factor"])
+    before, after = (np.load(f"{x}_scale.npz") for x in (port_out, out))
+    assert before.files == after.files
+    for k in before.files:
+        assert before[k].tobytes() == after[k].tobytes(), k
+    moved = np.load(f"{out}_structure_factor.npz")
+    start = np.load(f"{port_out}_structure_factor.npz")
+    assert any(not np.array_equal(moved[k], start[k]) for k in start.files)
+    assert np.isfinite(pd.read_csv(out + "_history.csv").to_numpy()).all()
+
+
+@pytest.mark.parametrize("fault", ["missing", "shape"])
+def test_load_params_errors_as_jax(runs, tmp_path, fault):
+    _, jax_out, _ = runs
+    stored = dict(np.load(jax_out + "_scale.npz"))
+    like_np = _unflatten(np.load(jax_out + "_scale.npz"))
+    like = params_from_jax(like_np, "cpu")
+    key = sorted(stored)[1]
+    if fault == "missing":
+        del stored[key]
+    else:
+        stored[key] = np.zeros(stored[key].shape + (2,), np.float32)
+    path = str(tmp_path / "bad.npz")
+    np.savez(path, **stored)
+    kind = KeyError if fault == "missing" else ValueError
+    with pytest.raises(kind) as got:
+        load_params(path, like)
+    with pytest.raises(kind) as want:
+        jax_load_params(path, like_np)
+    assert str(got.value) == str(want.value)
+    assert key in str(got.value)
+
+
+def test_poly_runs_and_devices_lists(poly_runs, capsys):
+    """poly runs through the port's CLI (poly_runs), and `devices` lists
+    the CPU."""
+    port_out = poly_runs[2]
+    for suffix in SUFFIXES:
+        assert os.path.exists(port_out + suffix), suffix
     assert run_careless(port_parser.parse_args(["devices"])) is None
     assert " - cpu" in capsys.readouterr().out
 
@@ -163,11 +302,11 @@ def test_history_csv_is_pandas_to_csv(tmp_path):
 def test_prediction_moments_match_jax(laue):
     """scale_mean_stddev and prediction_mean_stddev (variational.py:602-630)
     against the JAX model's on the same parameters, mono and Laue (the
-    harmonic convolution through plan_convolve). Mono: rtol 1e-5 with atol
-    1e-6 of each output's largest entry (f32 sums and the MLP in another
-    order). Laue: both convolve by differencing f32 cumsums (the JAX
-    package one flat cumsum, the port two levels: ROADMAP Queue 3), so both
-    packages' convolved moments are held against an f64 sum over each
+    harmonic convolution). Mono: rtol 1e-5 with atol 1e-6 of each
+    output's largest entry (f32 sums and the MLP in another order). Laue:
+    the JAX package convolves through its plan by differencing f32 cumsums,
+    the port by the run plan's shifted f32 adds, so both packages'
+    convolved moments are held against an f64 sum over each
     harmonic group of the port's per-row moments, within 1e-5 of it plus
     2^-22 of the sum of the convolved values' magnitudes (a bound on a
     cumsum's rounding), the port no farther from it than the JAX package.

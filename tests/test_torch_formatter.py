@@ -14,6 +14,7 @@ import chip_smoke
 from careless_tpu import xtal as jx
 from careless_tpu.io.formatter import MonoFormatter as JaxMono
 from careless_tpu.parser import parser as jax_parser
+from careless_tpu_torch.io.formatter import LaueFormatter as PortLaue
 from careless_tpu_torch.io.formatter import MonoFormatter as PortMono
 from careless_tpu_torch.io.formatter import _ngroup
 from careless_tpu_torch.parser import parser as port_parser
@@ -71,15 +72,20 @@ def test_mono_formatter_matches_the_jax_package(mtz_files, case):
         assert t.spacegroup.xyz_ops() == j.spacegroup.xyz_ops()
 
 
-def test_ngroup_numbers_groups_as_pandas():
+@pytest.mark.parametrize("span", [400, 2 ** 62])
+def test_ngroup_numbers_groups_as_pandas(span):
+    """Keys packed into one int64 (span 400) and keys too wide to pack,
+    sorted as rows (span 2^62)."""
     rng = np.random.default_rng(0)
     file_id = rng.integers(0, 3, 5000)
-    image_id = rng.integers(-5, 400, 5000)
+    image_id = rng.integers(-5, span - 5, 5000)
     want = pd.DataFrame({"f": file_id, "i": image_id}).groupby(
         ["f", "i"]).ngroup().to_numpy()
     assert np.array_equal(_ngroup(file_id, image_id), want)
 
 
 def test_stream_input_is_refused():
-    with pytest.raises(NotImplementedError, match=r"\.stream"):
-        PortMono().format_files(["x.stream"], device="cpu")
+    """poly refuses .stream input before reading it, with the JAX
+    package's message (mono reads it: tests/test_torch_stream_xds.py)."""
+    with pytest.raises(ValueError, match=r"does not support \.stream"):
+        PortLaue().format_files(["x.stream"], device="cpu")

@@ -77,6 +77,7 @@ print(json.dumps(sorted(sys.modules)))
                 "models.scaling.nn", "models.scaling.image", "main",
                 "parser", "io.formatter", "io.asu", "xtal.mtz",
                 "xtal.dataset", "xtal.symmetry", "utils.checkpoint",
-                "utils.positional_encoding"):
+                "utils.positional_encoding", "utils.laue", "xtal.stream",
+                "xtal.xds"):
         assert "careless_tpu_torch." + mod in loaded
     assert [m for m in loaded if forbidden(m)] == []

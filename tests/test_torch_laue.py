@@ -326,6 +326,34 @@ def test_run_and_convolve_elbo_agree(lowered_cap):
         assert (a - b).abs().max() <= 1e-4 * b.abs().max()
 
 
+@pytest.mark.parametrize("shape", [(), (3,)])
+def test_convolve_on_the_run_plan_sums_each_group(shape):
+    """ConvolvedLikelihood.convolve with a run plan (the outputs' harmonic
+    sums): bucket g holds the sum of group g's rows, the other buckets 0,
+    for (N,) and (S, N) values, within 2^-20 of the largest group sum of
+    magnitudes of an f64 sum over the same rows (f32 adds of at most
+    MAX_RUN terms); its gradient is the gather of the cotangent by
+    harmonic_id, exactly."""
+    arrays, _, _ = _problem(16)
+    inputs = _torch_inputs(arrays)
+    lik = laue.NormalLikelihood().build({}, inputs)
+    assert lik.run_plan is not None and lik.run_plan.max_run >= 2
+    rng = np.random.default_rng(17)
+    v = torch.tensor(rng.standard_normal(shape + (N,)).astype(np.float32),
+                     requires_grad=True)
+    got = lik.convolve(v)
+    hid = inputs.harmonic_id.long()
+
+    def exact(x):
+        return torch.zeros(x.shape[:-1] + (N,), dtype=torch.float64
+                           ).index_add_(-1, hid, x.detach().double())
+    bound = 2.0 ** -20 * exact(v.abs()).max().item()
+    assert (got.detach().double() - exact(v)).abs().max().item() <= bound
+    ct = torch.tensor(rng.standard_normal(shape + (N,)).astype(np.float32))
+    (g,) = torch.autograd.grad(got, v, ct)
+    assert torch.equal(g, ct[..., hid])
+
+
 def _parser(**kw):
     import types
     return types.SimpleNamespace(**{**MONO_DEFAULTS, **kw})
