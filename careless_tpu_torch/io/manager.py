@@ -16,7 +16,9 @@ redundancy N over every row, Laue's expanded harmonics included, the
 posterior's parameters; reflections with N > 0) and get_predictions
 (per-observation tables; for Laue one row per harmonic group), with
 _unstack_anomalous's (+)/(-) columns in PHENIX order, as numpy DataSets
-(no pandas). Training and the outputs run on the planned copy of the
+(no pandas). The splitters (manager.py:206-263: by reflection or by image,
+Laue groups kept whole, renumbered and repacked) draw from numpy's
+default_rng(seed), so a seed holds out the JAX package's rows. Training and the outputs run on the planned copy of the
 inputs (planned_inputs: mono rows sorted by refl_id, Laue rows in the
 harmonic-chain layout), whose maps put the outputs back in row and group
 order.
@@ -56,6 +58,10 @@ _PRED_DTYPES = {"H": "H", "K": "H", "L": "H", "asu_id": "I", "image_id": "I",
                 "Ipred": "J", "SigIpred": "Q", "Scale": "J", "SigScale": "Q"}
 
 
+# planned copies a DataManager keeps (planned_inputs)
+_PLANS_KEPT = 2
+
+
 class Planned(NamedTuple):
     """The planned copy of an Inputs and its maps back."""
     inputs: Inputs                  # reordered rows with plans
@@ -78,7 +84,9 @@ class DataManager:
         self.inputs = inputs.to(self.device)
         self.asu_collection = asu_collection
         self.parser = parser
-        self._planned = None   # (inputs, Planned)
+        self.rng = np.random.default_rng(
+            getattr(parser, "seed", None) if parser is not None else None)
+        self._planned = []   # (inputs, Planned), most recent last
 
     @property
     def n_refl(self) -> int:
@@ -206,17 +214,93 @@ class DataManager:
         sizes: mono rows stably sorted by refl_id, Laue rows in the
         harmonic-chain layout (sorted_by_harmonic(n_refl), its groups
         renumbered), as careless_tpu/main.py:245-256 lays them out. Built
-        once per Inputs."""
+        once per Inputs: the last _PLANS_KEPT are kept, so that a test
+        split's training, validation and two prediction passes build two
+        plans."""
         inputs = self.inputs if inputs is None else inputs
-        if self._planned is None or self._planned[0] is not inputs:
-            if inputs.is_laue:
-                rows, order, groups = inputs.harmonic_layout(self.n_refl)
-            else:
-                order = torch.sort(inputs.refl_id.long(), stable=True).indices
-                rows, groups = inputs.select(order), None
-            self._planned = (inputs, Planned(
-                rows.with_plans(self.n_refl, self.n_images), order, groups))
-        return self._planned[1]
+        for held, planned in self._planned:
+            if held is inputs:
+                return planned
+        if inputs.is_laue:
+            rows, order, groups = inputs.harmonic_layout(self.n_refl)
+        else:
+            order = torch.sort(inputs.refl_id.long(), stable=True).indices
+            rows, groups = inputs.select(order), None
+        planned = Planned(rows.with_plans(self.n_refl, self.n_images), order,
+                          groups)
+        self._planned = (self._planned + [(inputs, planned)])[-_PLANS_KEPT:]
+        return planned
+
+    # ------------------------------------------------------------ splitting
+    def split_mono_data_by_mask(self, test_idx: np.ndarray
+                                ) -> Tuple[Inputs, Inputs]:
+        """(rows where test_idx is False, rows where it is True), each in
+        the original order."""
+        test = torch.as_tensor(np.asarray(test_idx, bool),
+                               device=self.device)
+        return self.inputs.select(~test), self.inputs.select(test)
+
+    def split_laue_data_by_mask(self, test_idx: np.ndarray
+                                ) -> Tuple[Inputs, Inputs]:
+        """Split Laue inputs by a row mask that cuts no harmonic group;
+        each half's groups are renumbered 0.. in id order and its
+        group-indexed intensities and uncertainties repacked, padded with
+        1.0 to the half's rows (manager.py:210-242)."""
+        test_idx = np.asarray(test_idx, bool)
+        harmonic_id = _numpy(self.inputs.harmonic_id)
+        isect = np.intersect1d(harmonic_id[test_idx],
+                               harmonic_id[~test_idx])
+        if len(isect) > 0:
+            raise ValueError("test_idx splits harmonic observations with "
+                             f"harmonic_id : {isect}")
+        inputs = self.inputs
+
+        def split(idx: np.ndarray) -> Inputs:
+            uni, inv = np.unique(harmonic_id[idx], return_inverse=True)
+            n_rows = int(idx.sum())
+
+            def repack(v):
+                v = _numpy(v)[uni]
+                return np.pad(v, (0, n_rows - len(v)), constant_values=1.0)
+
+            rows = torch.as_tensor(np.flatnonzero(idx), device=self.device)
+            return inputs.select(rows).replace(
+                intensities=torch.as_tensor(
+                    repack(inputs.intensities), device=self.device),
+                uncertainties=torch.as_tensor(
+                    repack(inputs.uncertainties), device=self.device),
+                harmonic_id=torch.as_tensor(inv.astype(np.int32),
+                                            device=self.device))
+
+        return split(~test_idx), split(test_idx)
+
+    def split_data_by_refl(self, test_fraction: float = 0.5
+                           ) -> Tuple[Inputs, Inputs]:
+        """(train, test): each row (Laue: each harmonic group) held out with
+        probability test_fraction, drawn from self.rng as the JAX package
+        draws it (manager.py:244-252)."""
+        if self.inputs.is_laue:
+            harmonic_id = _numpy(self.inputs.harmonic_id)
+            test_idx = (self.rng.random(harmonic_id.max() + 1)
+                        <= test_fraction)[harmonic_id]
+            return self.split_laue_data_by_mask(test_idx)
+        test_idx = self.rng.random(self.inputs.n_obs) <= test_fraction
+        return self.split_mono_data_by_mask(test_idx)
+
+    def split_data_by_image(self, test_fraction: float = 0.5
+                            ) -> Tuple[Inputs, Inputs]:
+        """(train, test) by whole images, each half holding at least one
+        image (manager.py:254-263)."""
+        image_id = _numpy(self.inputs.image_id)
+        test_idx = self.rng.random(image_id.max() + 1) <= test_fraction
+        if not test_idx.any():
+            test_idx[0] = True
+        elif test_idx.all():
+            test_idx[0] = False
+        test_idx = test_idx[image_id]
+        if self.inputs.is_laue:
+            return self.split_laue_data_by_mask(test_idx)
+        return self.split_mono_data_by_mask(test_idx)
 
     # --------------------------------------------------------------- output
     def get_results(self, posterior_dist, inputs: Optional[Inputs] = None,

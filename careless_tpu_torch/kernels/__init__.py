@@ -35,6 +35,31 @@ LAUNCHES = {"trunk_fwd": 0, "trunk_bwd": 0, "trunk_fwd_bf16": 0,
             "trunk_wide_only_fwd": 0, "trunk_wide_only_bwd": 0,
             "trunk_wide_only_fwd_bf16": 0, "trunk_wide_only_bwd_bf16": 0}
 
+
+def _trunk_names(wide: bool, direction: str) -> Tuple[str, ...]:
+    return tuple(k for k in LAUNCHES if k.startswith("trunk")
+                 and k.startswith("trunk_wide") == wide
+                 and f"_{direction}" in k)
+
+
+# every kernel of csrc/ as torch.profiler names it (csrc/ defines each in
+# an anonymous namespace; the name goes on with template arguments or the
+# parameter list), in groups, each with the LAUNCHES names whose launches
+# run one of its kernels (K1-bwd's narrow route runs one of three)
+PROFILED_KERNELS = tuple(
+    (tuple("(anonymous namespace)::" + k for k in symbols), names)
+    for symbols, names in (
+        (("trunk_fwd_kernel",), _trunk_names(False, "fwd")),
+        (("trunk_bwd_kernel", "trunk_bwd_f32_kernel",
+          "trunk_bwd_bf16_kernel"), _trunk_names(False, "bwd")),
+        (("trunk_wide_fwd_kernel",), _trunk_names(True, "fwd")),
+        (("trunk_wide_bwd_kernel",), _trunk_names(True, "bwd")),
+        (("gather_kernel",), ("gather",)),
+        (("gather_stream_kernel",), ("gather_stream",)),
+        (("philox_normal_kernel",), ("philox_normal",)),
+        (("fused_ll_fwd_kernel",), ("fused_ll_fwd",)),
+        (("fused_ll_bwd_kernel",), ("fused_ll_bwd",))))
+
 # csrc/fused_ll.cu's kinds, in the order of its Kind enum
 FUSED_KINDS = ("normal", "studentt", "laplace", "normal_ev11",
                "studentt_ev11")

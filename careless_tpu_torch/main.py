@@ -7,15 +7,20 @@
 `<out>_structure_factor.npz`; `devices` lists the CUDA devices.
 `--scale-file` and `--structure-factor-file` start from the parameters of
 an earlier merge (written by either package); with `--freeze-scales` the
-scales stay as loaded.
+scales stay as loaded. `--test-fraction` holds out that fraction of the
+rows (Laue: of the harmonic groups), scores their NLL every
+`--validation-frequency` steps into the history's `NLL_val` column, and
+appends them to the prediction files with `test` = 1. `--checkpoint-every
+N` writes `<out>_checkpoint.npz` every N steps and at the end;
+`--resume-from` continues from such a file (written by either package;
+one the port wrote repeats the uninterrupted run bit for bit).
 
 Counterpart of careless_tpu/main.py's main and run_careless, without
-crossvalidation. Options that are not ported yet (a test fraction,
-half-dataset merging, resume and checkpoints, several devices, profiling,
-the pickled data manager) and the flags that steer only JAX raise
-NotImplementedError naming the flag when given a value other than the
-default, so a JAX command line parses here and never runs something else
-than it asks for.
+half-dataset crossvalidation. Options that are not ported yet
+(half-dataset merging, several devices, profiling, the pickled data
+manager) and the flags that steer only JAX raise NotImplementedError
+naming the flag when given a value other than the default, so a JAX
+command line parses here and never runs something else than it asks for.
 """
 from __future__ import annotations
 
@@ -38,10 +43,7 @@ _UNPORTED = (
     ("--num-devices", "num_devices", lambda v: (v or 0) > 1),
     ("--profile-dir", "profile_dir", lambda v: v is not None),
     ("--save-data-manager", "save_data_manager", bool),
-    ("--test-fraction", "test_fraction", lambda v: v is not None),
     ("--merge-half-datasets", "merge_half_datasets", bool),
-    ("--resume-from", "resume_from", lambda v: v is not None),
-    ("--checkpoint-every", "checkpoint_every", bool),
 )
 
 
@@ -107,10 +109,11 @@ def run_careless(parser, device: DeviceLike = None) -> Optional[dict]:
     CPU or card --device-id). Returns the host seconds of its parts:
     set-up (setup_s, the sum of build_s, the kernels' build where the
     checkout has none yet; read_s, the reflection files; format_s, the
-    formatter; model_s, the data manager, model and warm start; plans_s,
-    the row layout and gather plans, Laue's harmonic-chain layout
-    included), training (train_s, over `steps` steps), and output
-    (output_s: results, predictions, writing)."""
+    formatter; model_s, the data manager, the test split, model and warm
+    start; plans_s, the row layout and gather plans, Laue's harmonic-chain
+    layout included), training (train_s), the history's rows (`steps`, a resumed
+    run's earlier steps included), and output (output_s: results,
+    predictions, writing)."""
     if parser.type == "devices":
         print("#############################################")
         print("# PyTorch can access the following devices  #")
@@ -124,7 +127,7 @@ def run_careless(parser, device: DeviceLike = None) -> Optional[dict]:
     from .io.formatter import LaueFormatter, MonoFormatter
     from .io.manager import DataManager
     from .utils.checkpoint import load_params, save_params
-    from .xtal import write_mtz
+    from .xtal import concat_datasets, write_mtz
 
     dev = cli_device(parser, device)
     times = {}
@@ -149,6 +152,12 @@ def run_careless(parser, device: DeviceLike = None) -> Optional[dict]:
     del datasets
     lap("format_s")
     dm = DataManager(inputs, rac, parser=parser, device=dev)
+    # split before build_model, which the JAX CLI also does: numpy's
+    # generator then draws the same rows
+    if parser.test_fraction is not None:
+        train, test = dm.split_data_by_refl(parser.test_fraction)
+    else:
+        train, test = dm.inputs, None
     model, params, trainer = dm.build_model()
     if parser.scale_file is not None:
         params["scaler"] = load_params(parser.scale_file, params["scaler"])
@@ -156,24 +165,35 @@ def run_careless(parser, device: DeviceLike = None) -> Optional[dict]:
         params["posterior"] = load_params(parser.structure_factor_file,
                                           params["posterior"])
     lap("model_s")
-    train = dm.planned_inputs().inputs
+    planned = dm.planned_inputs(train).inputs
+    validation = None if test is None else dm.planned_inputs(test).inputs
     generator = seeded_generator(parser.seed, dev)
     lap("plans_s")
-    params, history = trainer.train(params, generator, train,
-                                    parser.iterations,
-                                    chunk_size=parser.steps_per_compile,
-                                    device=dev)
+    base = parser.output_base
+    params, history = trainer.train(
+        params, generator, planned, parser.iterations,
+        chunk_size=parser.steps_per_compile, device=dev,
+        validation_data=validation,
+        validation_frequency=parser.validation_frequency,
+        checkpoint_path=(base + "_checkpoint" if parser.checkpoint_every
+                         else None),
+        checkpoint_frequency=parser.checkpoint_every,
+        resume_from=parser.resume_from)
     lap("train_s")
 
-    base = parser.output_base
     posterior_dist = model.posterior.distribution(params["posterior"])
-    for i, ds in enumerate(dm.get_results(posterior_dist)):
+    for i, ds in enumerate(dm.get_results(posterior_dist, inputs=train)):
         write_mtz(ds, base + f"_{i}.mtz")
     write_history(history, base + "_history.csv")
     save_params(base + "_structure_factor", params["posterior"])
     save_params(base + "_scale", params["scaler"])
-    for file_id, ds in enumerate(dm.get_predictions(model, params,
-                                                    test_value=0)):
+    predictions = dm.get_predictions(model, params, train, test_value=0)
+    if test is not None:
+        # the train rows (test = 0), then the held-out rows (test = 1)
+        predictions = map(concat_datasets, zip(
+            predictions, dm.get_predictions(model, params, test,
+                                            test_value=1)))
+    for file_id, ds in enumerate(predictions):
         write_mtz(ds, base + f"_predictions_{file_id}.mtz")
     lap("output_s")
 

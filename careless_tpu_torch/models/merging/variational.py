@@ -330,33 +330,94 @@ class Trainer:
 
     def train(self, params: dict, generator: torch.Generator,
               inputs: Inputs, steps: int, chunk_size: int = 100,
-              device: DeviceLike = None) -> Tuple[dict, Dict[str, list]]:
+              device: DeviceLike = None,
+              validation_data: Optional[Inputs] = None,
+              validation_frequency: int = 10,
+              checkpoint_path: Optional[str] = None,
+              checkpoint_frequency: int = 0,
+              resume_from: Optional[str] = None
+              ) -> Tuple[dict, Dict[str, list]]:
         """Run `steps` full-batch steps on `device` (None: the card);
         returns (params, history).
 
         `generator` (on the inputs' device) draws the reflection samples and
         one 32-bit base key; the scale noise of step i uses the Philox key
         (base, i), so distinct steps draw from disjoint streams. The
-        caller's params are not modified."""
+        caller's params are not modified.
+
+        validation_data (planned Inputs of held-out rows): NLL_val is scored
+        before each chunk of validation_frequency steps and repeated over
+        its steps, scaled by the ratio of training to held-out rows
+        (careless_tpu variational.py:804-819). Its draws leave `generator`
+        untouched: with key = base | ((2**30 + done) << 32), the scale
+        noise comes from that Philox key and the uniforms from a generator
+        seeded with mix64(key) (torch's CPU generator reads only a seed's
+        low 32 bits, which the mix makes depend on done as well); steps
+        never reach 2**30, so the keys are not the steps' own.
+
+        checkpoint_path / checkpoint_frequency: write a checkpoint
+        (utils/checkpoint.py) at the end of a chunk once `frequency` steps
+        have passed since the last and at the end, never for a run stopped
+        by a non-finite gradient. resume_from: continue from such a file
+        (the params, Adam state, step, history and, where the port wrote
+        it, the generator and base key), so that a run resumed from its own
+        checkpoint repeats the uninterrupted run bit for bit. The history
+        is aligned to this run's metrics and start step as the JAX package
+        aligns it (:791-802)."""
+        from ...utils.checkpoint import (RngState, adam_prefix, load_state,
+                                         save_state)
         dev = resolve_device(device)
         if not (same_device(inputs.device, dev)
                 and same_device(generator.device, dev)):
             raise ValueError(f"inputs ({inputs.device}) and generator "
                              f"({generator.device}) must be on {dev}")
+        if validation_data is not None and not same_device(
+                validation_data.device, dev):
+            raise ValueError(f"validation_data ({validation_data.device}) "
+                             f"must be on {dev}")
+        if validation_data is not None and validation_frequency < 1:
+            raise ValueError("validation_frequency must be at least 1, got "
+                             f"{validation_frequency}")
         params = map_params(
             lambda t: t.detach().to(dev).clone().requires_grad_(True), params)
         named = flatten_params(params)
         leaves = [t for _, t in named]
         frozen = [path.split("/")[0] in self.freeze for path, _ in named]
         opt = self.optimizer(leaves)
-        base = int(torch.randint(0, 2 ** 32, (1,), generator=generator,
-                                 device=generator.device).item())
+        opt_prefix = adam_prefix(self.clipnorm, self.clipvalue,
+                                 self.global_clipnorm)
+        start_step, resumed, rng = 0, None, None
+        if resume_from is not None:
+            start_step, resumed, rng = load_state(resume_from, params, opt,
+                                                  opt_prefix)
+        if rng is not None:
+            if rng.device_type != generator.device.type:
+                raise ValueError(
+                    f"checkpoint {resume_from} holds a {rng.device_type} "
+                    f"generator's state; this run's generator is on "
+                    f"{generator.device.type}")
+            generator.set_state(rng.generator)
+            base = rng.base
+        else:
+            base = int(torch.randint(0, 2 ** 32, (1,), generator=generator,
+                                     device=generator.device).item())
 
         metric_keys = self.metric_keys
         history: Dict[str, list] = {k: [] for k in metric_keys}
-        done = 0
+        if validation_data is not None:
+            history["NLL_val"] = []
+            chunk_size = validation_frequency
+            val_scale = inputs.n_obs / validation_data.n_obs
+        if resumed is not None:
+            for k in history:
+                v = list(resumed.get(k, ()))[:start_step]
+                history[k] = v + [float("nan")] * (start_step - len(v))
+        done = last_ckpt = start_step
         while done < steps:
             n = min(chunk_size, steps - done)
+            if validation_data is not None:
+                v = self.validation_nll(params, validation_data, base, done)
+                history["NLL_val"].extend([val_scale * v] * n)
             rows = []
             for i in range(done, done + n):
                 loss, metrics = self.model.elbo(params, inputs, generator,
@@ -382,5 +443,31 @@ class Trainer:
                 n_keep = done - n + int(torch.nonzero(bad)[0]) + 1
                 for k in history:
                     history[k] = history[k][:n_keep]
-                break
+                break   # the last healthy checkpoint stays the resume point
+            if (checkpoint_path and checkpoint_frequency > 0
+                    and (done - last_ckpt >= checkpoint_frequency
+                         or done >= steps)):
+                save_state(checkpoint_path, params, opt, opt_prefix, done,
+                           history, RngState(generator.get_state(),
+                                             generator.device.type, base))
+                last_ckpt = done
         return map_params(lambda t: t.detach(), params), history
+
+    def validation_nll(self, params: dict, inputs: Inputs, base: int,
+                       done: int) -> float:
+        """The model's NLL on held-out rows before step `done`, drawn from
+        the keys of Trainer.train's docstring."""
+        key = base | ((2 ** 30 + done) << 32)
+        gen = torch.Generator(device=inputs.device)
+        gen.manual_seed(mix64(key))
+        with torch.no_grad():
+            _, metrics = self.model.elbo(params, inputs, gen, seed=key)
+        return float(metrics["NLL"])
+
+
+def mix64(x: int) -> int:
+    """splitmix64's finalizer: a bijection of 64-bit integers in which every
+    bit of x reaches every bit of the result."""
+    x = (x ^ (x >> 30)) * 0xBF58476D1CE4E5B9 & 0xFFFFFFFFFFFFFFFF
+    x = (x ^ (x >> 27)) * 0x94D049BB133111EB & 0xFFFFFFFFFFFFFFFF
+    return x ^ (x >> 31)

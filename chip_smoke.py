@@ -59,7 +59,9 @@ Phases, each printed on its own lines:
      K1 trunk-only), --mlp-dtype bfloat16 (K1 bf16) and both (K1 trunk-only
      bf16), 100 steps each; the `wide` slice, --mlp-width 128 (20 steps),
      whose K1 runs in csrc/trunk_wide.cu, with its step time, device time,
-     busy share and peak memory on lines of their own. Every loss finite,
+     busy share and peak memory on lines of their own (the profile's
+     kernel times scaled to the launches its dropped records stand for,
+     window_device_times). Every loss finite,
      the loss falling, and each kernel of the slice launched by that run
      (the counts are set to 0 just before it), each slice's own K1
      instantiation once per step and every other not at all, K2 as often
@@ -83,7 +85,16 @@ Phases, each printed on its own lines:
      through `main(["mono", ...])`, 300 steps, the path's K1, K2 and K3
      held at its shapes, its merged F against the true F, with the stream's parse
      seconds (stream_cli_phase); each with
-     set-up by part, steps/s, output seconds and peak GB;
+     set-up by part, steps/s, output seconds and peak GB; between the mono
+     and poly merges, checkpoints and the held-out test fraction
+     (resume_phase): three mono merges of the CLI phase's MTZ with
+     --test-fraction=0.1 --validation-frequency=10, A uninterrupted for
+     200 steps, B 100 steps with --checkpoint-every=100, C resumed from B's
+     checkpoint to 200, C's files equal to A's bit for bit, the held-out
+     rows last in the prediction file with test = 1, NLL_val finite and
+     falling, each run's launches (validation and prediction passes
+     included), the checkpoint's size and write time, and K1, K2 and K3
+     held at the shapes of the train rows and of the held-out rows;
   6. the Laue slice (`careless-tpu poly` defaults) at 10,000,000
      observations, 500,000 reflections and 20,000 images on the harmonic-
      chain layout: the host set-up timed step by step, every kernel of the
@@ -249,8 +260,8 @@ def _device_times(torch, fn, reps, attempts=5):
     card the profiler drops some kernel records of a capture, and now and
     then holds a record from before it or none at all; so each kernel's
     time per call is its mean over the launches captured times its
-    launches per call (the count captured over reps, rounded; a stray
-    record rounds to 0), and a capture without a device event is taken
+    launches per call (whole_launches over reps; a stray record rounds to
+    0), and a capture without a device event is taken
     again, up to `attempts` times."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -267,14 +278,21 @@ def _device_times(torch, fn, reps, attempts=5):
                 if e.device_type == DeviceType.CUDA
                 and not getattr(e, "is_user_annotation", False)
                 and e.self_device_time_total > 0
-                and round(e.count / reps) >= 1]
+                and whole_launches(e.count, reps)]
         for e in seen:
             CAPTURED["records"] += e.count
-            CAPTURED["launches"] += reps * round(e.count / reps)
+            CAPTURED["launches"] += whole_launches(e.count, reps)
         if seen:
             return {e.key: e.self_device_time_total / e.count
-                    * round(e.count / reps) for e in seen}
+                    * whole_launches(e.count, reps) / reps for e in seen}
     return None
+
+
+def whole_launches(count, calls):
+    """The launches that `count` kept profiler records of a kernel stand
+    for over `calls` calls that each launch it a whole number of times:
+    count rounded to a multiple of calls (0 for fewer than calls / 2)."""
+    return calls * round(count / calls)
 
 
 # kernel records _device_times kept, against the launches they stand for
@@ -2412,6 +2430,171 @@ def stream_cli_phase(torch, dev, gen, seed, peak_flops, peak_bw):
     return launches, held
 
 
+# the resume phase: B trains RESUME_STEPS steps and writes a checkpoint;
+# A (uninterrupted) and C (B resumed) train twice as many; all three hold
+# out RESUME_FRACTION of the rows, scored every RESUME_VALIDATION steps
+RESUME_STEPS, RESUME_FRACTION, RESUME_VALIDATION = 100, 0.1, 10
+
+
+def resume_phase(torch, dev, gen, seed, peak_flops, peak_bw):
+    """Checkpoints, resume and the held-out test fraction through the
+    port's CLI, on the card, at the CLI phase's width (synthetic_mtz's
+    CLI_OBS observations, the default model: d = w = 10, 20 layers): three
+    runs of careless_tpu_torch.main.main(["mono", CLI_KEYS, file, out,
+    "--test-fraction=0.1", "--validation-frequency=10"]) in this process,
+    A for 2 R steps, B for R with --checkpoint-every=R, C from B's
+    checkpoint (--resume-from) to 2 R. Checks: C's _scale.npz,
+    _structure_factor.npz, merged and prediction MTZs and history equal
+    A's bit for bit; the prediction file holds the train rows with test = 0
+    and then exactly the held-out rows of DataManager.split_data_by_refl
+    for the seed (formatted here on the CPU) with test = 1; NLL_val finite,
+    its last value below its first; each run's launches, counted from 0
+    just before it: its steps', plus a K1-fwd, two K2 and a K3 for each
+    validation pass, plus two K1-fwd and two K2 for each of the two
+    prediction passes (train and held-out rows). Prints the checkpoint's
+    size and write time, and each run's set-up, steps/s (validation
+    included) and output seconds; the merged F's correlation with the true
+    F is printed, not gated (a tenth of the rows is held out). Then the
+    kernels of the path, held against their plain versions at its shapes
+    (step_kernels) on the planned train rows, which the steps run, and on
+    the planned held-out rows, which the validation passes run at a tenth
+    of the size (K1-fwd's grid there is smaller than the card's SMs) and
+    whose K2 gathers through a sparse refl plan into the whole table: both
+    copies made by the formatter and data manager calls that main() makes.
+    Returns {"resume_train": errors, "resume_test": errors}, each held
+    kernel's largest error on that copy."""
+    import tempfile
+    from pathlib import Path
+
+    from careless_tpu_torch import kernels
+    from careless_tpu_torch.io.formatter import MonoFormatter
+    from careless_tpu_torch.io.manager import DataManager
+    from careless_tpu_torch.main import main as cli_main
+    from careless_tpu_torch.parser import parser as cli_parser
+    from careless_tpu_torch.utils import checkpoint
+    from careless_tpu_torch.xtal import (DataSet, SpaceGroup, UnitCell,
+                                         read_mtz, write_mtz)
+
+    R = RESUME_STEPS
+    (cols, types_), hkl_asu, f_true = synthetic_mtz(
+        seed, CLI_OBS, CLI_IMAGES, CLI_CELL, CLI_SPACEGROUP, CLI_DMIN)
+    writes = []
+    save_state = checkpoint.save_state
+
+    def timed_save_state(*args, **kw):
+        t0 = time.perf_counter()
+        save_state(*args, **kw)
+        writes.append(time.perf_counter() - t0)
+
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    result, runs = {}, {}
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        mtz = str(Path(tmp) / "unmerged.mtz")
+        write_mtz(DataSet(cols, cell=UnitCell(*CLI_CELL),
+                          spacegroup=SpaceGroup.from_name(CLI_SPACEGROUP),
+                          mtz_dtypes=types_), mtz)
+        argv = ["mono", CLI_KEYS, mtz, None, "--disable-progress-bar",
+                f"--seed={seed}", f"--test-fraction={RESUME_FRACTION}",
+                f"--validation-frequency={RESUME_VALIDATION}"]
+        out = {k: str(Path(tmp) / k) for k in "ABC"}
+        plan = {"A": (0, 2 * R, []),
+                "B": (0, R, [f"--checkpoint-every={R}"]),
+                "C": (R, 2 * R, [f"--resume-from={out['B']}_checkpoint"])}
+        checkpoint.save_state = timed_save_state
+        try:
+            for name, (start, steps, extra) in plan.items():
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                kernels.reset_launches()
+                times = cli_main(argv[:3] + [out[name]] + argv[4:]
+                                 + [f"--iterations={steps}", *extra])
+                torch.cuda.synchronize()
+                runs[name] = (dict(kernels.LAUNCHES), times, steps - start,
+                              torch.cuda.max_memory_allocated() / 1e9)
+        finally:
+            checkpoint.save_state = save_state
+        ckpt = Path(out["B"] + "_checkpoint.npz")
+        check(ckpt.exists() and len(writes) == 1,
+              f"resume: {len(writes)} checkpoint writes, expected B's one")
+        with np.load(ckpt) as f:
+            check(int(f["__step__"]) == R and str(f["rng/device_type"])
+                  == dev.type, "resume: B's checkpoint is not at step "
+                  f"{R} on a {dev.type} generator")
+        result["checkpoint_mb"] = ckpt.stat().st_size / 1e6
+        result["checkpoint_write_s"] = writes[0]
+        for suffix in ("_scale.npz", "_structure_factor.npz"):
+            a, c = (np.load(out[k] + suffix) for k in "AC")
+            check(a.files == c.files and all(
+                a[k].tobytes() == c[k].tobytes() for k in a.files),
+                f"resume: C's {suffix} is not A's bit for bit")
+        for suffix in ("_0.mtz", "_predictions_0.mtz"):
+            a, c = (read_mtz(out[k] + suffix) for k in "AC")
+            check(a.columns == c.columns and all(
+                a[k].tobytes() == c[k].tobytes() for k in a.columns),
+                f"resume: C's {suffix} is not A's bit for bit")
+        history = [Path(out[k] + "_history.csv").read_text() for k in "AC"]
+        check(history[0] == history[1],
+              "resume: C's history is not A's bit for bit")
+        merged, preds, loss, _ = read_cli_outputs(out["A"])
+        with open(out["A"] + "_history.csv") as f:
+            rows = f.read().splitlines()
+        at = rows[0].split(",").index("NLL_val")
+        val = [float(r.split(",")[at]) for r in rows[1:]]
+        args = cli_parser.parse_args(argv[:3] + ["x"] + argv[4:])
+        inputs, rac = MonoFormatter.from_parser(args).format_files(
+            [mtz], device=dev)
+        dm = DataManager(inputs, rac, parser=args, device=dev)
+        del inputs
+        train, test = dm.split_data_by_refl(RESUME_FRACTION)
+        held = {}
+        for label, half in (("train", train), ("test", test)):
+            planned = dm.planned_inputs(half).inputs
+            held[f"resume_{label}"], _ = step_kernels(
+                torch, dev, gen, planned, "default", peak_flops, peak_bw,
+                f"resume {label}")
+            del planned
+        del dm
+    flag = preds["test"]
+    n_test = int(flag.sum())
+    check(n_test == test.n_obs and len(flag) == train.n_obs + test.n_obs
+          and not flag[:train.n_obs].any(),
+          f"resume: {n_test} of {len(flag)} prediction rows held out, "
+          f"expected the split's {test.n_obs} last")
+    check(np.array_equal(preds["Iobs"][train.n_obs:],
+                         test.intensities.cpu().numpy())
+          and np.array_equal(preds["image_id"][train.n_obs:],
+                             test.image_id.cpu().numpy()),
+          "resume: the held-out prediction rows are not the split's")
+    check(len(val) == 2 * R and all(map(math.isfinite, val))
+          and val[-1] < val[0],
+          f"resume: NLL_val not finite and falling: {val[:1]} ... "
+          f"{val[-1:]}")
+    check(float(merged["N"].astype(np.float64).sum()) == train.n_obs,
+          "resume: N does not count the train rows")
+    for name, (launches, times, steps, _) in runs.items():
+        passes = -(-steps // RESUME_VALIDATION)
+        check_launches(launches, f"resume {name}", {
+            **{k: (steps + passes + 4 if k == "trunk_fwd" else v)
+               for k, v in trunk_counts(steps, True, False).items()},
+            "gather": GATHERS_PER_STEP["default"] * steps + 2 * passes + 4,
+            "philox_normal": steps + passes, "fused_ll_fwd": 0,
+            "fused_ll_bwd": 0, "gather_stream": 0})
+    result.update(
+        steps=R, held_out_rows=test.n_obs, train_rows=train.n_obs,
+        nll_val_first_last=[val[0], val[-1]],
+        loss_first_last=[loss[0], loss[-1]],
+        cc_true_f_not_gated=cc_true_f("resume", merged, hkl_asu, f_true),
+        launches={k: {n: v for n, v in r[0].items() if v}
+                  for k, r in runs.items()},
+        held_max_abs_err=held)
+    print("resume: " + json.dumps(result), flush=True)
+    for name, (_, times, steps, peak_gb) in runs.items():
+        print_cli_times(f"resume {name} ({steps} steps)",
+                        dict(times, steps=steps), peak_gb)
+    return held
+
+
 def trunk_counts(steps, head, bf16, wide=False):
     """The K1 launch counts of a slice that runs the (head, bf16)
     instantiation (of csrc/trunk_wide.cu when wide) once per step in each
@@ -2431,34 +2614,71 @@ def check_launches(launches, label, want):
               f"times, expected {count if count is not None else '> 0'}")
 
 
+def window_device_times(events, launched, steps):
+    """(rows of (ms per step, launches per step, kernel), launches each
+    kernel's records stand for, whether every port kernel that launched
+    left a record) of a profiled window of `steps` steps: `events` are
+    key_averages() entries (key, count, self_device_time_total in us),
+    `launched` the window's kernels.LAUNCHES. A kernel's time is its mean
+    over the records kept times the launches they stand for: a port
+    kernel's launches (kernels.PROFILED_KERNELS), any other kernel's
+    records rounded to a whole number per step (whole_launches), never
+    fewer than it left."""
+    from careless_tpu_torch import kernels
+
+    stands_for, complete = {}, True
+    for symbols, names in kernels.PROFILED_KERNELS:
+        mine = [e for e in events if any(s in e.key for s in symbols)]
+        want = sum(launched[k] for k in names)
+        kept = sum(e.count for e in mine)
+        complete &= kept > 0 or want == 0
+        for e in mine:
+            stands_for[e.key] = e.count * want / kept
+    for e in events:
+        if e.key not in stands_for:
+            stands_for[e.key] = max(e.count, whole_launches(e.count, steps))
+    rows = sorted(((e.self_device_time_total / e.count * stands_for[e.key]
+                    / 1e3 / steps, stands_for[e.key] / steps, e.key)
+                   for e in events if stands_for[e.key]), reverse=True)
+    return rows, stands_for, complete
+
+
 def profile_steps(torch, trainer, params, inputs, seed, ms_per_step,
                   steps=20):
     """Device time per step by kernel (torch.profiler, CUPTI) over a short
     window; the busy share is that device time over the unprofiled step
     time measured above (one stream, so kernels do not overlap); returns
-    what it prints."""
+    what it prints. The profiler drops some kernel records of a window
+    (_device_times), so each kernel's time stands for the launches that
+    window_device_times counts; a window in which a port kernel launched
+    and left no record gives no device time (None)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from careless_tpu_torch import kernels
     from careless_tpu_torch.device import seeded_generator
 
+    kernels.reset_launches()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         trainer.train(params, seeded_generator(seed + 1, inputs.device),
                       inputs, steps, chunk_size=steps)
         torch.cuda.synchronize()
-    rows = []
-    for e in prof.key_averages():
-        # device-side events only (kernels, copies); host ranges and their
-        # device-side annotations would count the same time twice
-        if (e.device_type == DeviceType.CUDA and e.self_device_time_total
-                and not getattr(e, "is_user_annotation", False)):
-            rows.append((e.self_device_time_total / 1e3 / steps,
-                         e.count / steps, e.key))
-    rows.sort(reverse=True)
-    device_ms = sum(r[0] for r in rows)
+    # device-side events only (kernels, copies); host ranges and their
+    # device-side annotations would count the same time twice
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and e.self_device_time_total
+              and not getattr(e, "is_user_annotation", False)]
+    rows, stands_for, complete = window_device_times(
+        events, dict(kernels.LAUNCHES), steps)
+    for e in events:
+        CAPTURED["records"] += e.count
+        CAPTURED["launches"] += stands_for[e.key]
+    device_ms = sum(r[0] for r in rows) if complete else None
     out = dict(device_ms_per_step=device_ms,
                busy_share=device_ms / ms_per_step if device_ms else None,
+               records_kept=sum(e.count for e in events),
+               launches_stood_for=sum(stands_for.values()),
                top=[dict(ms_per_step=ms, calls_per_step=c, name=k[:80])
                     for ms, c, k in rows[:15]])
     print("profile: " + json.dumps(out), flush=True)
@@ -2537,10 +2757,11 @@ def main():
     scaler_launches = scaler_slices_phase(torch, dev, args.seed)
     wide_launches = wide_slice_phase(torch, dev, args.seed)
     cli_phase(torch, dev, args.seed)
-    held_at = {label: phase(torch, dev, gen, args.seed, peak_flops,
-                            peak_bw)[1]
-               for label, phase in (("poly_cli", poly_cli_phase),
-                                    ("stream_cli", stream_cli_phase))}
+    held_at = resume_phase(torch, dev, gen, args.seed, peak_flops, peak_bw)
+    held_at.update({label: phase(torch, dev, gen, args.seed, peak_flops,
+                                 peak_bw)[1]
+                    for label, phase in (("poly_cli", poly_cli_phase),
+                                         ("stream_cli", stream_cli_phase))})
 
     rows["gather_stream"], launches_laue, held_at["laue"], \
         rows[LAUE_PERM_ROW] = laue_phase(torch, dev, gen, args.seed,
