@@ -28,11 +28,11 @@ args_and_kwargs = (
     }),
     (("--xval-mode",), {
         "help": "How to execute half-dataset crossvalidation. 'parallel' "
-                "(default) trains all 2 x repeats halves concurrently in "
-                "one vmapped computation, sharded over the device mesh "
-                "when --num-devices is set; 'serial' trains them one after "
-                "another (the reference's loop). Both use identical per-"
-                "half RNG and produce the same merged halves.",
+                "(default) trains all 2 x repeats halves together, each "
+                "step one pass over every half's rows as one merge over "
+                "their stacked structure factors; 'serial' trains them "
+                "one after another (the reference's loop). Both use "
+                "identical per-half RNG and produce the same merged halves.",
         "type": str,
         "default": "parallel",
         "choices": ["parallel", "serial"],

@@ -47,8 +47,8 @@ args_and_kwargs = (
         "help": "Estimate KL(q||prior) with the Rao-Blackwellized "
                 "closed-form pieces (truncated-normal entropy + analytic "
                 "Wilson cross-entropy terms) instead of pure Monte Carlo. "
-                "Lower gradient variance; Wilson priors only. Not ported "
-                "yet.",
+                "Lower gradient variance; Wilson priors only (double-Wilson "
+                "falls back to Monte Carlo).",
         "action": "store_true",
         "default": False,
     }),

@@ -1,16 +1,18 @@
 """DataManager: from formatted inputs and the parsed flags to a model.
 
 Counterpart of careless_tpu/io/manager.py:42-203: table sizes, the Wilson
-prior, and build_model (TruncatedNormal surrogate initialised from the
-prior's moments with centric low = 0 and acentric low = 1e-32; the Normal,
+prior, and build_model (the Wilson prior, or the double-Wilson prior of
+--double-wilson-parents with its trainable r in params["prior"] under
+--optimize-double-wilson-r; --analytic-kl; a TruncatedNormal surrogate
+initialised from the prior's moments with centric low = 0 and acentric
+low = 1e-32; the Normal,
 StudentT, Normal-Ev11 or StudentT-Ev11 likelihood of
 --studentt-likelihood-dof and --refine-uncertainties, convolved over
 harmonic groups for Laue inputs;
 an MLP with the exp or softplus bijector and the --mlp-dtype of its
 products, alone, under per-image scales (HybridImageScaler) or followed by
 --image-layers per-image banks (NeuralImageScaler);
---mc-samples and the --fused-kernel auto/on/off policy). Options outside
-the ported slice raise NotImplementedError naming the flag. The outputs
+--mc-samples and the --fused-kernel auto/on/off policy). The outputs
 (manager.py:266-415): get_results (merged F/SigF, I from the moments,
 redundancy N over every row, Laue's expanded harmonics included, the
 posterior's parameters; reflections with N > 0) and get_predictions
@@ -35,19 +37,13 @@ from ..models.base import Inputs
 from ..models.likelihoods import laue, mono
 from ..models.merging.surrogate import TruncatedNormalPosterior
 from ..models.merging.variational import Trainer, VariationalMergingModel
+from ..models.priors.double_wilson import build_double_wilson_prior
 from ..models.priors.wilson import WilsonPrior
 from ..models.scaling.image import (HybridImageScaler, ImageScaler,
                                     NeuralImageScaler)
 from ..models.scaling.nn import MLPScaler
 from ..xtal import DataSet
 from .asu import pack_hkl
-
-# (flag, attribute, value that selects the unported option)
-_UNPORTED = (
-    ("--double-wilson-parents", "parents", lambda v: v is not None),
-    ("--analytic-kl", "analytic_kl", bool),
-)
-
 
 # MTZ dtypes for output columns
 _RESULT_DTYPES = {"H": "H", "K": "H", "L": "H", "F": "F", "SigF": "Q",
@@ -132,12 +128,12 @@ class DataManager:
         parser = parser or self.parser
         if parser is None:
             raise ValueError("No parser supplied, but self.parser is unset")
-        for flag, attr, selects in _UNPORTED:
-            if selects(getattr(parser, attr, None)):
-                raise NotImplementedError(f"{flag} is not ported yet")
         dev = self.device
 
-        prior = self.get_wilson_prior(parser.wilson_prior_b)
+        if getattr(parser, "parents", None) is not None:
+            prior = build_double_wilson_prior(self, parser)
+        else:
+            prior = self.get_wilson_prior(parser.wilson_prior_b)
         loc = prior.mean().cpu().numpy()
         scale = (prior.stddev().cpu().numpy()
                  * parser.structure_factor_init_scale)
@@ -189,12 +185,16 @@ class DataManager:
         model = VariationalMergingModel(
             posterior=posterior, prior=prior, likelihood=likelihood,
             scaler=scaler, mc_samples=mc, kl_weight=parser.kl_weight,
-            fused_kernel=fused)
+            fused_kernel=fused,
+            analytic_kl=bool(getattr(parser, "analytic_kl", False)))
         params = {"posterior": posterior.init(loc, scale, dev),
                   "scaler": scaler.init(self.inputs.metadata.shape[-1], dev)}
         lik_init = likelihood.init(dev)
         if lik_init:
             params["likelihood"] = lik_init
+        prior_init = prior.init(dev) if hasattr(prior, "init") else {}
+        if prior_init:
+            params["prior"] = prior_init
 
         freeze = []
         if getattr(parser, "freeze_scales", False):
@@ -221,15 +221,21 @@ class DataManager:
         for held, planned in self._planned:
             if held is inputs:
                 return planned
+        rows = self.planned_rows(inputs)
+        planned = rows._replace(inputs=rows.inputs.with_plans(
+            self.n_refl, self.n_images))
+        self._planned = (self._planned + [(inputs, planned)])[-_PLANS_KEPT:]
+        return planned
+
+    def planned_rows(self, inputs: Inputs) -> Planned:
+        """planned_inputs' row layout of `inputs` and its maps, without the
+        plans (the parallel crossvalidation plans the halves together)."""
         if inputs.is_laue:
             rows, order, groups = inputs.harmonic_layout(self.n_refl)
         else:
             order = torch.sort(inputs.refl_id.long(), stable=True).indices
             rows, groups = inputs.select(order), None
-        planned = Planned(rows.with_plans(self.n_refl, self.n_images), order,
-                          groups)
-        self._planned = (self._planned + [(inputs, planned)])[-_PLANS_KEPT:]
-        return planned
+        return Planned(rows, order, groups)
 
     # ------------------------------------------------------------ splitting
     def split_mono_data_by_mask(self, test_idx: np.ndarray

@@ -14,24 +14,34 @@ appends them to the prediction files with `test` = 1. `--checkpoint-every
 N` writes `<out>_checkpoint.npz` every N steps and at the end;
 `--resume-from` continues from such a file (written by either package;
 one the port wrote repeats the uninterrupted run bit for bit).
+`--merge-half-datasets` then merges 2 x `--half-dataset-repeats` halves of
+the images with the trained scales frozen and writes them, with `repeat`
+and `half` columns, to `<out>_xval_<i>.mtz`: one after another
+(`--xval-mode=serial`, the JAX package's loop) or all in each step
+(`--xval-mode=parallel`, parallel/xval.py).
 
-Counterpart of careless_tpu/main.py's main and run_careless, without
-half-dataset crossvalidation. Options that are not ported yet
-(half-dataset merging, several devices, profiling, the pickled data
-manager) and the flags that steer only JAX raise NotImplementedError
-naming the flag when given a value other than the default, so a JAX
-command line parses here and never runs something else than it asks for.
+Counterpart of careless_tpu/main.py's main, run_careless and
+run_half_dataset_crossvalidation. Options that are not ported yet
+(several devices, profiling, the pickled data manager) and the flags that
+steer only JAX raise NotImplementedError naming the flag when given a
+value other than the default, so a JAX command line parses here and never
+runs something else than it asks for.
 """
 from __future__ import annotations
 
 import csv
+import dataclasses
 import math
 import time
 from typing import Optional
 
+import numpy as np
 import torch
 
 from .device import DeviceLike, resolve_device, seeded_generator
+from .parallel.xval import (SEED_STRIDE, half_params, make_half_keys,
+                            stack_halves, train_halves)
+from .xtal import concat_datasets, write_mtz
 
 # (flag, attribute, value that asks for what the port does not do)
 _UNPORTED = (
@@ -43,7 +53,6 @@ _UNPORTED = (
     ("--num-devices", "num_devices", lambda v: (v or 0) > 1),
     ("--profile-dir", "profile_dir", lambda v: v is not None),
     ("--save-data-manager", "save_data_manager", bool),
-    ("--merge-half-datasets", "merge_half_datasets", bool),
 )
 
 
@@ -113,7 +122,9 @@ def run_careless(parser, device: DeviceLike = None) -> Optional[dict]:
     start; plans_s, the row layout and gather plans, Laue's harmonic-chain
     layout included), training (train_s), the history's rows (`steps`, a resumed
     run's earlier steps included), and output (output_s: results,
-    predictions, writing)."""
+    predictions, writing); with --merge-half-datasets also the half
+    merges' xval_setup_s (splits, models, row layout and plans), xval_train_s
+    (their training) and xval_output_s (results and writing)."""
     if parser.type == "devices":
         print("#############################################")
         print("# PyTorch can access the following devices  #")
@@ -127,7 +138,6 @@ def run_careless(parser, device: DeviceLike = None) -> Optional[dict]:
     from .io.formatter import LaueFormatter, MonoFormatter
     from .io.manager import DataManager
     from .utils.checkpoint import load_params, save_params
-    from .xtal import concat_datasets, write_mtz
 
     dev = cli_device(parser, device)
     times = {}
@@ -196,6 +206,9 @@ def run_careless(parser, device: DeviceLike = None) -> Optional[dict]:
     for file_id, ds in enumerate(predictions):
         write_mtz(ds, base + f"_predictions_{file_id}.mtz")
     lap("output_s")
+    if parser.merge_half_datasets:
+        times.update(run_half_dataset_crossvalidation(dm, params, parser,
+                                                      dev))
 
     if parser.embed:
         try:
@@ -207,6 +220,79 @@ def run_careless(parser, device: DeviceLike = None) -> Optional[dict]:
                                               "format_s", "model_s",
                                               "plans_s"))
     times["steps"] = len(next(iter(history.values()), []))
+    return times
+
+
+def run_half_dataset_crossvalidation(dm, trained_params: dict, parser,
+                                     dev: torch.device) -> dict:
+    """Merge 2 x --half-dataset-repeats halves of the images (each
+    repeat's split drawn from dm.rng, so the JAX package's halves) with
+    the trained scaler frozen, each half from a fresh model and the
+    generator seeded with seed + 7919 (2 repeat + half + 1), and write
+    their results with int32 `repeat` and `half` columns (MTZ type I), in
+    split order, to <out>_xval_<file>.mtz (careless_tpu/main.py:120-229).
+    Returns xval_setup_s, xval_train_s and xval_output_s."""
+    times = {"xval_setup_s": 0.0, "xval_train_s": 0.0, "xval_output_s": 0.0}
+    t0 = time.perf_counter()
+
+    def lap(name):
+        nonlocal t0
+        _sync(dev)
+        t1 = time.perf_counter()
+        times[name] += t1 - t0
+        t0 = t1
+
+    def frozen_scaler_model():
+        model, params, trainer = dm.build_model()
+        params["scaler"] = trained_params["scaler"]
+        return model, params, dataclasses.replace(trainer,
+                                                  freeze=("scaler",))
+
+    results = [[] for _ in dm.asu_collection]
+
+    def collect(model, posterior_params, half, repeat, half_id):
+        dist = model.posterior.distribution(posterior_params)
+        for file_id, ds in enumerate(dm.get_results(dist, inputs=half)):
+            ds["repeat"] = np.int32(repeat)
+            ds["half"] = np.int32(half_id)
+            ds.mtz_dtypes.update({"repeat": "I", "half": "I"})
+            results[file_id].append(ds)
+
+    steps, chunk = parser.iterations, parser.steps_per_compile
+    if parser.xval_mode == "serial":
+        for repeat in range(parser.half_dataset_repeats):
+            for half_id, half in enumerate(dm.split_data_by_image()):
+                model, params, trainer = frozen_scaler_model()
+                planned = dm.planned_inputs(half).inputs
+                generator = seeded_generator(
+                    parser.seed + SEED_STRIDE * (2 * repeat + half_id + 1),
+                    dev)
+                lap("xval_setup_s")
+                params, _ = trainer.train(params, generator, planned, steps,
+                                          chunk_size=chunk, device=dev)
+                lap("xval_train_s")
+                collect(model, params["posterior"], half, repeat, half_id)
+                lap("xval_output_s")
+    else:
+        halves = []
+        for _ in range(parser.half_dataset_repeats):
+            halves.extend(dm.split_data_by_image())
+        model, params, trainer = frozen_scaler_model()
+        stacked = stack_halves([dm.planned_rows(h).inputs for h in halves],
+                               dm.n_refl, dm.n_images)
+        lap("xval_setup_s")
+        trained, _ = train_halves(
+            trainer, params, make_half_keys(parser.seed,
+                                            parser.half_dataset_repeats),
+            stacked, steps, chunk_size=chunk, device=dev)
+        lap("xval_train_s")
+        for k, half in enumerate(halves):
+            collect(model, half_params(trained, k, trainer.freeze)[
+                "posterior"], half, *divmod(k, 2))
+    for file_id, parts in enumerate(results):
+        write_mtz(concat_datasets(parts),
+                  parser.output_base + f"_xval_{file_id}.mtz")
+    lap("xval_output_s")
     return times
 
 

@@ -16,7 +16,6 @@ whose backward is a gather by harmonic_id through K5 past the VMEM cap.
 """
 from __future__ import annotations
 
-import math
 from dataclasses import dataclass
 
 import torch
@@ -58,22 +57,27 @@ class ConvolvedLikelihood:
 
     def masked_ll_sum(self, ipred: torch.Tensor) -> torch.Tensor:
         """Sum over group rows of log_prob(ipred), ipred (..., N); the port
-        has no shard-padding mask, so every group row counts.
+        has no shard-padding mask, so every group row counts: the sum of
+        masked_ll_rows."""
+        return torch.sum(self.masked_ll_rows(ipred))
 
-        With a run plan: the log-probs at run-start rows against
-        row_distribution, plus n_samples times the tail of never-hit group
-        rows scored at 0 (careless_tpu laue.py:55-77); the same value as
-        the convolved sum by construction. The run plan bakes in the
-        intensities; a plan is dropped whenever the fields it was built
-        from change (Inputs.replace)."""
+    def masked_ll_rows(self, ipred: torch.Tensor) -> torch.Tensor:
+        """masked_ll_sum's terms, (..., N). With a run plan: each group's
+        log-prob at its run-start row against row_distribution, and each
+        never-hit group row's scored at 0 (careless_tpu laue.py:55-77) at
+        its own row; the same value as the convolved sum by construction.
+        Without one: each bucket's log-prob of the convolved prediction.
+        Rows whose group ids and buckets lie among them (the halves of
+        parallel/xval.py) sum to their own groups' log-likelihood. The run
+        plan bakes in the intensities; a plan is dropped whenever the
+        fields it was built from change (Inputs.replace)."""
         rp = self.run_plan
         if rp is None or self.row_distribution is None:
-            return torch.sum(self.log_prob(ipred))
+            return self.log_prob(ipred)
         conv = conv_start_sums(ipred, rp)
-        ll = self.row_distribution.log_prob(conv) * rp.start_ll_mask
-        n_samples = math.prod(ipred.shape[:-1])
         tail = self.distribution.log_prob(torch.zeros_like(rp.iobs_row))
-        return torch.sum(ll) + n_samples * torch.sum(tail * rp.tail_mask)
+        return (self.row_distribution.log_prob(conv) * rp.start_ll_mask
+                + tail * rp.tail_mask)
 
 
 def _build_convolved(base, params: dict, inputs: Inputs

@@ -2,7 +2,8 @@
 
 Counterpart of careless_tpu/models/merging/variational.py for the mono
 and Laue chains with S = mc_samples Monte Carlo samples (elbo, :179-234;
-_elbo_fused, :236-300; the MC KL of _kl_terms, :570-585) and of its Trainer
+_elbo_fused, :236-300; the prior's parameter protocol, :150-175; the MC
+and the analytic KL of _kl_terms, :570-585) and of its Trainer
 (:636-849):
 
     z_F   ~ q(F)                         (S, n_refl)  truncated normal
@@ -10,6 +11,12 @@ _elbo_fused, :236-300; the MC KL of _kl_terms, :570-585) and of its Trainer
     Sigma = loc + scale * eps            (S, N)       scaler through K1, K2
     Ipred = Sigma * z_F[refl_id]^2       (S, N)       K2, planned gather
     loss  = -sum log p(Iobs | Ipred) / S + sum [log q(z_F) - log p(z_F)] / S
+
+With analytic_kl (--analytic-kl) and a prior that has expected_log_prob
+(the Wilson prior) the KL is -H(q) - E_q[log p], closed form but for the
+acentric E[log z], which averages the samples' log z. A prior with a
+`build` (double-Wilson) is built from params["prior"] each step and adds
+its metrics (rDW_<i>) to the history.
 
 With fused_kernel (and a fused-supported likelihood and scaler) the (N,)
 chain from eps to the likelihood sum runs in K4 once per sample
@@ -47,6 +54,8 @@ class VariationalMergingModel:
     # run the likelihood chain through K4 when the configuration allows
     # (a fused-supported likelihood and an MLP or hybrid scaler)
     fused_kernel: bool = False
+    # the Rao-Blackwellized KL of --analytic-kl (Wilson priors)
+    analytic_kl: bool = False
 
     def __post_init__(self):
         if self.mc_samples < 1:
@@ -54,7 +63,18 @@ class VariationalMergingModel:
 
     @property
     def metric_names(self) -> Tuple[str, ...]:
-        return ("loss", "NLL", "F KLDiv")
+        extra = ()
+        if hasattr(self.prior, "r_init"):
+            extra = tuple(f"rDW_{i}"
+                          for i in range(self.prior.r_init.shape[0]))
+        return ("loss", "NLL", "F KLDiv") + extra
+
+    def _built_prior(self, params: dict):
+        """The prior of this step: priors with trainable parameters
+        (double-Wilson r) are built from params["prior"]."""
+        if hasattr(self.prior, "build"):
+            return self.prior.build(params.get("prior", {}))
+        return self.prior
 
     def _fused_likelihood_kind(self) -> Optional[Tuple[str, float]]:
         """(kind, dof) of K4's pointwise chain, or None when the likelihood
@@ -118,7 +138,7 @@ class VariationalMergingModel:
             z_obs = plan_gather(z_f[s], inputs.refl_id, inputs.plans.refl)
             ll_total = ll_total + self._masked_ll_sum(
                 likelihood, z_scale * torch.square(z_obs))
-        return self._loss(q, z_f, ll_total, n)
+        return self._loss(q, z_f, ll_total, n, self._built_prior(params))
 
     @staticmethod
     def _masked_ll_sum(likelihood, ipred: torch.Tensor) -> torch.Tensor:
@@ -159,7 +179,7 @@ class VariationalMergingModel:
                 noise=None if eps is None else eps[s],
                 refl_plan=plans.refl, image_plan=image_plan, kind=kind,
                 dof=dof, ev11=ev11)
-        return self._loss(q, z_f, ll_total, n)
+        return self._loss(q, z_f, ll_total, n, self._built_prior(params))
 
     def _samples(self, params, inputs, generator, u_f, eps):
         """(q, z_f (S, n_refl), eps as (S, N) or None)."""
@@ -175,11 +195,13 @@ class VariationalMergingModel:
         z_f = q.sample_from_uniform(u_f.reshape(S, -1))
         return q, z_f, None if eps is None else eps.reshape(S, inputs.n_obs)
 
-    def _loss(self, q, z_f, ll_total, n_obs):
+    def _loss(self, q, z_f, ll_total, n_obs, prior):
         """(loss, metrics) from the likelihood summed over samples and
-        observations (variational.py:220-234)."""
+        observations (variational.py:220-234). z_f is (S, n_refl), or
+        (S, K, n_refl) for K independent merges (parallel/xval.py), whose
+        ll_total and n_obs are then (K,) and whose metrics are (K,)."""
         S = z_f.shape[0]
-        kl_sum, kl_mean = self._kl_terms(q, z_f)
+        kl_sum, kl_mean = self._kl_terms(q, prior, z_f)
         if self.kl_weight is None:
             nll = -ll_total / S
             kl = kl_sum
@@ -188,14 +210,29 @@ class VariationalMergingModel:
             nll = -ll_total / (S * n_obs)
             kl = kl_mean
             loss = nll + self.kl_weight * kl
-        return loss, {"loss": loss, "NLL": nll, "F KLDiv": kl}
+        metrics = {"loss": loss, "NLL": nll, "F KLDiv": kl}
+        if hasattr(prior, "metrics"):
+            metrics.update(prior.metrics())
+        return loss, metrics
 
-    def _kl_terms(self, q, z_f) -> Tuple[torch.Tensor, torch.Tensor]:
-        """(sum over reflections of the MC KL averaged over samples, mean
-        over all entries) of log q(z_F) - log p(z_F)
-        (variational.py:583-585)."""
-        kl_term = q.log_prob(z_f) - self.prior.log_prob(z_f)
-        return torch.sum(kl_term) / kl_term.shape[0], torch.mean(kl_term)
+    def _kl_terms(self, q, prior, z_f) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(sum over reflections of the per-reflection KL estimate, mean
+        over all its entries) (variational.py:570-585): the MC estimate
+        log q(z_F) - log p(z_F) averaged over the samples, or with
+        analytic_kl and a prior that has expected_log_prob,
+        -H(q) - E_q[log p]. Reduced over the sample and reflection axes
+        only, so that K merges stacked between them keep their own."""
+        if (self.analytic_kl and hasattr(prior, "expected_log_prob")
+                and hasattr(q, "entropy")):
+            kl_term = -q.entropy() - prior.expected_log_prob(q, z_f)
+            dims, n_mc = (-1,), 1
+        else:
+            kl_term = q.log_prob(z_f) - prior.log_prob(z_f)
+            dims, n_mc = (0, -1), kl_term.shape[0]
+        if kl_term.dim() == len(dims):
+            return torch.sum(kl_term) / n_mc, torch.mean(kl_term)
+        return (torch.sum(kl_term, dim=dims) / n_mc,
+                torch.mean(kl_term, dim=dims))
 
     # ---------------------------------------------------- posterior outputs
     def predict_ipred(self, params: dict, inputs: Inputs,
@@ -283,7 +320,10 @@ class Trainer:
     norm is recorded before the non-finite gradients are zeroed, the
     optional per-leaf / elementwise / global clips follow in optax's order,
     then Adam (eps 1e-7, the keras default). Metrics stay on the device and
-    cross to the host once per chunk."""
+    cross to the host once per chunk. The leaves of the `freeze` subtrees
+    take no gradient: autograd runs no backward into them (no K1-bwd for a
+    frozen scaler) and Adam steps them with zeros, which leaves them as
+    they are (variational.py:707-709)."""
 
     model: VariationalMergingModel
     learning_rate: float = 1e-3
@@ -303,30 +343,56 @@ class Trainer:
                                 betas=(self.beta_1, self.beta_2), eps=1e-7)
 
     def transform_grads(self, grads: List[torch.Tensor],
-                        frozen: List[bool]
+                        frozen: List[bool], batched: bool = False
                         ) -> Tuple[List[torch.Tensor], torch.Tensor]:
         """(updated grads, global norm): freeze, norm, zero non-finite,
-        clipnorm per leaf, clipvalue, global clipnorm."""
-        sizes = [g.numel() for g in grads]
-        flat = torch.cat([torch.zeros_like(g).reshape(-1) if f
-                          else g.reshape(-1) for g, f in zip(grads, frozen)])
-        grad_norm = torch.sqrt(torch.sum(flat * flat))
+        clipnorm per leaf, clipvalue, global clipnorm. With `batched` every
+        grad has a leading axis of K independent merges (parallel/xval.py)
+        and each merge is treated on its own: K norms, K clips."""
+        k = grads[0].shape[0] if batched else None
+
+        def rows(t):
+            return t.reshape(k, -1) if batched else t.reshape(-1)
+
+        def total(t):
+            return (torch.sum(t, dim=-1, keepdim=True) if batched
+                    else torch.sum(t))
+        sizes = [rows(g).shape[-1] for g in grads]
+        flat = torch.cat([rows(torch.zeros_like(g)) if f else rows(g)
+                          for g, f in zip(grads, frozen)], dim=-1)
+        grad_norm = torch.sqrt(total(flat * flat))
         flat = torch.where(torch.isfinite(flat), flat, torch.zeros_like(flat))
         if self.clipnorm is not None:
             parts = []
-            for g in flat.split(sizes):
-                norm = torch.sqrt(torch.sum(g * g))
+            for g in flat.split(sizes, dim=-1):
+                norm = torch.sqrt(total(g * g))
                 parts.append(g * torch.clamp(
                     self.clipnorm / (norm + 1e-20), max=1.0))
-            flat = torch.cat(parts)
+            flat = torch.cat(parts, dim=-1)
         if self.clipvalue is not None:
             flat = torch.clamp(flat, -self.clipvalue, self.clipvalue)
         if self.global_clipnorm is not None:
-            g_norm = torch.sqrt(torch.sum(flat * flat))
+            g_norm = torch.sqrt(total(flat * flat))
             flat = torch.where(g_norm < self.global_clipnorm, flat,
                                flat / g_norm * self.global_clipnorm)
-        return ([g.view_as(ref) for g, ref in zip(flat.split(sizes), grads)],
-                grad_norm)
+        return ([g.reshape_as(ref) for g, ref in
+                 zip(flat.split(sizes, dim=-1), grads)],
+                grad_norm.reshape(k) if batched else grad_norm)
+
+    @staticmethod
+    def gradients(loss: torch.Tensor, leaves: List[torch.Tensor],
+                  frozen: List[bool]) -> List[torch.Tensor]:
+        """d loss / d leaf for the leaves not frozen, asked of autograd for
+        those alone; zeros for the frozen ones and for leaves the loss does
+        not reach."""
+        live = [t for t, f in zip(leaves, frozen) if not f]
+        got = iter(torch.autograd.grad(loss, live, allow_unused=True)
+                   if live else ())
+        out = []
+        for t, f in zip(leaves, frozen):
+            g = None if f else next(got)
+            out.append(torch.zeros_like(t) if g is None else g)
+        return out
 
     def train(self, params: dict, generator: torch.Generator,
               inputs: Inputs, steps: int, chunk_size: int = 100,
@@ -383,6 +449,8 @@ class Trainer:
         named = flatten_params(params)
         leaves = [t for _, t in named]
         frozen = [path.split("/")[0] in self.freeze for path, _ in named]
+        for leaf, f in zip(leaves, frozen):
+            leaf.requires_grad_(not f)
         opt = self.optimizer(leaves)
         opt_prefix = adam_prefix(self.clipnorm, self.clipvalue,
                                  self.global_clipnorm)
@@ -422,9 +490,7 @@ class Trainer:
             for i in range(done, done + n):
                 loss, metrics = self.model.elbo(params, inputs, generator,
                                                 seed=base | (i << 32))
-                grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-                grads = [torch.zeros_like(p) if g is None else g
-                         for g, p in zip(grads, leaves)]
+                grads = self.gradients(loss, leaves, frozen)
                 grads, grad_norm = self.transform_grads(grads, frozen)
                 for p, g in zip(leaves, grads):
                     p.grad = g

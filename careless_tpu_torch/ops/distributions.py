@@ -1,11 +1,12 @@
 """Probability distributions on tensors: the pieces the mono merge uses.
 
 Counterpart of careless_tpu/ops/distributions.py (Normal, Laplace, StudentT,
-TruncatedNormal, HalfNormal, Weibull), with the same formulas, so that at
-equal inputs the two packages agree to f32 rounding. Sampling takes an explicit
-torch.Generator; TruncatedNormal can also be sampled from given standard
-uniforms, which is how the tests hold it against JAX. Only what the mono
-merge's ELBO and DataManager use is here.
+TruncatedNormal, HalfNormal, Weibull, and for the double-Wilson prior
+FoldedNormal, Rice and RiceWoolfson), with the same formulas, so that at
+equal inputs the two packages agree to f32 rounding. Sampling takes an
+explicit torch.Generator; TruncatedNormal can also be sampled from given
+standard uniforms, which is how the tests hold it against JAX. Only what
+the merge's ELBO, its priors and DataManager use is here.
 """
 from __future__ import annotations
 
@@ -216,6 +217,10 @@ class TruncatedNormal(NamedTuple):
         return (0.5 * (_LOG_2PI + 1.0) + torch.log(scale) + self._log_z()
                 + (alpha * phi_a - self._bterm(beta, phi_b)) / (2.0 * z))
 
+    def moment_2(self):
+        """Second raw moment E[X^2]."""
+        return self.variance() + torch.square(self.mean())
+
     def moment_4(self):
         """Fourth raw moment E[X^4] (Orjebin's recurrence), inf-safe."""
         mu, sig, a, b = _bcast(self.loc, self.scale, self.low, self.high)
@@ -230,3 +235,105 @@ class TruncatedNormal(NamedTuple):
              + sig * sig * (3 * b_safe + 5 * mu) + mu ** 3) * phi_b)
         return (mu ** 4 + 6 * mu ** 2 * sig ** 2 + 3 * sig ** 4
                 - sig * (bterm - aterm) / z)
+
+
+class FoldedNormal(NamedTuple):
+    """|X| for X ~ Normal(loc, scale) (distributions.py:283-316)."""
+
+    loc: Numeric
+    scale: Numeric
+
+    def log_prob(self, x):
+        loc, scale = self.loc, self.scale
+        z1 = (x - loc) / scale
+        z2 = (x + loc) / scale
+        lp = torch.logaddexp(-0.5 * z1 * z1, -0.5 * z2 * z2)
+        lp = lp - 0.5 * _LOG_2PI - torch.log(torch.as_tensor(scale))
+        return torch.where(x < 0, torch.full_like(lp, float("nan")), lp)
+
+    def mean(self):
+        u, s = _bcast(self.loc, self.scale)
+        return (s * _SQRT_2_OVER_PI * torch.exp(-0.5 * (u / s) ** 2)
+                + u * (1.0 - 2.0 * torch.special.ndtr(-u / s)))
+
+    def variance(self):
+        u, s = _bcast(self.loc, self.scale)
+        return u * u + s * s - torch.square(self.mean())
+
+    def stddev(self):
+        return torch.sqrt(self.variance())
+
+
+def _log_i0(x):
+    """log I0(x) from the exponentially scaled i0e(x) = I0(x) exp(-|x|)."""
+    return torch.log(torch.special.i0e(x)) + torch.abs(x)
+
+
+class Rice(NamedTuple):
+    """The Rice distribution, with log-space Bessels and the normal
+    crossover at nu / sigma > 40 (distributions.py:319-369)."""
+
+    nu: Numeric
+    sigma: Numeric
+
+    _NORMAL_CROSSOVER = 40.0
+
+    @staticmethod
+    def _laguerre_half(x):
+        """L_{1/2}(x) for x <= 0, by exponentially scaled Bessels."""
+        h, ah = -0.5 * x, torch.abs(0.5 * x)
+        return ((1.0 - x) * torch.exp(
+                    x / 2.0 + torch.log(torch.special.i0e(h)) + ah)
+                - x * torch.exp(x / 2.0 + torch.log(torch.special.i1e(h))
+                                + ah))
+
+    def log_prob(self, x):
+        nu, sigma = self.nu, self.sigma
+        return (torch.log(x) - 2.0 * torch.log(torch.as_tensor(sigma))
+                - (x * x + nu * nu) / (2.0 * sigma * sigma)
+                + _log_i0(x * nu / (sigma * sigma)))
+
+    def mean(self):
+        nu, sigma = _bcast(self.nu, self.sigma)
+        snr = nu / sigma
+        m = sigma * math.sqrt(math.pi / 2.0) * self._laguerre_half(
+            -0.5 * snr * snr)
+        return torch.where(snr > self._NORMAL_CROSSOVER, nu, m)
+
+    def variance(self):
+        nu, sigma = _bcast(self.nu, self.sigma)
+        snr = nu / sigma
+        lag = self._laguerre_half(-0.5 * snr * snr)
+        v = (2.0 * sigma * sigma + nu * nu
+             - 0.5 * math.pi * sigma * sigma * lag * lag)
+        return torch.where(snr > self._NORMAL_CROSSOVER, sigma * sigma, v)
+
+    def stddev(self):
+        return torch.sqrt(self.variance())
+
+
+class RiceWoolfson(NamedTuple):
+    """FoldedNormal (Woolfson) for centric reflections, Rice for acentric
+    ones (distributions.py:474-504)."""
+
+    loc: Numeric
+    scale: Numeric
+    centric: torch.Tensor  # bool
+
+    def _parts(self):
+        return FoldedNormal(self.loc, self.scale), Rice(self.loc, self.scale)
+
+    def log_prob(self, x):
+        w, r = self._parts()
+        return torch.where(self.centric, w.log_prob(x), r.log_prob(x))
+
+    def mean(self):
+        w, r = self._parts()
+        return torch.where(self.centric, w.mean(), r.mean())
+
+    def variance(self):
+        w, r = self._parts()
+        return torch.where(self.centric, w.variance(), r.variance())
+
+    def stddev(self):
+        return torch.sqrt(self.variance())

@@ -274,14 +274,28 @@ def fused_likelihood_sum(loc, scale, image_scales, z_f, refl_id, image_id,
     `seed`. The gathers use the plans; image_plan may be None only for a
     one-entry image_scales (the MLP scaler alone), which is broadcast.
     CPU tensors run the plain versions, CUDA tensors K4 or raise."""
-    if kind not in kernels.FUSED_KINDS:
-        raise ValueError(f"unsupported fused likelihood kind: {kind}")
     n = loc.shape[0]
     if image_plan is None and image_scales.numel() == 1:
         a_obs = image_scales.reshape(1).expand(n)
     else:
         a_obs = plan_gather(image_scales, image_id, image_plan)
     f_obs = plan_gather(z_f, refl_id, refl_plan)
+    return fused_likelihood_sum_gathered(
+        loc, scale, a_obs, f_obs, iobs, sig, mask, seed=seed, offset=offset,
+        noise=noise, kind=kind, dof=dof, ev11=ev11)
+
+
+def fused_likelihood_sum_gathered(loc, scale, a_obs, f_obs, iobs, sig,
+                                  mask=None, *, seed: int, offset: int = 0,
+                                  noise: Optional[torch.Tensor] = None,
+                                  kind: str = "normal", dof: float = 0.0,
+                                  ev11=None) -> torch.Tensor:
+    """fused_likelihood_sum from the gathered a = image_scales[image_id]
+    and F = z_f[refl_id] per observation: one K4 launch (CPU tensors: the
+    plain version). The parallel crossvalidation gathers once over all
+    halves and sums each half's rows with its own key."""
+    if kind not in kernels.FUSED_KINDS:
+        raise ValueError(f"unsupported fused likelihood kind: {kind}")
     if kind in EV11_KINDS:
         if ev11 is None:
             raise ValueError(f"kind={kind} requires ev11 scalars")

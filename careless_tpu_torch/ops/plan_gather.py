@@ -46,6 +46,7 @@ JAX package runs no stream kernel.
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Optional, Union
 
@@ -128,6 +129,8 @@ class GatherPlan:
             ids window), else None
     perm_plan: window plan of the gather by `perm` (the chain layout's
             quasi-identity backward permute), else None
+    blocks: K blocks of the table and of the sorted ids (block_plan),
+            else None
     """
 
     ids: torch.Tensor
@@ -139,18 +142,48 @@ class GatherPlan:
     table_size: int
     window: Optional[WindowPlan] = None
     perm_plan: Optional[WindowPlan] = None
+    blocks: Optional["RowBlocks"] = None
 
     def __post_init__(self):
         n = self.ids.numel()
         _check_ids("ids", self.ids, self.table_size)
         if self.perm is not None:
             _check_ids("perm", self.perm, n)
-        _check_ids("pos", self.pos, n + 1)
-        _check_ids("cp_ids", self.cp_ids, 2 * ((n + _CHUNK) // _CHUNK))
+        _check_ids("pos", self.pos, self.sum_len + 1)
+        _check_ids("cp_ids", self.cp_ids, 2 * self.chunks)
 
     @property
     def stream(self) -> bool:
         return self.window is not None and self.window.stream
+
+    @property
+    def sum_len(self) -> int:
+        """Entries of the cotangent the segment sum takes its prefix sums
+        over: the ids' count, or the blocks' padded length."""
+        return self.ids.numel() if self.blocks is None else self.blocks.padded
+
+    @property
+    def chunks(self) -> int:
+        """_CHUNK-sized chunks of the segment sum (at least one zero pad)."""
+        return (self.sum_len + _CHUNK) // _CHUNK
+
+
+@dataclass(frozen=True, eq=False)
+class RowBlocks:
+    """A GatherPlan over K independent problems laid end to end (the halves
+    of parallel/xval.py): block k owns table entries [k T, (k + 1) T) and a
+    run of the sorted ids. Its segment sum places block k's sorted
+    cotangent at a multiple of _CHUNK (`index`, padded with zeros to
+    `padded` entries), takes each block's chunk sums and chunk prefix on
+    their own (PyTorch's row scan on the card sums a row in an order that
+    depends on how many rows it is given) and holds each block's own T + 1
+    boundaries, so that every block's sums are those of its problem alone,
+    in the same order as its own plan takes them."""
+
+    count: int            # K
+    index: torch.Tensor   # (n,) int64 position of each sorted entry
+    padded: int           # a multiple of _CHUNK
+    chunks: tuple         # each block's chunks, then the trailing ones
 
 
 @dataclass(frozen=True, eq=False)
@@ -261,6 +294,39 @@ def make_gather_plan(ids: torch.Tensor, table_size: int) -> GatherPlan:
         window=window, **_boundaries(sorted_ids, table_size, device))
 
 
+def block_plan(plan: GatherPlan, bounds) -> GatherPlan:
+    """`plan` (of sorted-id runs bounds[k]:bounds[k + 1], each in table
+    entries [k T, (k + 1) T) for T = table_size / K) with RowBlocks: the
+    boundaries and chunk ids of each run computed as its own plan
+    computes them, at its block's offset."""
+    k = len(bounds) - 1
+    t = plan.table_size // k
+    device = plan.ids.device
+    ids = plan.ids.cpu().numpy().astype(np.int64)
+    if plan.perm is not None:
+        ids = ids[plan.perm.cpu().numpy()]
+    lengths = np.diff(bounds)
+    padded = (lengths + _CHUNK) // _CHUNK * _CHUNK  # each run as its own
+    offsets = np.concatenate([[0], np.cumsum(padded)])
+    index = np.concatenate([np.arange(n) + o
+                            for n, o in zip(lengths, offsets)])
+    pos = np.concatenate([
+        np.concatenate([np.searchsorted(ids[a:b] - j * t, np.arange(t)),
+                        [b - a]]) + offsets[j]
+        for j, (a, b) in enumerate(zip(bounds[:-1], bounds[1:]))])
+    m = (int(offsets[-1]) + _CHUNK) // _CHUNK
+    chunks = (padded // _CHUNK).tolist()
+    return dataclasses.replace(
+        plan, pos=_i32(pos, device),
+        cp_ids=_i32(np.concatenate([pos // _CHUNK, pos // _CHUNK + m]),
+                    device),
+        starts=_i32(np.concatenate([p[:-1] for p in np.split(pos, k)]),
+                    device),
+        ends=_i32(np.concatenate([p[1:] for p in np.split(pos, k)]), device),
+        blocks=RowBlocks(k, torch.as_tensor(index, device=device),
+                         int(offsets[-1]), tuple(chunks + [m - sum(chunks)])))
+
+
 def make_chain_gather_plan(refl_id: torch.Tensor, harmonic_id: torch.Tensor,
                            table_size: int) -> Optional[ChainGatherPlan]:
     """The chain layout's refl-gather plan, or None when the layout does
@@ -315,23 +381,39 @@ def segment_sum_by_plan(contrib: torch.Tensor, plan: GatherPlan
                         ) -> torch.Tensor:
     """out[t] = sum of contrib[k] over k with ids[k] == t, shape (T,)."""
     c = _apply_perm(contrib, plan)
+    blocks = plan.blocks
+    if blocks is not None:
+        c = c.new_zeros(blocks.padded).index_copy_(0, blocks.index, c)
     n = c.shape[0]
     # pad with >= 1 zero so boundary position n indexes a real (zero) slot
     m = (n + _CHUNK) // _CHUNK
     c = torch.cat([c, c.new_zeros(m * _CHUNK - n)])
-    local_cs = torch.cumsum(c.view(m, _CHUNK), dim=1)          # inclusive
+    if blocks is None:
+        local_cs = torch.cumsum(c.view(m, _CHUNK), dim=1)      # inclusive
+    else:   # block by block: the card's row scan varies with the rows
+        local_cs = torch.cat([torch.cumsum(v, dim=1) for v in
+                              c.view(m, _CHUNK).split(blocks.chunks)])
     local_excl = torch.cat([c.new_zeros(m, 1), local_cs[:, :-1]],
                            dim=1).reshape(-1)
     totals = local_cs[:, -1].double()
-    prefix = torch.cumsum(totals, 0) - totals                  # exclusive
+    if blocks is None:
+        prefix = torch.cumsum(totals, 0) - totals              # exclusive
+    else:   # each block's own, as its own plan takes it
+        prefix = torch.cat([torch.cumsum(t, 0) - t
+                            for t in totals.split(blocks.chunks)])
     hi = prefix.float()
     lo = (prefix - hi.double()).float()
     local_b = table_gather(local_excl, plan.pos)
     chunk_b = table_gather(torch.cat([hi, lo]), plan.cp_ids)
     k = plan.pos.shape[0]
     hi_b, lo_b = chunk_b[:k], chunk_b[k:]
-    return ((local_b[1:] - local_b[:-1])
-            + ((hi_b[1:] - hi_b[:-1]) + (lo_b[1:] - lo_b[:-1])))
+    if blocks is not None:   # each block's T + 1 boundaries in a row
+        local_b, hi_b, lo_b = (x.view(blocks.count, -1)
+                               for x in (local_b, hi_b, lo_b))
+    out = ((local_b[..., 1:] - local_b[..., :-1])
+           + ((hi_b[..., 1:] - hi_b[..., :-1])
+              + (lo_b[..., 1:] - lo_b[..., :-1])))
+    return out.reshape(-1)
 
 
 def _forward_gather(table: torch.Tensor, plan: GatherPlan) -> torch.Tensor:

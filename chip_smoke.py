@@ -44,7 +44,8 @@ Phases, each printed on its own lines:
   3. check: the port's loss and every parameter gradient at a small size on
      the card against the same computation on the CPU (plain versions), at
      mc = 1 for the defaults, --image-layers 2, --mlp-dtype bfloat16,
-     both, --mlp-width 128 and --mlp-width 128 --mlp-dtype bfloat16, and
+     both, --mlp-width 128, --mlp-width 128 --mlp-dtype bfloat16,
+     --analytic-kl and the double-Wilson prior of two files (r trained), and
      at mc = 2 through K4 for the flag sets of slices (a) and
      (b); then the card's fused ELBO against its unfused ELBO; then Laue at
      50k observations with the VMEM cap lowered so that K5 runs, card
@@ -80,7 +81,8 @@ Phases, each printed on its own lines:
      against the expanded rows, one prediction row per harmonic group, K5
      once a step, the path's kernels held at its shapes, and the "on" merge
      from the first run's scales, frozen, whose scale file comes back bit
-     for bit (poly_cli_phase); then a serial-crystallography merge from a
+     for bit and which launches no K1-bwd and no image-scale backward
+     (poly_cli_phase); then a serial-crystallography merge from a
      seeded CrystFEL stream of 500,000 reflections on 2,500 crystals
      through `main(["mono", ...])`, 300 steps, the path's K1, K2 and K3
      held at its shapes, its merged F against the true F, with the stream's parse
@@ -94,7 +96,20 @@ Phases, each printed on its own lines:
      rows last in the prediction file with test = 1, NLL_val finite and
      falling, each run's launches (validation and prediction passes
      included), the checkpoint's size and write time, and K1, K2 and K3
-     held at the shapes of the train rows and of the held-out rows;
+     held at the shapes of the train rows and of the held-out rows; then
+     half-dataset crossvalidation (xval_phase): the CLI phase's MTZ merged
+     100 steps with --merge-half-datasets --half-dataset-repeats=2 in each
+     --xval-mode, the two forms' _xval_0.mtz equal within rtol 1e-3 / atol
+     1e-3, each half's N its rows, the main run's scaler kept bit for bit,
+     the launches of the main run and of the half merges (the parallel
+     form: K1-fwd once a step for all four halves, K3 once per half, K2
+     as one merge, no K1-bwd), the half path's K1-fwd, K2 and K3 held at
+     the stacked 2M rows, each form's set-up, merging seconds and steps/s;
+     and the double-Wilson prior (prior_phase): a parent MTZ and a child
+     MTZ drawn at r = 0.9 from it, merged 100 steps with --separate-files
+     --double-wilson-parents=None,0 --double-wilson-r=0.,0.9
+     --optimize-double-wilson-r, rDW_1 inside (-1, 1), each file's merged
+     F against its true F, the child merged alone beside it;
   6. the Laue slice (`careless-tpu poly` defaults) at 10,000,000
      observations, 500,000 reflections and 20,000 images on the harmonic-
      chain layout: the host set-up timed step by step, every kernel of the
@@ -155,9 +170,14 @@ LAUE_PERM_ROW = "gather_laue_image_perm"
 # host_us calls at the Laue shapes: few enough that a device slower than
 # the host does not fill the launch queue
 LAUE_HOST_CALLS = 300
-# K2 launches per step of each slice (the gathers of ops/plan_gather.py)
+# K2 launches per step of each slice (the gathers of ops/plan_gather.py);
+# "xval" is a frozen-scaler mono step, serial or parallel
 GATHERS_PER_STEP = {"default": 7, "a": 14, "b": 14, "image_layers": 3,
-                    "bf16": 7, "image_layers_bf16": 3, "laue": 9, "wide": 7}
+                    "bf16": 7, "image_layers_bf16": 3, "laue": 9, "wide": 7,
+                    "xval": 4}
+# K2 launches of the image scales' backward (the cotangent permute and
+# the segment sum's two lookups), which a frozen scaler does not run
+IMAGE_BACKWARD_GATHERS = 3
 
 # the mono defaults of the CLI, copied from careless_tpu/args/*.py
 MONO_DEFAULTS = dict(
@@ -167,7 +187,8 @@ MONO_DEFAULTS = dict(
     learning_rate=1e-3, beta_1=0.9, beta_2=0.99, clipnorm=None,   # optimizer.py
     clipvalue=None, global_clipnorm=None,                         # optimizer.py
     kl_weight=None, wilson_prior_b=None, parents=None,            # prior.py
-    analytic_kl=False,                                            # prior.py
+    analytic_kl=False, dwr=None, reindexing_ops=None,             # prior.py
+    optimize_double_wilson_r=False,                               # prior.py
     freeze_scales=False, mlp_layers=20, mlp_width=None,           # scaling.py
     image_layers=0, use_image_scales=True, scale_bijector="exp",  # scaling.py
     fused_kernel="auto", mlp_dtype="float32",                     # device_options.py
@@ -432,7 +453,7 @@ def random_trunk(torch, gen, d, w, n_layers, dev):
 
 
 def trunk_rows(torch, gen, x, peak_flops, peak_bw, variants=((True, False),),
-               n_layers=N_LAYERS, width=None, reps=30):
+               n_layers=N_LAYERS, width=None, reps=30, backward=True):
     """K1-fwd and K1-bwd on metadata x (N, d) for each (head, bf16)
     instantiation in `variants`: a random n_layers-deep trunk of `width`
     (default d), held against the plain version (the bf16 plain version
@@ -447,7 +468,8 @@ def trunk_rows(torch, gen, x, peak_flops, peak_bw, variants=((True, False),),
     tile; where that is csrc/trunk_bwd.cu (f32) or csrc/trunk_bwd_bf16.cu
     (bf16), the row also times csrc/trunk.cu's backward, with the same
     bf16 flag, on the same inputs (trunk_cu_device_ms, trunk_cu_ms) and
-    gives its largest difference from the routed kernel."""
+    gives its largest difference from the routed kernel. backward=False
+    holds the forward only (a frozen scaler's path)."""
     from careless_tpu_torch import kernels
     from careless_tpu_torch.ops.fused_mlp import (
         fused_mlp_trunk, fused_mlp_trunk_head, pack_params, plain_trunk,
@@ -517,6 +539,8 @@ def trunk_rows(torch, gen, x, peak_flops, peak_bw, variants=((True, False),),
                          device_ms=d_ms, plain_ms=plain_ms, bound_ms=b_ms,
                          bound_by=b_by, library_ms=None, n=n, d_in=d,
                          width=w, n_layers=L)
+        if not backward:
+            continue
 
         # K1-bwd through autograd, against autograd of the plain version
         def grads(fn):
@@ -1328,15 +1352,17 @@ CLI_KEYS = "dHKL,image_id,Hobs,Kobs,Lobs,XDET,YDET,BG,SIGBG,FRACTIONCALC"
 CLI_MIN_CC = 0.85
 
 
-def synthetic_mtz(seed, n_obs, n_images, cell, spacegroup, dmin):
+def synthetic_mtz(seed, n_obs, n_images, cell, spacegroup, dmin,
+                  f_true=None, rel_sigma=0.05):
     """An unmerged data set made with numpy from the seed: ((columns, MTZ
     types) for write_mtz, the ASU's Miller indices, their true F). Every
-    reflection of the ASU to dmin has F ~ sqrt(Exp(1)) (Wilson, acentric);
+    reflection of the ASU to dmin has F ~ sqrt(Exp(1)) (Wilson, acentric),
+    or the given f_true (in the ASU's order);
     each observation picks a reflection, an image (BATCH 1..n_images) and a
     symmetry equivalent with either Friedel sign (its observed H, K, L;
     M/ISYM asks the writer to store the ASU index and the orientation);
     XDET, YDET, BG, SIGBG and FRACTIONCALC are detector-like columns.
-    I = s F^2 + SIGI N(0, 1), SIGI = 0.05 + 0.05 s F^2, with a scale s =
+    I = s F^2 + SIGI N(0, 1), SIGI = 0.05 + rel_sigma s F^2, with a scale s =
     exp(0.3 N(0, 1) per image + 0.2 (XDET - 0.5)) the model can learn from
     the metadata."""
     from careless_tpu_torch.xtal import SpaceGroup, UnitCell
@@ -1345,7 +1371,8 @@ def synthetic_mtz(seed, n_obs, n_images, cell, spacegroup, dmin):
     sg = SpaceGroup.from_name(spacegroup)
     uc = UnitCell(*cell)
     hkl_asu = sg.generate_reciprocal_asu(uc, dmin)
-    f_true = np.sqrt(rng.exponential(1.0, len(hkl_asu)))
+    drawn = np.sqrt(rng.exponential(1.0, len(hkl_asu)))
+    f_true = drawn if f_true is None else np.asarray(f_true)
     refl = rng.integers(0, len(hkl_asu), n_obs)
     image = rng.integers(0, n_images, n_obs)
     rots = np.stack([op.rot_array for op in sg.ops])
@@ -1357,7 +1384,7 @@ def synthetic_mtz(seed, n_obs, n_images, cell, spacegroup, dmin):
     scale = np.exp(0.3 * rng.normal(size=n_images)[image]
                    + 0.2 * (xdet - 0.5))
     i_true = scale * f_true[refl] ** 2
-    sig = 0.05 + 0.05 * i_true
+    sig = 0.05 + rel_sigma * i_true
     cols = {"H": hkl[:, 0].astype(np.int32), "K": hkl[:, 1].astype(np.int32),
             "L": hkl[:, 2].astype(np.int32),
             "M/ISYM": np.zeros(n_obs, np.int32),
@@ -1568,11 +1595,12 @@ def synthetic_stream(seed, path, n_refl, n_crystals, cell, spacegroup, dmin):
 
 
 def model_on(device, seed, n_obs, n_refl, n_images, d_meta, n_layers,
-             flags=None, laue=False, times=None):
+             flags=None, laue=False, times=None, two_files=False):
     """The model of the CLI's defaults with `flags` on top, built by
     DataManager.build_model on `device` (None: the card), on rows sorted by
     refl_id (mono) or in the harmonic-chain layout (Laue), with plans.
-    `times`, when given, receives the host seconds of each set-up step."""
+    `times`, when given, receives the host seconds of each set-up step.
+    two_files: the problem of two_file_problem (n_refl unused)."""
     from careless_tpu_torch.io.manager import DataManager
     from careless_tpu_torch.models.base import Inputs
 
@@ -1585,8 +1613,11 @@ def model_on(device, seed, n_obs, n_refl, n_images, d_meta, n_layers,
         times[name] = t1 - t0
         t0 = t1
 
-    arrays, asu, f_true = build_problem(seed, n_obs, n_refl, n_images,
-                                        d_meta, laue=laue)
+    if two_files:
+        arrays, asu, f_true = two_file_problem(seed, n_obs, n_images, d_meta)
+    else:
+        arrays, asu, f_true = build_problem(seed, n_obs, n_refl, n_images,
+                                            d_meta, laue=laue)
     lap("problem_s")
     parser = types.SimpleNamespace(**{**MONO_DEFAULTS,
                                       "mlp_layers": n_layers, **(flags or {})})
@@ -1602,17 +1633,43 @@ def model_on(device, seed, n_obs, n_refl, n_images, d_meta, n_layers,
     return model, params, trainer, inputs, f_true
 
 
+def two_file_problem(seed, n_obs, n_images, d_meta, cell=CLI_CELL,
+                     spacegroup=CLI_SPACEGROUP, dmin=3.0):
+    """build_problem's mono problem over two files of one ASU each (a real
+    ReciprocalASUCollection, as --separate-files gives: the double-Wilson
+    prior's parent table needs its Miller indices), every observation's
+    file_id its reflection's file."""
+    from careless_tpu_torch.io.asu import (ReciprocalASU,
+                                           ReciprocalASUCollection)
+    from careless_tpu_torch.xtal import SpaceGroup, UnitCell
+
+    asu = ReciprocalASU(UnitCell(*cell), SpaceGroup.from_name(spacegroup),
+                        dmin, False)
+    rac = ReciprocalASUCollection([asu, asu])
+    arrays, _, f_true = build_problem(seed, n_obs, rac.n_refl, n_images,
+                                      d_meta)
+    file_id = rac.asu_ids[arrays[0]]
+    return arrays[:2] + (file_id,) + arrays[3:], rac, f_true
+
+
+# the double-Wilson flags of a parent and its child at r = 0.9, r trained
+DOUBLE_WILSON = dict(parents="None,0", dwr="0.,0.9",
+                     optimize_double_wilson_r=True)
+
+
 def grad_rel_err(g_a, g_b):
     """The largest per-tensor error relative to the tensor's largest entry."""
     return max(((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
                for a, b in zip(g_a, g_b))
 
 
-def check_phase(torch, dev, seed, flags=None, label="default"):
+def check_phase(torch, dev, seed, flags=None, label="default",
+                two_files=False):
     """Loss and every parameter gradient of the port at a small size on
     the card (kernels) against the same computation on the CPU (plain
     versions), at the same parameters, uniforms and noise (mc = 1), for
-    the CLI defaults with `flags` on top."""
+    the CLI defaults with `flags` on top (on two_file_problem's two files
+    when two_files: the double-Wilson prior's)."""
     from careless_tpu_torch.models.merging.variational import (
         flatten_params, map_params)
     from careless_tpu_torch.utils.params import (params_from_jax,
@@ -1620,13 +1677,14 @@ def check_phase(torch, dev, seed, flags=None, label="default"):
 
     sizes = (20_000, 2_000, 50, D_META, N_LAYERS)
     rng = np.random.default_rng(seed + 1)
-    u_f = rng.random(sizes[1]).astype(np.float32)
     eps = rng.standard_normal(sizes[0]).astype(np.float32)
     results = []
     for device in ("cpu", dev):
         model, params, _, inputs, _ = model_on(device, seed, *sizes,
-                                               flags=flags)
+                                               flags=flags,
+                                               two_files=two_files)
         if not results:
+            u_f = rng.random(inputs.plans.refl.table_size).astype(np.float32)
             # perturb the identity-initialised MLP so every layer matters
             start = map_params(lambda a: a + 0.05 * rng.standard_normal(
                 a.shape).astype(np.float32), params_to_numpy(params))
@@ -1646,7 +1704,8 @@ def check_phase(torch, dev, seed, flags=None, label="default"):
     g_err = grad_rel_err(g_dev, g_cpu)
     check(g_err < 1e-3, f"check ({label}): gradients on the card vs CPU: "
           f"rel err {g_err}")
-    print(f"check ({label}, {type(model.scaler).__name__}): loss "
+    print(f"check ({label}, {type(model.scaler).__name__}, "
+          f"{type(model.prior).__name__}): loss "
           f"{l_dev:.6f} vs CPU {l_cpu:.6f} (rel {rel:.2e}); "
           f"max per-tensor grad rel err {g_err:.2e} over {len(g_dev)} "
           "tensors", flush=True)
@@ -1987,46 +2046,53 @@ def laue_phase(torch, dev, gen, seed, peak_flops, peak_bw):
 
 
 def step_kernels(torch, dev, gen, inputs, slice_, peak_flops, peak_bw,
-                 label):
+                 label, frozen_scaler=False, noise_calls=(None,)):
     """Each kernel a training step on the planned `inputs` launches besides
     K5 (k5_case holds that), held against its plain version at this run's
     shapes and timed, at kernel_phase's tolerances: K1 on the inputs'
-    metadata, K3 for the step's N normals, and K2 at each (table, ids)
-    pair of the step (GATHERS_PER_STEP[slice_] of them: the refl plan's,
-    through the chain permute on Laue, and the image plan's; a gather
-    that streams is K5's), on random
+    metadata (its backward too unless frozen_scaler), K3 for the step's N
+    normals (or for each of noise_calls' counts, the stacked halves' K3
+    launches, at offset 0), and K2 at each (table, ids) pair of the step
+    (GATHERS_PER_STEP[slice_] of them: the refl plan's, through the chain
+    permute on Laue, and the image plan's, whose backward pairs a frozen
+    scaler does not run; a gather that streams is K5's), on random
     tables of the step's sizes by the plans' own ids. Returns each
     kernel's largest error, and K2's row at the image cotangent's random
-    permute (LAUE_PERM_PAIR), on Laue the step's one K2 launch whose table
-    is too large to stay in L2 beside its ids and output."""
+    permute (LAUE_PERM_PAIR; None when the scaler is frozen), on Laue the
+    step's one K2 launch whose table is too large to stay in L2 beside its
+    ids and output."""
     import careless_tpu_torch.ops.plan_gather as pg
 
     n, plans = inputs.n_obs, inputs.plans
     refl, image = plans.refl, plans.image
     n_refl, n_images = refl.table_size, image.table_size
-    m = (n + pg._CHUNK) // pg._CHUNK   # segment-sum chunks over N entries
-    rows = trunk_rows(torch, gen, inputs.metadata, peak_flops, peak_bw)
+    rows = trunk_rows(torch, gen, inputs.metadata, peak_flops, peak_bw,
+                      backward=not frozen_scaler)
     chain = isinstance(refl, pg.ChainGatherPlan)
     inner = refl.inner if chain else refl
     pairs = {}
     if chain:
         pairs["z_f by sigma (forward permute)"] = (n_refl, refl.sigma)
     k5 = inner.perm_plan is not None and inner.perm_plan.stream
+    # the segment sums' tables: the padded cotangent's chunks
+    # (plan.chunks), and their hi and lo prefixes
     pairs.update({
         "z_f by refl_id": (n_refl, None if inner.stream else inner.ids),
         "refl cotangent by perm": (n, None if k5 else inner.perm),
-        "refl segment-sum boundaries": (m * pg._CHUNK, inner.pos),
-        "refl chunk prefixes": (2 * m, inner.cp_ids),
+        "refl segment-sum boundaries": (inner.chunks * pg._CHUNK, inner.pos),
+        "refl chunk prefixes": (2 * inner.chunks, inner.cp_ids),
     })
     if chain:
         pairs["cotangent by sigma_inv (backward permute)"] = (
             n_refl, refl.sigma_inv)
-    pairs.update({
-        "image scales by image_id": (n_images, image.ids),
-        LAUE_PERM_PAIR: (n, image.perm),
-        "image segment-sum boundaries": (m * pg._CHUNK, image.pos),
-        "image chunk prefixes": (2 * m, image.cp_ids),
-    })
+    pairs["image scales by image_id"] = (n_images, image.ids)
+    if not frozen_scaler:
+        pairs.update({
+            LAUE_PERM_PAIR: (n, image.perm),
+            "image segment-sum boundaries": (image.chunks * pg._CHUNK,
+                                             image.pos),
+            "image chunk prefixes": (2 * image.chunks, image.cp_ids),
+        })
     pairs = {k: v for k, v in pairs.items() if v[1] is not None}
     check(image.perm is not None, f"{label}: the image ids are sorted; the "
           "step has no image cotangent permute")
@@ -2035,12 +2101,16 @@ def step_kernels(torch, dev, gen, inputs, slice_, peak_flops, peak_bw,
     gathers = {k: gather_row(torch, gen, size, ids, k, peak_flops, peak_bw,
                              calls=LAUE_HOST_CALLS)
                for k, (size, ids) in pairs.items()}
-    rows["philox_normal"] = philox_row(torch, dev, gen, n, 0, peak_flops,
-                                       peak_bw)
+    normals = [philox_row(torch, dev, gen, n if c is None else c, 0,
+                          peak_flops, peak_bw) for c in noise_calls]
+    rows["philox_normal"] = max(normals, key=lambda r: r["max_abs_err"])
     print(f"{label} kernels at {n} observations: " + json.dumps(
-        {**rows, "gather": gathers}), flush=True)
+        {**rows, "gather": gathers,
+         "philox_normal_calls": normals}), flush=True)
     held = {k: v["max_abs_err"] for k, v in rows.items()}
     held["gather"] = max(v["max_abs_err"] for v in gathers.values())
+    if frozen_scaler:
+        return held, None
     return held, dict(gathers[LAUE_PERM_PAIR], launch_site=(
         f"{LAUE_PERM_PAIR}: one of the {label} step's "
         f"{GATHERS_PER_STEP[slice_]} K2 launches; launches counts all K2 "
@@ -2228,8 +2298,10 @@ def poly_cli_phase(torch, dev, gen, seed, peak_flops, peak_bw):
     manager calls give), and the "on" merge of a time-resolved pair:
     POLY_WARM_STEPS steps on the same file from --scale-file <first
     run>_scale.npz --freeze-scales, whose scale file must equal the first
-    run's bit for bit and whose loss must be finite. Returns the launches
-    of the first run and each held kernel's largest error."""
+    run's bit for bit, whose loss must be finite, and which launches no
+    K1-bwd and IMAGE_BACKWARD_GATHERS fewer K2 a step (the frozen scales
+    take no backward). Returns the launches of the first run and each held
+    kernel's largest error."""
     import tempfile
     from pathlib import Path
 
@@ -2317,13 +2389,14 @@ def poly_cli_phase(torch, dev, gen, seed, peak_flops, peak_bw):
     check(len(warm_loss) == POLY_WARM_STEPS
           and all(map(math.isfinite, warm_loss)),
           f"poly cli warm start: loss not finite: {warm_loss[:3]} ...")
-    per_step = {"gather": GATHERS_PER_STEP["laue"], "philox_normal": 1,
-                "fused_ll_fwd": 0, "fused_ll_bwd": 0, "gather_stream": 1}
-    for label, counts, steps in (("poly cli", launches, POLY_STEPS),
-                                 ("poly cli warm start", warm_launches,
-                                  POLY_WARM_STEPS)):
+    for label, counts, steps, frozen in (
+            ("poly cli", launches, POLY_STEPS, False),
+            ("poly cli warm start", warm_launches, POLY_WARM_STEPS, True)):
+        per_step = {"gather": GATHERS_PER_STEP["laue"]
+                    - IMAGE_BACKWARD_GATHERS * frozen, "philox_normal": 1,
+                    "fused_ll_fwd": 0, "fused_ll_bwd": 0, "gather_stream": 1}
         check_launches(counts, label, {
-            **{k: (steps + 2 if k == "trunk_fwd" else v)
+            **{k: (steps + 2 if k == "trunk_fwd" else 0 if frozen else v)
                for k, v in trunk_counts(steps, True, False).items()},
             **{k: v * steps + 2 * (k == "gather")
                for k, v in per_step.items()}})
@@ -2594,6 +2667,347 @@ def resume_phase(torch, dev, gen, seed, peak_flops, peak_bw):
                         dict(times, steps=steps), peak_gb)
     return held
 
+# half-dataset crossvalidation on the cli cell's MTZ: steps of the main run
+# and of every half, and repeats (K = 2 x repeats halves)
+XVAL_STEPS, XVAL_REPEATS = 100, 2
+XVAL_MODES = ("serial", "parallel")
+
+
+def xval_phase(torch, dev, gen, seed, peak_flops, peak_bw):
+    """Half-dataset crossvalidation through the port's CLI, on the card:
+    the cli phase's MTZ (synthetic_mtz, CLI_OBS observations) merged by
+    careless_tpu_torch.main.main(["mono", CLI_KEYS, file, out,
+    "--iterations=100", "--merge-half-datasets", "--half-dataset-repeats=2",
+    "--xval-mode=<mode>"]) in this process, once in each mode. Checks: the
+    _xval_0.mtz of each holds (repeat, half) in {0, 1}^2, each half's N
+    summing to its rows (the halves DataManager.split_data_by_image draws
+    for the seed, formatted here) and each repeat's to every observation;
+    the two forms' rows equal, their F and SigF within rtol 1e-3 / atol
+    1e-3 (the JAX package's bar for its own two forms), the largest
+    differences printed, and every column bit for bit (each half's
+    gradient summed in its serial order); the main run's scaler the same
+    before and after the half merges, bit for bit, and both runs' scale
+    files equal; the main
+    run's loss finite and falling; the launches, counted from 0 just before
+    the CLI call up to the half merges (the cli phase's counts at these
+    steps) and from 0 just before the half merges to their end: serial,
+    per half and step K1-fwd 1, K2 GATHERS_PER_STEP["xval"] and K3 1; the
+    parallel form per step K1-fwd 1 for all halves, K2 as one merge
+    (GATHERS_PER_STEP["xval"]) and K3 once per half; never K1-bwd (the
+    scaler is frozen), K4 or K5. Then the half path's kernels held against
+    their plain versions at each form's shapes (step_kernels, K1 forward
+    only: on the parallel form's stacked planned rows with its blocked
+    refl plan, K3 at each half's rows; and on the serial form's first half,
+    planned alone). Prints each form's set-up, seconds of half merging and
+    steps/s (steps of all halves, and half-steps). Returns the held
+    kernels' errors by form ("xval", "xval_serial")."""
+    import tempfile
+    from pathlib import Path
+
+    import careless_tpu_torch.main as cli
+    from careless_tpu_torch import kernels
+    from careless_tpu_torch.io.formatter import MonoFormatter
+    from careless_tpu_torch.io.manager import DataManager
+    from careless_tpu_torch.models.merging.variational import flatten_params
+    from careless_tpu_torch.parallel.xval import stack_halves
+    from careless_tpu_torch.parser import parser as cli_parser
+    from careless_tpu_torch.xtal import (DataSet, SpaceGroup, UnitCell,
+                                         read_mtz, write_mtz)
+
+    S, K = XVAL_STEPS, 2 * XVAL_REPEATS
+    (cols, types_), hkl_asu, f_true = synthetic_mtz(
+        seed, CLI_OBS, CLI_IMAGES, CLI_CELL, CLI_SPACEGROUP, CLI_DMIN)
+    crossvalidate = cli.run_half_dataset_crossvalidation
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    runs = {}
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        mtz = str(Path(tmp) / "unmerged.mtz")
+        write_mtz(DataSet(cols, cell=UnitCell(*CLI_CELL),
+                          spacegroup=SpaceGroup.from_name(CLI_SPACEGROUP),
+                          mtz_dtypes=types_), mtz)
+        del cols
+        argv = ["mono", CLI_KEYS, mtz, None, f"--iterations={S}",
+                "--disable-progress-bar", f"--seed={seed}",
+                "--merge-half-datasets",
+                f"--half-dataset-repeats={XVAL_REPEATS}"]
+        for mode in XVAL_MODES:
+            seen = {}
+
+            def counted(dm, trained, parser, device):
+                torch.cuda.synchronize()
+                seen["main"] = dict(kernels.LAUNCHES)
+                before = [t.clone() for _, t in
+                          flatten_params(trained["scaler"])]
+                kernels.reset_launches()
+                times = crossvalidate(dm, trained, parser, device)
+                torch.cuda.synchronize()
+                seen["xval"] = dict(kernels.LAUNCHES)
+                seen["scaler_kept"] = all(torch.equal(a, b) for a, (_, b) in
+                                          zip(before, flatten_params(
+                                              trained["scaler"])))
+                return times
+            out = str(Path(tmp) / mode)
+            cli.run_half_dataset_crossvalidation = counted
+            try:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                kernels.reset_launches()
+                times = cli.main(argv[:3] + [out] + argv[4:]
+                                 + [f"--xval-mode={mode}"])
+                torch.cuda.synchronize()
+            finally:
+                cli.run_half_dataset_crossvalidation = crossvalidate
+            _, _, loss, _ = read_cli_outputs(out)
+            with np.load(out + "_scale.npz") as f:
+                scale = {k: f[k] for k in f.files}
+            runs[mode] = dict(times=times, seen=seen, loss=loss, scale=scale,
+                              peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                              xval=read_mtz(out + "_xval_0.mtz"))
+
+        # the halves main() drew, and the parallel step's kernels
+        args = cli_parser.parse_args(argv[:3] + ["x"] + argv[4:])
+        inputs, rac = MonoFormatter.from_parser(args).format_files(
+            [mtz], device=dev)
+        dm = DataManager(inputs, rac, parser=args, device=dev)
+        del inputs
+        halves = [h for _ in range(XVAL_REPEATS)
+                  for h in dm.split_data_by_image()]
+        half_rows = [h.n_obs for h in halves]
+        stacked = stack_halves([dm.planned_rows(h).inputs for h in halves],
+                               dm.n_refl, dm.n_images)
+        held = {"xval": step_kernels(
+            torch, dev, gen, stacked.inputs, "xval", peak_flops, peak_bw,
+            "xval parallel", frozen_scaler=True, noise_calls=half_rows)[0]}
+        del stacked
+        # the serial form's first half: its own rows, plans and K3 call
+        held["xval_serial"], _ = step_kernels(
+            torch, dev, gen, dm.planned_inputs(halves[0]).inputs, "xval",
+            peak_flops, peak_bw, "xval serial half 0", frozen_scaler=True)
+        del halves, dm
+    result = dict(halves=K, half_rows=half_rows, steps=S)
+    for mode, run in runs.items():
+        ds, seen, loss = run["xval"], run["seen"], run["loss"]
+        check(seen["scaler_kept"], f"xval {mode}: the half merges changed "
+              "the main run's scaler")
+        check(len(loss) == S and all(map(math.isfinite, loss))
+              and loss[-1] < loss[0], f"xval {mode}: the main run's loss "
+              f"not finite and falling: {loss[:2]} ... {loss[-2:]}")
+        tags = sorted(set(zip(ds["repeat"].tolist(), ds["half"].tolist())))
+        check(tags == [(r, h) for r in (0, 1) for h in (0, 1)]
+              and ds.mtz_dtypes["repeat"] == ds.mtz_dtypes["half"] == "I",
+              f"xval {mode}: (repeat, half) {tags}")
+        n = [float(ds["N"][(ds["repeat"] == r) & (ds["half"] == h)]
+                   .astype(np.float64).sum()) for r, h in tags]
+        check(n == half_rows, f"xval {mode}: N sums to {n} by half, the "
+              f"halves hold {half_rows} rows")
+        check_launches(seen["main"], f"xval {mode} main run", {
+            **{k: (S + 2 if k == "trunk_fwd" else v)
+               for k, v in trunk_counts(S, True, False).items()},
+            "gather": GATHERS_PER_STEP["default"] * S + 2,
+            "philox_normal": S, "fused_ll_fwd": 0, "fused_ll_bwd": 0,
+            "gather_stream": 0})
+        merges = K if mode == "serial" else 1
+        check_launches(seen["xval"], f"xval {mode} half merges", {
+            **{k: 0 for k in kernels.LAUNCHES if k.startswith("trunk")},
+            "trunk_fwd": merges * S,
+            "gather": GATHERS_PER_STEP["xval"] * merges * S,
+            "philox_normal": K * S, "fused_ll_fwd": 0, "fused_ll_bwd": 0,
+            "gather_stream": 0})
+        t = run["times"]
+        result[mode] = dict(
+            setup_s=t["xval_setup_s"], merging_s=t["xval_train_s"],
+            steps_per_s=S / t["xval_train_s"],
+            half_steps_per_s=K * S / t["xval_train_s"],
+            output_s=t["xval_output_s"],
+            main_steps_per_s=t["steps"] / t["train_s"],
+            main_setup_s=t["setup_s"], peak_gb=run["peak_gb"],
+            launches={k: v for k, v in seen["xval"].items() if v})
+    a, b = (runs[m]["xval"] for m in XVAL_MODES)
+    check(all(np.array_equal(a[c], b[c])
+              for c in ("H", "K", "L", "repeat", "half", "N")),
+          "xval: the two forms' rows differ")
+    for c in ("F", "SigF"):
+        diff = np.abs(a[c] - b[c])
+        result[f"{c}_max_abs_diff"] = float(diff.max())
+        result[f"{c}_max_rel_diff"] = float((diff / np.abs(a[c])).max())
+        check(bool(np.all(diff <= 1e-3 + 1e-3 * np.abs(b[c]))),
+              f"xval: the forms' {c} differ past rtol 1e-3 / atol 1e-3: "
+              f"{diff.max()}")
+    # the parallel form sums each half's gradient in its serial order
+    # (parallel/xval.py), so every column agrees bit for bit
+    check(a.columns == b.columns and all(
+        a[c].tobytes() == b[c].tobytes() for c in a.columns),
+        "xval: the two forms' _xval_0.mtz differ in their bits")
+    scales = [runs[m]["scale"] for m in XVAL_MODES]
+    check(scales[0].keys() == scales[1].keys() and all(
+        np.array_equal(scales[0][k], scales[1][k]) for k in scales[0]),
+        "xval: the two runs' main merges wrote different scale files")
+    result["cc_true_f_by_half"] = [
+        cc_true_f("xval", a.select((a["repeat"] == r) & (a["half"] == h)),
+                  hkl_asu, f_true) for r in (0, 1) for h in (0, 1)]
+    print("xval: " + json.dumps(result), flush=True)
+    for mode in XVAL_MODES:
+        r = result[mode]
+        print(f"xval {mode}: set-up s {r['setup_s']}, half merging s "
+              f"{r['merging_s']}, steps/s {r['steps_per_s']} (half-steps/s "
+              f"{r['half_steps_per_s']}), output s {r['output_s']}",
+              flush=True)
+    return held
+
+
+# the double-Wilson CLI: a parent MTZ of PRIOR_OBS observations and a
+# sparser, noisier child (PRIOR_CHILD_OBS, SIGI = 0.05 + PRIOR_CHILD_SIGMA I)
+# whose true F is drawn at correlation PRIOR_R from the parent's, merged
+# PRIOR_STEPS steps: the case the prior is for, where the parent informs
+# the child's reflections beyond its own few observations
+PRIOR_OBS, PRIOR_IMAGES, PRIOR_STEPS, PRIOR_DMIN, PRIOR_R = \
+    200_000, 500, 1_000, 2.0, 0.9
+PRIOR_CHILD_OBS, PRIOR_CHILD_SIGMA = 20_000, 0.5
+# the parent's merged F's least correlation with its true F, and the least
+# the coupled child's correlation must exceed the child's merged alone
+# under the Wilson prior by: the first card reading (seed 0) gave 0.9639,
+# and 0.7763 against 0.2123, a gain of 0.5640; a prior blind to the parent
+# is the Wilson prior, and gains ~0
+PRIOR_MIN_CC, PRIOR_MIN_GAIN = 0.94, 0.45
+
+
+def child_f(seed, f_parent, r):
+    """A child's true amplitudes |r F + sqrt(1 - r^2) e|, F the parent's
+    (its phase taken as 0) and e a complex normal of unit mean square: the
+    double-Wilson model's child, Wilson-distributed again."""
+    rng = np.random.default_rng(seed)
+    e = (rng.normal(size=len(f_parent))
+         + 1j * rng.normal(size=len(f_parent))) / np.sqrt(2.0)
+    return np.abs(r * f_parent + np.sqrt(1.0 - r * r) * e)
+
+
+def prior_phase(torch, dev, gen, seed, peak_flops, peak_bw):
+    """The double-Wilson prior through the port's CLI, on the card: two
+    seeded MTZs of one truth (synthetic_mtz in the cli cell's P 21 21 21 to
+    PRIOR_DMIN: the parent at PRIOR_OBS observations; the child at
+    PRIOR_CHILD_OBS with PRIOR_CHILD_SIGMA's errors and its true F from
+    child_f at r = PRIOR_R), merged by careless_tpu_torch.main.main(
+    ["mono", CLI_KEYS, parent, child, out, "--separate-files",
+    "--double-wilson-parents=None,0", "--double-wilson-r=0.,0.9",
+    "--optimize-double-wilson-r"]) for PRIOR_STEPS steps in this process;
+    then the child alone under the Wilson prior, the same steps. Checks:
+    the history's rDW_0 and rDW_1 columns, rDW_1 finite and inside (-1, 1);
+    the loss finite and falling; the parent's merged F correlating with its
+    true F at least PRIOR_MIN_CC, and the coupled child's above the child's
+    merged alone by at least PRIOR_MIN_GAIN (a prior blind to its parent is
+    the Wilson prior, and gains nothing); the launches, counted from 0 just
+    before the coupled call: the cli phase's at these steps. Then the
+    kernels of the path, held against their plain versions at its shapes
+    (step_kernels on the planned inputs that the same formatter and data
+    manager calls give: both files' rows in one two-ASU table). Prints the
+    correlations, r's path and the set-up, steps/s and output times.
+    Returns each held kernel's largest error."""
+    import tempfile
+    from pathlib import Path
+
+    from careless_tpu_torch import kernels
+    from careless_tpu_torch.io.formatter import MonoFormatter
+    from careless_tpu_torch.io.manager import DataManager
+    from careless_tpu_torch.main import main as cli_main
+    from careless_tpu_torch.parser import parser as cli_parser
+    from careless_tpu_torch.xtal import (DataSet, SpaceGroup, UnitCell,
+                                         read_mtz, write_mtz)
+
+    parent = synthetic_mtz(seed + 10, PRIOR_OBS, PRIOR_IMAGES, CLI_CELL,
+                           CLI_SPACEGROUP, PRIOR_DMIN)
+    child = synthetic_mtz(seed + 11, PRIOR_CHILD_OBS, PRIOR_IMAGES, CLI_CELL,
+                          CLI_SPACEGROUP, PRIOR_DMIN,
+                          f_true=child_f(seed + 12, parent[2], PRIOR_R),
+                          rel_sigma=PRIOR_CHILD_SIGMA)
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        files = []
+        for name, ((cols, types_), _, _) in (("parent", parent),
+                                            ("child", child)):
+            files.append(str(Path(tmp) / f"{name}.mtz"))
+            write_mtz(DataSet(cols, cell=UnitCell(*CLI_CELL),
+                              spacegroup=SpaceGroup.from_name(
+                                  CLI_SPACEGROUP), mtz_dtypes=types_),
+                      files[-1])
+        out = str(Path(tmp) / "dw")
+        argv = ["mono", CLI_KEYS, *files, out, f"--iterations={PRIOR_STEPS}",
+                "--disable-progress-bar", f"--seed={seed}",
+                "--separate-files", "--double-wilson-parents=None,0",
+                "--double-wilson-r=0.,0.9", "--optimize-double-wilson-r"]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        times = cli_main(argv)
+        torch.cuda.synchronize()
+        launches = dict(kernels.LAUNCHES)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        merged = [read_mtz(f"{out}_{i}.mtz") for i in range(2)]
+        with open(out + "_history.csv") as f:
+            lines = f.read().splitlines()
+        alone = str(Path(tmp) / "child_alone")
+        torch.cuda.reset_peak_memory_stats()
+        alone_times = cli_main(["mono", CLI_KEYS, files[1], alone,
+                                f"--iterations={PRIOR_STEPS}",
+                                "--disable-progress-bar", f"--seed={seed}"])
+        torch.cuda.synchronize()
+        alone_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        alone = read_mtz(alone + "_0.mtz")
+
+        # the kernels at this path's shapes, on the inputs main() trains on
+        args = cli_parser.parse_args(argv)
+        inputs, rac = MonoFormatter.from_parser(args).format_files(
+            files, device=dev)
+        planned = DataManager(inputs, rac, parser=args,
+                              device=dev).planned_inputs().inputs
+        del inputs
+        held, _ = step_kernels(torch, dev, gen, planned, "default",
+                               peak_flops, peak_bw, "prior")
+        del planned
+    head = lines[0].split(",")
+    history = {k: [float(r.split(",")[j]) for r in lines[1:]]
+               for j, k in enumerate(head)}
+    loss, r1 = history["loss"], history.get("rDW_1", [])
+    check("rDW_0" in history and len(r1) == PRIOR_STEPS
+          and all(math.isfinite(v) and -1 < v < 1 for v in r1),
+          f"prior: rDW_1 not finite inside (-1, 1): {r1[:2]} ... {r1[-2:]}")
+    check(len(loss) == PRIOR_STEPS and all(map(math.isfinite, loss))
+          and loss[-1] < loss[0], f"prior: loss not finite and falling: "
+          f"{loss[:2]} ... {loss[-2:]}")
+    cc_parent, cc_child = (
+        cc_true_f(f"prior {name}", m, truth[1], truth[2])
+        for name, m, truth in (("parent", merged[0], parent),
+                               ("child", merged[1], child)))
+    cc_alone = cc_true_f("prior child alone", alone, child[1], child[2])
+    check(cc_parent >= PRIOR_MIN_CC, f"prior: the parent's merged F "
+          f"correlates {cc_parent:.4f} with its true F, expected at least "
+          f"{PRIOR_MIN_CC}")
+    check(cc_child >= cc_alone + PRIOR_MIN_GAIN, f"prior: the coupled "
+          f"child's merged F correlates {cc_child:.4f} with its true F, the "
+          f"child's alone {cc_alone:.4f}: expected a gain of at least "
+          f"{PRIOR_MIN_GAIN}")
+    check_launches(launches, "prior", {
+        **{k: (PRIOR_STEPS + 2 if k == "trunk_fwd" else v)
+           for k, v in trunk_counts(PRIOR_STEPS, True, False).items()},
+        "gather": GATHERS_PER_STEP["default"] * PRIOR_STEPS + 2,
+        "philox_normal": PRIOR_STEPS, "fused_ll_fwd": 0, "fused_ll_bwd": 0,
+        "gather_stream": 0})
+    result = dict(cc_true_f_parent_child=[cc_parent, cc_child],
+                  cc_true_f_child_alone_wilson=cc_alone,
+                  child_gain=cc_child - cc_alone,
+                  true_f_correlation=float(np.corrcoef(parent[2],
+                                                       child[2])[0, 1]),
+                  rDW_1_first_last=[r1[0], r1[-1]],
+                  loss_first_last=[loss[0], loss[-1]],
+                  reflections=[len(m) for m in merged],
+                  launches={k: v for k, v in launches.items() if v},
+                  held_max_abs_err=held)
+    print("prior: " + json.dumps(result), flush=True)
+    print_cli_times("prior", times, peak_gb)
+    print_cli_times("prior child alone", alone_times, alone_peak_gb)
+    return held
+
 
 def trunk_counts(steps, head, bf16, wide=False):
     """The K1 launch counts of a slice that runs the (head, bf16)
@@ -2718,8 +3132,11 @@ def main():
     check_phase(torch, dev, args.seed)
     for label, flags in {**SCALER_SLICES, "wide": WIDE_SLICE,
                          "wide_bf16": dict(WIDE_SLICE,
-                                           mlp_dtype="bfloat16")}.items():
+                                           mlp_dtype="bfloat16"),
+                         "analytic_kl": dict(analytic_kl=True)}.items():
         check_phase(torch, dev, args.seed, flags, label)
+    check_phase(torch, dev, args.seed, DOUBLE_WILSON, "double_wilson",
+                two_files=True)
     check_mc2_phase(torch, dev, args.seed)
     check_laue_phase(torch, dev, args.seed)
 
@@ -2758,6 +3175,10 @@ def main():
     wide_launches = wide_slice_phase(torch, dev, args.seed)
     cli_phase(torch, dev, args.seed)
     held_at = resume_phase(torch, dev, gen, args.seed, peak_flops, peak_bw)
+    held_at.update(xval_phase(torch, dev, gen, args.seed, peak_flops,
+                              peak_bw))
+    held_at["prior"] = prior_phase(torch, dev, gen, args.seed, peak_flops,
+                                   peak_bw)
     held_at.update({label: phase(torch, dev, gen, args.seed, peak_flops,
                                  peak_bw)[1]
                     for label, phase in (("poly_cli", poly_cli_phase),

@@ -371,3 +371,58 @@ def test_each_cli_resumes_the_others_checkpoint(cli_checkpoints, direction):
                                    + "_checkpoint.npz").files
                 if not k.startswith("rng/")} for p in ("jax", "port")}
     assert keys["jax"] == keys["port"]
+
+
+def test_prior_r_raw_crosses_both_ways(tmp_path):
+    """--optimize-double-wilson-r puts the prior's r in the parameters
+    (params/prior/r_raw): a checkpoint of the port's two-file run loads
+    through the JAX load_state into the JAX model's tree and optax state
+    (r_raw, its Adam moments and the count bit for bit), and the JAX
+    package's checkpoint of its own run loads into the port's."""
+    from tests.test_torch_priors import _two_file_managers
+
+    flags = dict(parents="None,0", dwr="0.,0.9",
+                 optimize_double_wilson_r=True)
+    port, jdm = _two_file_managers(flags)
+    _, params, trainer = port.build_model()
+    trainer.train(params, seeded_generator(0, "cpu"),
+                  port.planned_inputs().inputs, 2, device="cpu",
+                  checkpoint_path=str(tmp_path / "port"),
+                  checkpoint_frequency=2)
+    stored = np.load(tmp_path / "port.npz")
+    assert stored["params/prior/r_raw"].shape == (2,)
+    jmodel, jparams, jtrainer = jdm.build_model()
+    state = jtrainer.optimizer().init(jparams)
+    got, got_state, step, _ = jax_load_state(str(tmp_path / "port"),
+                                             jparams, state)
+    assert step == 2
+    np.testing.assert_array_equal(np.asarray(got["prior"]["r_raw"]),
+                                  stored["params/prior/r_raw"])
+    (adam,) = [s for s in jax.tree.leaves(
+        got_state, is_leaf=lambda s: isinstance(s, optax.ScaleByAdamState))
+        if isinstance(s, optax.ScaleByAdamState)]
+    assert int(adam.count) == 2
+    np.testing.assert_array_equal(np.asarray(adam.mu),
+                                  stored[adam_prefix() + ".mu"])
+
+    jtrainer.train(jparams, jax.random.PRNGKey(0),
+                   jdm.inputs.sorted_by_refl().with_plans(
+                       jdm.n_refl, jdm.n_images, mlp_width=jdm.mlp_width),
+                   2, progress=False, checkpoint_path=str(tmp_path / "jax"),
+                   checkpoint_frequency=2)
+    written = np.load(tmp_path / "jax.npz")
+    assert not np.array_equal(written["params/prior/r_raw"],
+                              np.asarray(jparams["prior"]["r_raw"]))
+    _, params, trainer = port.build_model()
+    leaves = [t for _, t in flatten_params(params)]
+    opt = trainer.optimizer(leaves)
+    step, _, rng = load_state(str(tmp_path / "jax"), params, opt,
+                              adam_prefix())
+    assert step == 2 and rng is None
+    np.testing.assert_array_equal(params["prior"]["r_raw"].numpy(),
+                                  written["params/prior/r_raw"])
+    at = [k for k, _ in flatten_params(params)].index("prior/r_raw")
+    np.testing.assert_array_equal(
+        opt.state[leaves[at]]["exp_avg"].numpy(),
+        np.split(written[adam_prefix() + ".mu"], np.cumsum(
+            [t.numel() for t in leaves])[:-1])[at])

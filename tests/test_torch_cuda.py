@@ -1029,3 +1029,145 @@ def test_gather_stream_refuses_a_window_past_shared_memory(cuda):
                                           device=cuda),
                               torch.zeros(1, dtype=torch.int32, device=cuda),
                               window, 64)
+
+
+def _halves_on(device, laue, seed=3, clip=None, **flags):
+    """A 2-repeat half split (K = 4) of build_problem's data on `device`,
+    the manager and the frozen-scaler trainer of the CLI defaults with
+    --global-clipnorm `clip` and `flags`, 2 layers."""
+    import dataclasses
+    import types
+
+    import chip_smoke
+    from careless_tpu_torch.io.manager import DataManager
+    from careless_tpu_torch.models.base import Inputs
+
+    arrays, asu, _ = chip_smoke.build_problem(seed, 20_000, 2_000, 40, 4,
+                                              laue=laue)
+    parser = types.SimpleNamespace(**{**chip_smoke.MONO_DEFAULTS,
+                                      "mlp_layers": 2, "seed": seed,
+                                      "global_clipnorm": clip, **flags})
+    dm = DataManager(Inputs.from_arrays(*arrays, device=device), asu, parser,
+                     device=device)
+    _, params, trainer = dm.build_model()
+    trainer = dataclasses.replace(trainer, freeze=("scaler",))
+    halves = dm.split_data_by_image() + dm.split_data_by_image()
+    return dm, params, trainer, halves
+
+
+@pytest.mark.parametrize("clip", [None, 0.5], ids=["noclip", "clip"])
+@pytest.mark.parametrize("laue", [False, True], ids=["mono", "laue"])
+def test_xval_parallel_equals_serial_on_the_card(cuda, laue, clip):
+    """The parallel form (parallel/xval.py) against each half trained
+    alone by Trainer.train, on the card, 3 steps: each half's parameters
+    bit for bit (the blocked segment sum keeps each half's sums in its
+    serial order), at rtol 1e-5 under --global-clipnorm 0.5 (each half's
+    norm sums its leaves in a row of K, so the clip factor may round
+    otherwise), and its loss, NLL, KL and Grad Norm history at rtol 1e-5;
+    K1-bwd never launched."""
+    from careless_tpu_torch.device import seeded_generator
+    from careless_tpu_torch.models.merging.variational import flatten_params
+    from careless_tpu_torch.parallel.xval import (half_params,
+                                                  make_half_keys,
+                                                  stack_halves, train_halves)
+
+    dm, params, trainer, halves = _halves_on(cuda, laue, clip=clip)
+    seeds = make_half_keys(3, 2)
+    kernels.reset_launches()
+    serial = [trainer.train(params, seeded_generator(s, cuda),
+                            dm.planned_inputs(h).inputs, 3, device=cuda)
+              for h, s in zip(halves, seeds)]
+    stacked = stack_halves([dm.planned_rows(h).inputs for h in halves],
+                           dm.n_refl, dm.n_images)
+    trained, history = train_halves(trainer, params, seeds, stacked, 3,
+                                    device=cuda)
+    assert kernels.LAUNCHES["trunk_bwd"] == 0
+    assert kernels.LAUNCHES["trunk_fwd"] == 4 * 3 + 3
+    for k, (p_serial, h_serial) in enumerate(serial):
+        got = dict(flatten_params(half_params(trained, k, trainer.freeze)))
+        for name, want in flatten_params(p_serial):
+            if clip is None:
+                assert torch.equal(got[name], want), (k, name)
+            else:
+                np.testing.assert_allclose(got[name].cpu().numpy(),
+                                           want.cpu().numpy(), rtol=1e-5,
+                                           atol=1e-6, err_msg=name)
+        for key, values in h_serial.items():
+            np.testing.assert_allclose(np.asarray(history[key])[:, k],
+                                       values, rtol=1e-5, err_msg=key)
+
+
+def test_xval_k3_per_half_is_the_serial_noise(cuda, monkeypatch):
+    """The parallel form launches K3 once per half a step at offset 0 with
+    that half's key, and its normals are the serial half's bit for bit."""
+    import careless_tpu_torch.models.merging.variational as variational
+    import careless_tpu_torch.parallel.xval as xval
+    from careless_tpu_torch.device import seeded_generator
+
+    dm, params, trainer, halves = _halves_on(cuda, False)
+    seeds = xval.make_half_keys(3, 2)
+    drawn = {"serial": [], "parallel": []}
+
+    def spy(where, real):
+        def draw(n, seed, offset, device):
+            out = real(n, seed, offset, device)
+            drawn[where].append((n, seed, offset, out.clone()))
+            return out
+        return draw
+    monkeypatch.setattr(variational, "prng_normal",
+                        spy("serial", variational.prng_normal))
+    monkeypatch.setattr(xval, "prng_normal", spy("parallel",
+                                                 xval.prng_normal))
+    for h, s in zip(halves, seeds):
+        trainer.train(params, seeded_generator(s, cuda),
+                      dm.planned_inputs(h).inputs, 2, device=cuda)
+    stacked = xval.stack_halves([dm.planned_rows(h).inputs for h in halves],
+                                dm.n_refl, dm.n_images)
+    kernels.reset_launches()
+    xval.train_halves(trainer, params, seeds, stacked, 2, device=cuda)
+    assert kernels.LAUNCHES["philox_normal"] == 4 * 2
+    # serial: half by half, step by step; parallel: step by step, half by half
+    serial = [drawn["serial"][2 * k + i] for i in range(2) for k in range(4)]
+    assert len(drawn["parallel"]) == len(serial) == 8
+    for (n, seed, offset, a), (m, key, at, b) in zip(drawn["parallel"],
+                                                     serial):
+        assert (n, seed, offset) == (m, key, at) and offset == 0
+        assert torch.equal(a, b)
+
+
+def test_xval_fused_k4_per_half_on_the_card(cuda):
+    """--mc-samples=2 --fused-kernel=on with the Student-t likelihood and
+    Ev11 (K4's studentt_ev11): the parallel form launches K4 once per
+    half and sample each way, with that half's key, and no K3; each half's
+    parameters (its Ev11 scalars too) equal its serial run's bit for bit
+    after 3 steps, as on the CPU, and its history at rtol 1e-5."""
+    from careless_tpu_torch.device import seeded_generator
+    from careless_tpu_torch.models.merging.variational import flatten_params
+    from careless_tpu_torch.parallel.xval import (half_params,
+                                                  make_half_keys,
+                                                  stack_halves, train_halves)
+
+    dm, params, trainer, halves = _halves_on(
+        cuda, False, mc_samples=2, fused_kernel="on",
+        studentt_likelihood_dof=4.0, refine_uncertainties=True)
+    assert trainer.model.fused_kernel and trainer.model.mc_samples == 2
+    seeds = make_half_keys(3, 2)
+    serial = [trainer.train(params, seeded_generator(s, cuda),
+                            dm.planned_inputs(h).inputs, 3, device=cuda)
+              for h, s in zip(halves, seeds)]
+    stacked = stack_halves([dm.planned_rows(h).inputs for h in halves],
+                           dm.n_refl, dm.n_images)
+    kernels.reset_launches()
+    trained, history = train_halves(trainer, params, seeds, stacked, 3,
+                                    device=cuda)
+    assert kernels.LAUNCHES["fused_ll_fwd"] == 4 * 2 * 3
+    assert kernels.LAUNCHES["fused_ll_bwd"] == 4 * 2 * 3
+    assert kernels.LAUNCHES["philox_normal"] == 0
+    assert kernels.LAUNCHES["trunk_bwd"] == 0
+    for k, (p_serial, h_serial) in enumerate(serial):
+        got = dict(flatten_params(half_params(trained, k, trainer.freeze)))
+        for name, want in flatten_params(p_serial):
+            assert torch.equal(got[name], want), (k, name)
+        for key, values in h_serial.items():
+            np.testing.assert_allclose(np.asarray(history[key])[:, k],
+                                       values, rtol=1e-5, err_msg=key)

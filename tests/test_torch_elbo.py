@@ -279,17 +279,6 @@ def test_entry_points_default_to_the_card():
                       dm.inputs.with_plans(dm.n_refl, dm.n_images), 1)
 
 
-@pytest.mark.parametrize("flag,value", [
-    ("analytic_kl", True), ("parents", "None,0"),
-])
-def test_unported_options_raise(flag, value):
-    arrays, centric, _ = _problem(200, 20, 3, 3, seed=6)
-    dm = DataManager(Inputs.from_arrays(*arrays, device="cpu"),
-                     _asu(centric), _parser(**{flag: value}), device="cpu")
-    with pytest.raises(NotImplementedError, match="not ported"):
-        dm.build_model()
-
-
 def test_without_image_scales_the_mlp_scales_alone():
     arrays, centric, _ = _problem(400, 30, 3, 3, seed=8)
     dm = DataManager(Inputs.from_arrays(*arrays, device="cpu"),

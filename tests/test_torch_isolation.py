@@ -78,6 +78,6 @@ print(json.dumps(sorted(sys.modules)))
                 "parser", "io.formatter", "io.asu", "xtal.mtz",
                 "xtal.dataset", "xtal.symmetry", "utils.checkpoint",
                 "utils.positional_encoding", "utils.laue", "xtal.stream",
-                "xtal.xds"):
+                "xtal.xds", "parallel.xval", "models.priors.double_wilson"):
         assert "careless_tpu_torch." + mod in loaded
     assert [m for m in loaded if forbidden(m)] == []
