@@ -2,10 +2,10 @@
 
 The same flags as careless_tpu/args/device_options.py, so that a command
 line of the JAX CLI parses here. The port reads --disable-gpu (the CPU),
---device-id (which card), --fused-kernel, --mlp-dtype and --seed. The flags
-that steer only JAX (--run-eagerly, --platform, --rng-impl, --jax-debug,
---shard-axis) and the unported ones (--num-devices above 1, --profile-dir)
-parse, and a value other than the default makes careless_tpu_torch.main
+--device-id (which card), --fused-kernel, --mlp-dtype, --profile-dir and
+--seed. The flags that steer only JAX (--run-eagerly, --platform,
+--rng-impl, --jax-debug, --shard-axis) and the unported --num-devices above
+1 parse, and a value other than the default makes careless_tpu_torch.main
 raise NotImplementedError naming the flag.
 """
 name = "Device Options"
@@ -74,8 +74,10 @@ args_and_kwargs = (
         "choices": ["threefry2x32", "rbg", "unsafe_rbg"],
     }),
     (("--profile-dir",), {
-        "help": "Capture a profiler trace of the training loop into this "
-                "directory. Not ported yet.",
+        "help": "Record the training loop with torch.profiler and write "
+                "its Chrome/TensorBoard trace (*.pt.trace.json) into this "
+                "directory. Every event is kept, so the trace grows with "
+                "the steps.",
         "type": str,
         "default": None,
     }),

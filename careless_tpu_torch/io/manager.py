@@ -23,17 +23,23 @@ Laue groups kept whole, renumbered and repacked) draw from numpy's
 default_rng(seed), so a seed holds out the JAX package's rows. Training and the outputs run on the planned copy of the
 inputs (planned_inputs: mono rows sorted by refl_id, Laue rows in the
 harmonic-chain layout), whose maps put the outputs back in row and group
-order.
+order. to_pickle and from_pickle (manager.py:52-60, --save-data-manager)
+keep a manager in a pickle of numpy arrays and the port's host classes,
+which loads where no CUDA is present; the planned copies are not kept
+and are rebuilt on demand. The JAX package's pickle holds jax arrays and
+careless_tpu classes, so the port does not read it.
 """
 from __future__ import annotations
 
+import io
+import pickle
 from typing import Iterator, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..device import DeviceLike, resolve_device
-from ..models.base import Inputs
+from ..models.base import ROW_FIELDS, Inputs
 from ..models.likelihoods import laue, mono
 from ..models.merging.surrogate import TruncatedNormalPosterior
 from ..models.merging.variational import Trainer, VariationalMergingModel
@@ -70,6 +76,15 @@ def _numpy(t) -> np.ndarray:
         else np.asarray(t)
 
 
+class _HostPickler(pickle.Pickler):
+    def reducer_override(self, obj):
+        if isinstance(obj, torch.Tensor):
+            raise pickle.PicklingError(
+                f"a {obj.device} tensor of shape {tuple(obj.shape)} would "
+                "be pickled; DataManager keeps numpy arrays in its pickle")
+        return NotImplemented
+
+
 class DataManager:
     """asu_collection exposes per-reflection `centric`, `multiplicity` and
     `dHKL` arrays; parser is the CLI namespace (careless_tpu/args)."""
@@ -84,6 +99,53 @@ class DataManager:
             getattr(parser, "seed", None) if parser is not None else None)
         self._planned = []   # (inputs, Planned), most recent last
 
+    # ------------------------------------------------------------- pickling
+    def __getstate__(self) -> dict:
+        """The manager with every tensor as a numpy array: Inputs' row
+        fields as a dict of arrays (None where absent), the device as its
+        name; the planned copies are left out (planned_inputs rebuilds
+        them, to the same rows and plans)."""
+        state = dict(self.__dict__)
+        state["inputs"] = {f: None if getattr(self.inputs, f) is None
+                           else _numpy(getattr(self.inputs, f))
+                           for f in ROW_FIELDS}
+        state["device"] = str(self.device)
+        state["_planned"] = []
+        return state
+
+    def __setstate__(self, state: dict) -> None:
+        """Back to tensors on the CPU; from_pickle moves them on."""
+        state = dict(state)
+        state["inputs"] = Inputs(**{
+            f: None if v is None else torch.as_tensor(v)
+            for f, v in state["inputs"].items()})
+        state["device"] = torch.device("cpu")
+        self.__dict__.update(state)
+
+    def to_pickle(self, filename: str) -> None:
+        """Write the manager (__getstate__'s numpy form). A tensor left
+        anywhere in it, whose pickle would load only where its device
+        exists, raises before the file is opened."""
+        buf = io.BytesIO()
+        _HostPickler(buf).dump(self)
+        with open(filename, "wb") as f:
+            f.write(buf.getvalue())
+
+    @classmethod
+    def from_pickle(cls, filename: str,
+                    device: DeviceLike = None) -> "DataManager":
+        """The manager to_pickle wrote, its inputs on `device` (None: the
+        card)."""
+        with open(filename, "rb") as f:
+            dm = pickle.load(f)
+        if not isinstance(dm, cls):
+            raise TypeError(f"{filename} holds a {type(dm).__name__}, not "
+                            f"a {cls.__name__}")
+        dm.device = resolve_device(device)
+        dm.inputs = dm.inputs.to(dm.device)
+        return dm
+
+    # ----------------------------------------------------------- table sizes
     @property
     def n_refl(self) -> int:
         """Global posterior-table size (= ASU-collection length)."""

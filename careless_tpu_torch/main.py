@@ -18,17 +18,23 @@ one the port wrote repeats the uninterrupted run bit for bit).
 the images with the trained scales frozen and writes them, with `repeat`
 and `half` columns, to `<out>_xval_<i>.mtz`: one after another
 (`--xval-mode=serial`, the JAX package's loop) or all in each step
-(`--xval-mode=parallel`, parallel/xval.py).
+(`--xval-mode=parallel`, parallel/xval.py). `--save-data-manager` also
+writes `<out>_data_manager.pickle` (DataManager.from_pickle reads it, on
+the card or the CPU); `--profile-dir=DIR` records the main merge's
+training under torch.profiler (CPU, and CUDA on the card) and writes its
+Chrome/TensorBoard trace, `<host>_<pid>.<ns>.pt.trace.json`, into DIR
+(the JAX package writes an XLA trace there).
 
 Counterpart of careless_tpu/main.py's main, run_careless and
 run_half_dataset_crossvalidation. Options that are not ported yet
-(several devices, profiling, the pickled data manager) and the flags that
-steer only JAX raise NotImplementedError naming the flag when given a
-value other than the default, so a JAX command line parses here and never
-runs something else than it asks for.
+(several devices, --shard-axis) and the flags that steer only JAX raise
+NotImplementedError naming the flag when given a value other than the
+default, so a JAX command line parses here and never runs something else
+than it asks for.
 """
 from __future__ import annotations
 
+import contextlib
 import csv
 import dataclasses
 import math
@@ -51,8 +57,6 @@ _UNPORTED = (
     ("--jax-debug", "jax_debug", bool),
     ("--shard-axis", "shard_axis", lambda v: v not in (None, "obs")),
     ("--num-devices", "num_devices", lambda v: (v or 0) > 1),
-    ("--profile-dir", "profile_dir", lambda v: v is not None),
-    ("--save-data-manager", "save_data_manager", bool),
 )
 
 
@@ -111,6 +115,23 @@ def write_history(history: dict, path: str) -> None:
 def _sync(dev: torch.device) -> None:
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
+
+
+def profiled(profile_dir: Optional[str], dev: torch.device):
+    """A context that records what runs in it with torch.profiler (host
+    ops, and the card's kernels and copies on a CUDA device) and writes
+    the Chrome/TensorBoard trace into profile_dir when it ends; a context
+    that does nothing without a directory. Every event is kept: the trace
+    grows with the steps it covers."""
+    if not profile_dir:
+        return contextlib.nullcontext()
+    from torch.profiler import (ProfilerActivity, profile,
+                                tensorboard_trace_handler)
+    activities = [ProfilerActivity.CPU]
+    if dev.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    return profile(activities=activities,
+                   on_trace_ready=tensorboard_trace_handler(profile_dir))
 
 
 def run_careless(parser, device: DeviceLike = None) -> Optional[dict]:
@@ -180,15 +201,17 @@ def run_careless(parser, device: DeviceLike = None) -> Optional[dict]:
     generator = seeded_generator(parser.seed, dev)
     lap("plans_s")
     base = parser.output_base
-    params, history = trainer.train(
-        params, generator, planned, parser.iterations,
-        chunk_size=parser.steps_per_compile, device=dev,
-        validation_data=validation,
-        validation_frequency=parser.validation_frequency,
-        checkpoint_path=(base + "_checkpoint" if parser.checkpoint_every
-                         else None),
-        checkpoint_frequency=parser.checkpoint_every,
-        resume_from=parser.resume_from)
+    with profiled(parser.profile_dir, dev):
+        params, history = trainer.train(
+            params, generator, planned, parser.iterations,
+            chunk_size=parser.steps_per_compile, device=dev,
+            validation_data=validation,
+            validation_frequency=parser.validation_frequency,
+            checkpoint_path=(base + "_checkpoint" if parser.checkpoint_every
+                             else None),
+            checkpoint_frequency=parser.checkpoint_every,
+            resume_from=parser.resume_from)
+        _sync(dev)
     lap("train_s")
 
     posterior_dist = model.posterior.distribution(params["posterior"])
@@ -197,6 +220,8 @@ def run_careless(parser, device: DeviceLike = None) -> Optional[dict]:
     write_history(history, base + "_history.csv")
     save_params(base + "_structure_factor", params["posterior"])
     save_params(base + "_scale", params["scaler"])
+    if parser.save_data_manager:
+        dm.to_pickle(base + "_data_manager.pickle")
     predictions = dm.get_predictions(model, params, train, test_value=0)
     if test is not None:
         # the train rows (test = 0), then the held-out rows (test = 1)

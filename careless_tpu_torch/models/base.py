@@ -35,7 +35,7 @@ class GatherPlans:
     harmonic_run: Optional[ConvRunPlan] = None
 
 
-_ROW_FIELDS = ("refl_id", "image_id", "file_id", "metadata", "intensities",
+ROW_FIELDS = ("refl_id", "image_id", "file_id", "metadata", "intensities",
                "uncertainties", "wavelength", "harmonic_id")
 # the fields the plans are built from: replacing one of them with the
 # plans still attached would compute on stale ids, or (the Laue run plan
@@ -95,7 +95,7 @@ class Inputs:
 
     def _rows(self, fn) -> "Inputs":
         return Inputs(**{f: None if getattr(self, f) is None
-                         else fn(getattr(self, f)) for f in _ROW_FIELDS})
+                         else fn(getattr(self, f)) for f in ROW_FIELDS})
 
     def replace(self, **fields) -> "Inputs":
         """dataclasses.replace that keeps the plan invariant: replacing a

@@ -6,7 +6,7 @@ _elbo_fused, :236-300; the prior's parameter protocol, :150-175; the MC
 and the analytic KL of _kl_terms, :570-585) and of its Trainer
 (:636-849):
 
-    z_F   ~ q(F)                         (S, n_refl)  truncated normal
+    z_F   ~ q(F)                         (S, n_refl)  the surrogate posterior
     eps   ~ N(0, 1)                      (S, N)       Philox (K3, or in K4)
     Sigma = loc + scale * eps            (S, N)       scaler through K1, K2
     Ipred = Sigma * z_F[refl_id]^2       (S, N)       K2, planned gather
@@ -114,10 +114,12 @@ class VariationalMergingModel:
              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """Negative ELBO (the loss) and its metrics, an S-sample MC estimate.
 
-        The reflection samples come from standard uniforms u_f (S, n_refl)
-        (drawn from `generator` when not given); the scale noise eps (S, N)
+        The reflection samples come from the posterior's standard noise
+        u_f, (S, n_refl) uniforms for the truncated normal and (3, S,
+        n_refl) normals for RiceWoolfson (drawn from `generator` when not
+        given); the scale noise eps (S, N)
         (when not given) from Philox with key `seed`, sample s at indices
-        [s N, (s + 1) N). At S = 1 u_f may be (n_refl,) and eps (N,). A
+        [s N, (s + 1) N). At S = 1 u_f and eps may leave out the sample axis. A
         fused-eligible model runs _elbo_fused, the same estimate through
         K4 (variational.py:179-234)."""
         if self._fused_eligible(inputs):
@@ -182,17 +184,19 @@ class VariationalMergingModel:
         return self._loss(q, z_f, ll_total, n, self._built_prior(params))
 
     def _samples(self, params, inputs, generator, u_f, eps):
-        """(q, z_f (S, n_refl), eps as (S, N) or None)."""
+        """(q, z_f (S, n_refl), eps as (S, N) or None). The posterior
+        distribution owns the draw: u_f is its noise for the S samples,
+        drawn by its draw_noise when not given."""
         if inputs.plans is None:
             raise ValueError("the ELBO needs gather plans (Inputs.with_plans)")
         S = self.mc_samples
         q = self.posterior.distribution(params["posterior"])
+        shape = (S,) + tuple(q.loc.shape)
         if u_f is None:
             if generator is None:
-                raise ValueError("pass a torch.Generator or the uniforms u_f")
-            u_f = torch.rand((S,) + tuple(q.loc.shape), generator=generator,
-                             device=q.loc.device, dtype=torch.float32)
-        z_f = q.sample_from_uniform(u_f.reshape(S, -1))
+                raise ValueError("pass a torch.Generator or the noise u_f")
+            u_f = q.draw_noise(generator, shape, q.loc.device)
+        z_f = q.sample_from_noise(u_f.reshape(q.noise_shape(shape)))
         return q, z_f, None if eps is None else eps.reshape(S, inputs.n_obs)
 
     def _loss(self, q, z_f, ll_total, n_obs, prior):

@@ -3,16 +3,17 @@
 Counterpart of careless_tpu/models/priors/wilson.py:22-84. Centric
 reflections: HalfNormal(sqrt(eps * Sigma)); acentric: Weibull(2,
 sqrt(eps * Sigma)), a Rayleigh; selected elementwise by the centric flag.
-expected_log_prob is the cross entropy of --analytic-kl.
+expected_log_prob is the cross entropy of --analytic-kl; as_stacy gives
+the same prior as one Stacy distribution, whose KL is analytic.
 """
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Union
+from typing import NamedTuple, Sequence, Union
 
 import torch
 
-from ...ops.distributions import HalfNormal, Weibull
+from ...ops.distributions import HalfNormal, Stacy, Weibull
 
 
 class WilsonPrior(NamedTuple):
@@ -28,6 +29,9 @@ class WilsonPrior(NamedTuple):
         pc, pa = self._parts()
         return torch.where(self.centric, pc.log_prob(x), pa.log_prob(x))
 
+    def prob(self, x):
+        return torch.exp(self.log_prob(x))
+
     def mean(self):
         pc, pa = self._parts()
         return torch.where(self.centric, pc.mean(), pa.mean())
@@ -35,6 +39,20 @@ class WilsonPrior(NamedTuple):
     def stddev(self):
         pc, pa = self._parts()
         return torch.where(self.centric, pc.stddev(), pa.stddev())
+
+    def sample(self, generator: torch.Generator,
+               sample_shape: Sequence[int] = ()) -> torch.Tensor:
+        """The centric and the acentric part each drawn for every entry
+        (the centric first), then selected by the flag."""
+        pc, pa = self._parts()
+        return torch.where(self.centric, pc.sample(generator, sample_shape),
+                           pa.sample(generator, sample_shape))
+
+    def as_stacy(self) -> Stacy:
+        """The same prior as a Stacy distribution (wilson.py:54-57)."""
+        return Stacy.wilson_prior(
+            torch.as_tensor(self.centric, dtype=torch.float32),
+            self.epsilon, self.sigma)
 
     def expected_log_prob(self, q, z_samples):
         """E_q[log p(z)] with every expectation that has a closed form taken

@@ -1,12 +1,17 @@
-"""Probability distributions on tensors: the pieces the mono merge uses.
+"""Probability distributions on tensors.
 
-Counterpart of careless_tpu/ops/distributions.py (Normal, Laplace, StudentT,
-TruncatedNormal, HalfNormal, Weibull, and for the double-Wilson prior
-FoldedNormal, Rice and RiceWoolfson), with the same formulas, so that at
-equal inputs the two packages agree to f32 rounding. Sampling takes an
-explicit torch.Generator; TruncatedNormal can also be sampled from given
-standard uniforms, which is how the tests hold it against JAX. Only what
-the merge's ELBO, its priors and DataManager use is here.
+Counterpart of careless_tpu/ops/distributions.py, class for class (Normal,
+Laplace, StudentT, HalfNormal, Weibull, Gamma, Exponential,
+TruncatedNormal, FoldedNormal, Rice, Amoroso, Stacy, RiceWoolfson), with
+the same formulas, so that at equal inputs the two packages agree to f32
+rounding. `sample(generator, sample_shape)` takes an explicit
+torch.Generator; its draws are not jax.random's. The surrogate posteriors
+(TruncatedNormal, RiceWoolfson) own their draw in two parts:
+draw_noise(generator, shape, device) takes the standard noise from the
+generator (uniforms for the truncated normal, normals for RiceWoolfson)
+and sample_from_noise turns given noise into the sample, by the route of
+the JAX package's sample, which is how the tests hold them against JAX.
+FoldedNormal and Rice also sample from given normals.
 """
 from __future__ import annotations
 
@@ -31,9 +36,37 @@ def _bcast(*xs):
         torch.as_tensor(x, dtype=torch.float32, device=device) for x in xs])
 
 
+def _shape(sample_shape, t: torch.Tensor):
+    return tuple(sample_shape) + tuple(t.shape)
+
+
+def _randn(generator, shape, device):
+    return torch.randn(shape, generator=generator, device=device,
+                       dtype=torch.float32)
+
+
+def _rand(generator, shape, device):
+    return torch.rand(shape, generator=generator, device=device,
+                      dtype=torch.float32)
+
+
+def _gamma(generator, concentration: torch.Tensor, shape) -> torch.Tensor:
+    """Standard Gamma(concentration) draws of `shape`; differentiable in
+    the concentration through the implicit gradient, as jax.random.gamma
+    is."""
+    return torch._standard_gamma(concentration.expand(shape).contiguous(),
+                                 generator=generator)
+
+
 class Normal(NamedTuple):
     loc: Numeric
     scale: Numeric
+
+    def sample(self, generator: torch.Generator,
+               sample_shape: Sequence[int] = ()) -> torch.Tensor:
+        loc, scale = _bcast(self.loc, self.scale)
+        return loc + scale * _randn(generator, _shape(sample_shape, loc),
+                                    loc.device)
 
     def log_prob(self, x):
         z = (x - self.loc) / self.scale
@@ -46,6 +79,15 @@ class Normal(NamedTuple):
     def stddev(self):
         return torch.as_tensor(self.scale)
 
+    def variance(self):
+        return torch.square(torch.as_tensor(self.scale))
+
+    def kl_divergence(self, other: "Normal"):
+        """KL(self || other), analytic."""
+        var_ratio = torch.square(torch.as_tensor(self.scale) / other.scale)
+        t1 = torch.square((self.loc - other.loc) / other.scale)
+        return 0.5 * (var_ratio + t1 - 1.0 - torch.log(var_ratio))
+
 
 def softplus(x: torch.Tensor) -> torch.Tensor:
     """log(1 + exp(x)) as jax.nn.softplus computes it, logaddexp(0, x):
@@ -57,6 +99,16 @@ def softplus(x: torch.Tensor) -> torch.Tensor:
 class Laplace(NamedTuple):
     loc: Numeric
     scale: Numeric
+
+    def sample(self, generator: torch.Generator,
+               sample_shape: Sequence[int] = ()) -> torch.Tensor:
+        """loc + scale * Laplace(0, 1) by jax.random.laplace's inverse CDF:
+        u uniform in [-1 + epsneg, 1), -sign(u) log1p(-|u|)."""
+        loc, scale = _bcast(self.loc, self.scale)
+        epsneg = float(np.finfo(np.float32).epsneg)
+        u = _rand(generator, _shape(sample_shape, loc), loc.device) \
+            * (2.0 - epsneg) - (1.0 - epsneg)
+        return loc - scale * torch.sign(u) * torch.log1p(-torch.abs(u))
 
     def log_prob(self, x):
         return (-torch.abs(x - self.loc) / self.scale
@@ -74,6 +126,16 @@ class StudentT(NamedTuple):
     loc: Numeric
     scale: Numeric
 
+    def sample(self, generator: torch.Generator,
+               sample_shape: Sequence[int] = ()) -> torch.Tensor:
+        """loc + scale * n / sqrt(2 g / df), n standard normal and
+        g ~ Gamma(df / 2): a t variate with df degrees of freedom."""
+        df, loc, scale = _bcast(self.df, self.loc, self.scale)
+        shape = _shape(sample_shape, loc)
+        n = _randn(generator, shape, loc.device)
+        g = _gamma(generator, 0.5 * df, shape)
+        return loc + scale * n * torch.rsqrt(2.0 * g / df)
+
     def log_prob(self, x):
         df = torch.as_tensor(self.df, dtype=torch.float32)
         z = (x - self.loc) / self.scale
@@ -89,6 +151,12 @@ class StudentT(NamedTuple):
 class HalfNormal(NamedTuple):
     scale: Numeric
 
+    def sample(self, generator: torch.Generator,
+               sample_shape: Sequence[int] = ()) -> torch.Tensor:
+        (scale,) = _bcast(self.scale)
+        return scale * torch.abs(_randn(generator, _shape(sample_shape, scale),
+                                        scale.device))
+
     def log_prob(self, x):
         z = x / self.scale
         return (0.5 * math.log(2.0 / math.pi)
@@ -100,10 +168,23 @@ class HalfNormal(NamedTuple):
     def stddev(self):
         return torch.as_tensor(self.scale) * math.sqrt(1.0 - 2.0 / math.pi)
 
+    def variance(self):
+        return torch.square(torch.as_tensor(self.scale)) \
+            * (1.0 - 2.0 / math.pi)
+
 
 class Weibull(NamedTuple):
     concentration: Numeric  # k
     scale: Numeric          # lambda
+
+    def sample(self, generator: torch.Generator,
+               sample_shape: Sequence[int] = ()) -> torch.Tensor:
+        """lam (-log u)^(1 / k), u uniform in [tiny, 1)."""
+        k, lam = _bcast(self.concentration, self.scale)
+        u = torch.clamp(_rand(generator, _shape(sample_shape, lam),
+                              lam.device),
+                        min=float(np.finfo(np.float32).tiny))
+        return lam * torch.pow(-torch.log(u), 1.0 / k)
 
     def log_prob(self, x):
         k, lam = _bcast(self.concentration, self.scale)
@@ -123,6 +204,36 @@ class Weibull(NamedTuple):
 
     def stddev(self):
         return torch.sqrt(self.variance())
+
+
+class Gamma(NamedTuple):
+    concentration: Numeric
+    rate: Numeric = 1.0
+
+    def sample(self, generator: torch.Generator,
+               sample_shape: Sequence[int] = ()) -> torch.Tensor:
+        conc, rate = _bcast(self.concentration, self.rate)
+        return _gamma(generator, conc, _shape(sample_shape, conc)) / rate
+
+    def log_prob(self, x):
+        conc, rate = _bcast(self.concentration, self.rate)
+        return (conc * torch.log(rate) + (conc - 1.0) * torch.log(x)
+                - rate * x - torch.lgamma(conc))
+
+
+class Exponential(NamedTuple):
+    rate: Numeric
+
+    def sample(self, generator: torch.Generator,
+               sample_shape: Sequence[int] = ()) -> torch.Tensor:
+        (rate,) = _bcast(self.rate)
+        e = torch.empty(_shape(sample_shape, rate), dtype=torch.float32,
+                        device=rate.device).exponential_(generator=generator)
+        return e / rate
+
+    def log_prob(self, x):
+        (rate,) = _bcast(self.rate)
+        return torch.log(rate) - rate * x
 
 
 class TruncatedNormal(NamedTuple):
@@ -148,12 +259,25 @@ class TruncatedNormal(NamedTuple):
         lb = torch.special.log_ndtr(beta)
         return lb + torch.log1p(-torch.exp(torch.clamp(la - lb, max=-1e-20)))
 
+    @staticmethod
+    def noise_shape(shape: Sequence[int]) -> tuple:
+        """The shape of the noise behind samples of `shape`."""
+        return tuple(shape)
+
+    @staticmethod
+    def draw_noise(generator: torch.Generator, shape: Sequence[int],
+                   device) -> torch.Tensor:
+        """Standard uniforms in [0, 1) of `shape`, the sample's shape."""
+        return _rand(generator, tuple(shape), device)
+
+    def sample_from_noise(self, noise: torch.Tensor) -> torch.Tensor:
+        return self.sample_from_uniform(noise)
+
     def sample(self, generator: torch.Generator,
                sample_shape: Sequence[int] = ()) -> torch.Tensor:
         loc, *_ = _bcast(self.loc, self.scale, self.low, self.high)
-        u = torch.rand(tuple(sample_shape) + loc.shape, generator=generator,
-                       device=loc.device, dtype=loc.dtype)
-        return self.sample_from_uniform(u)
+        return self.sample_from_uniform(self.draw_noise(
+            generator, _shape(sample_shape, loc), loc.device))
 
     def sample_from_uniform(self, f: torch.Tensor) -> torch.Tensor:
         """The sample at standard uniforms f in [0, 1), by the route of
@@ -243,6 +367,17 @@ class FoldedNormal(NamedTuple):
     loc: Numeric
     scale: Numeric
 
+    def sample_from_normal(self, n: torch.Tensor) -> torch.Tensor:
+        """|loc + scale n| at standard normals n (the JAX sample's route)."""
+        loc, scale = _bcast(self.loc, self.scale)
+        return torch.abs(loc + scale * n)
+
+    def sample(self, generator: torch.Generator,
+               sample_shape: Sequence[int] = ()) -> torch.Tensor:
+        loc, _ = _bcast(self.loc, self.scale)
+        return self.sample_from_normal(_randn(
+            generator, _shape(sample_shape, loc), loc.device))
+
     def log_prob(self, x):
         loc, scale = self.loc, self.scale
         z1 = (x - loc) / scale
@@ -250,6 +385,10 @@ class FoldedNormal(NamedTuple):
         lp = torch.logaddexp(-0.5 * z1 * z1, -0.5 * z2 * z2)
         lp = lp - 0.5 * _LOG_2PI - torch.log(torch.as_tensor(scale))
         return torch.where(x < 0, torch.full_like(lp, float("nan")), lp)
+
+    def prob(self, x):
+        p = torch.exp(self.log_prob(torch.clamp(x, min=0.0)))
+        return torch.where(x < 0, torch.zeros_like(p), p)
 
     def mean(self):
         u, s = _bcast(self.loc, self.scale)
@@ -287,6 +426,24 @@ class Rice(NamedTuple):
                 - x * torch.exp(x / 2.0 + torch.log(torch.special.i1e(h))
                                 + ah))
 
+    def sample_from_normals(self, n1: torch.Tensor,
+                            n2: torch.Tensor) -> torch.Tensor:
+        """sqrt((sigma n1)^2 + (sigma n2 + nu)^2) at standard normals n1,
+        n2 (the JAX sample's route, n1 and n2 from the two halves of its
+        split key)."""
+        nu, sigma = _bcast(self.nu, self.sigma)
+        s1 = sigma * n1
+        s2 = sigma * n2
+        return torch.sqrt(s1 * s1 + torch.square(s2 + nu))
+
+    def sample(self, generator: torch.Generator,
+               sample_shape: Sequence[int] = ()) -> torch.Tensor:
+        nu, _ = _bcast(self.nu, self.sigma)
+        shape = _shape(sample_shape, nu)
+        n1 = _randn(generator, shape, nu.device)
+        return self.sample_from_normals(n1, _randn(generator, shape,
+                                                   nu.device))
+
     def log_prob(self, x):
         nu, sigma = self.nu, self.sigma
         return (torch.log(x) - 2.0 * torch.log(torch.as_tensor(sigma))
@@ -312,6 +469,117 @@ class Rice(NamedTuple):
         return torch.sqrt(self.variance())
 
 
+class Amoroso(NamedTuple):
+    """The Amoroso (generalized gamma) distribution in Crooks'
+    parameterization (distributions.py:372-407)."""
+
+    a: Numeric
+    theta: Numeric
+    alpha: Numeric
+    beta: Numeric
+
+    def log_prob(self, x):
+        a, theta, alpha, beta = _bcast(self.a, self.theta, self.alpha,
+                                       self.beta)
+        z = (x - a) / theta
+        return (torch.log(torch.abs(beta / theta)) - torch.lgamma(alpha)
+                + (alpha * beta - 1.0) * torch.log(z) - torch.pow(z, beta))
+
+    def sample(self, generator: torch.Generator,
+               sample_shape: Sequence[int] = ()) -> torch.Tensor:
+        """a + theta g^(1 / beta), g ~ Gamma(alpha)."""
+        a, theta, alpha, beta = _bcast(self.a, self.theta, self.alpha,
+                                       self.beta)
+        g = _gamma(generator, alpha, _shape(sample_shape, alpha))
+        return a + theta * torch.pow(g, 1.0 / beta)
+
+    def mean(self):
+        a, theta, alpha, beta = _bcast(self.a, self.theta, self.alpha,
+                                       self.beta)
+        return a + torch.exp(torch.log(theta) + torch.lgamma(alpha + 1.0 / beta)
+                             - torch.lgamma(alpha))
+
+    def variance(self):
+        _, theta, alpha, beta = _bcast(self.a, self.theta, self.alpha,
+                                       self.beta)
+        lg = torch.lgamma(alpha)
+        return torch.square(theta) * (
+            torch.exp(torch.lgamma(alpha + 2.0 / beta) - lg)
+            - torch.exp(2.0 * torch.lgamma(alpha + 1.0 / beta) - 2.0 * lg))
+
+    def stddev(self):
+        return torch.sqrt(self.variance())
+
+
+class Stacy(NamedTuple):
+    """Stacy: Amoroso with a = 0, with Bauckhage's analytic KL
+    (distributions.py:410-471)."""
+
+    theta: Numeric
+    alpha: Numeric
+    beta: Numeric
+
+    def _amoroso(self) -> Amoroso:
+        return Amoroso(0.0, self.theta, self.alpha, self.beta)
+
+    def log_prob(self, x):
+        return self._amoroso().log_prob(x)
+
+    def sample(self, generator: torch.Generator,
+               sample_shape: Sequence[int] = ()) -> torch.Tensor:
+        return self._amoroso().sample(generator, sample_shape)
+
+    def mean(self):
+        return self._amoroso().mean()
+
+    def variance(self):
+        return self._amoroso().variance()
+
+    def stddev(self):
+        return self._amoroso().stddev()
+
+    @classmethod
+    def wilson_prior(cls, centric, epsilon, sigma=1.0) -> "Stacy":
+        """The Wilson prior as a Stacy distribution: centric
+        HalfNormal(sqrt(eps Sigma)) = Stacy(sqrt(2 eps Sigma), 1/2, 2),
+        acentric Rayleigh = Stacy(sqrt(eps Sigma), 1, 2)."""
+        device = next((x.device for x in (centric, epsilon, sigma)
+                       if isinstance(x, torch.Tensor)), None)
+        centric, epsilon, sigma = (
+            torch.as_tensor(x, dtype=torch.float32, device=device)
+            for x in (centric, epsilon, sigma))
+        theta = (centric * torch.sqrt(2.0 * epsilon * sigma)
+                 + (1.0 - centric) * torch.sqrt(epsilon * sigma))
+        alpha = centric * 0.5 + (1.0 - centric)
+        return cls(theta, alpha, torch.full_like(theta, 2.0))
+
+    @staticmethod
+    def from_half_normal(scale) -> "Stacy":
+        return Stacy(_SQRT2_F32 * torch.as_tensor(scale, dtype=torch.float32),
+                     0.5, 2.0)
+
+    @staticmethod
+    def from_weibull(concentration, scale) -> "Stacy":
+        return Stacy(torch.as_tensor(scale, dtype=torch.float32), 1.0,
+                     torch.as_tensor(concentration, dtype=torch.float32))
+
+    def _bauckhage(self):
+        theta, alpha, beta = _bcast(self.theta, self.alpha, self.beta)
+        return theta, alpha * beta, beta
+
+    def kl_divergence(self, other: "Stacy"):
+        """KL(self || other), Bauckhage 2014 (arXiv:1401.6853)."""
+        a1, d1, p1 = self._bauckhage()
+        a2, d2, p2 = other._bauckhage()
+        ln, lg = torch.log, torch.lgamma
+        return (ln(p1) + d2 * ln(a2) + lg(d2 / p2)
+                - ln(p2) - d1 * ln(a1) - lg(d1 / p1)
+                + (torch.digamma(d1 / p1) / p1 + ln(a1)) * (d1 - d2)
+                + torch.exp(lg((d1 + p2) / p1) - lg(d1 / p1)
+                            + p2 * (ln(a1) - ln(a2)))
+                - d1 / p1)
+
+
 class RiceWoolfson(NamedTuple):
     """FoldedNormal (Woolfson) for centric reflections, Rice for acentric
     ones (distributions.py:474-504)."""
@@ -322,6 +590,35 @@ class RiceWoolfson(NamedTuple):
 
     def _parts(self):
         return FoldedNormal(self.loc, self.scale), Rice(self.loc, self.scale)
+
+    @staticmethod
+    def noise_shape(shape: Sequence[int]) -> tuple:
+        """The shape of the noise behind samples of `shape`: three standard
+        normals per entry."""
+        return (3,) + tuple(shape)
+
+    @classmethod
+    def draw_noise(cls, generator: torch.Generator, shape: Sequence[int],
+                   device) -> torch.Tensor:
+        """Standard normals of noise_shape(shape): [0] for the centric
+        (FoldedNormal) sample, [1] and [2] for the acentric (Rice) one."""
+        return _randn(generator, cls.noise_shape(shape), device)
+
+    def sample_from_noise(self, noise: torch.Tensor) -> torch.Tensor:
+        """The JAX sample at given normals: JAX's RiceWoolfson.sample(key)
+        takes the centric draw from normal(key) and Rice's two from
+        normal(k1) and normal(k2), (k1, k2) = split(key); the centric
+        sample is shifted up by f32 eps, as there."""
+        w, r = self._parts()
+        eps = float(np.finfo(np.float32).eps)
+        return torch.where(self.centric, w.sample_from_normal(noise[0]) + eps,
+                           r.sample_from_normals(noise[1], noise[2]))
+
+    def sample(self, generator: torch.Generator,
+               sample_shape: Sequence[int] = ()) -> torch.Tensor:
+        loc, *_ = _bcast(self.loc, self.scale)
+        return self.sample_from_noise(self.draw_noise(
+            generator, _shape(sample_shape, loc), loc.device))
 
     def log_prob(self, x):
         w, r = self._parts()

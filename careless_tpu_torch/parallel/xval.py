@@ -135,14 +135,15 @@ def halves_elbo(model, params: dict, halves: StackedHalves,
                 eps: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """(loss (K,), metrics of (K,)): each half's model.elbo with its
-    reflection uniforms u_f[:, k] (u_f (S, K, n_refl)) and its Philox key
+    reflection noise u_f[..., k, :] (the truncated normal's uniforms
+    (S, K, n_refl)) and its Philox key
     seeds[k], or the scale noise eps (S, N) over the stacked rows when
     given (the unfused path); params as train_halves holds them."""
     inputs, spans, S, K = halves.inputs, halves.spans, model.mc_samples, \
         halves.k
     dev = inputs.device
     q = model.posterior.distribution(params["posterior"])  # (K, n_refl)
-    z_f = q.sample_from_uniform(u_f)                        # (S, K, n_refl)
+    z_f = q.sample_from_noise(u_f)                          # (S, K, n_refl)
     z_tab = z_f.reshape(S, K * halves.n_refl)
     plans = inputs.plans
     lik_params = params.get("likelihood", {})
@@ -227,8 +228,8 @@ def train_halves(trainer, params: dict, seeds: Sequence[int],
         n = min(chunk_size, steps - done)
         rows = []
         for i in range(done, done + n):
-            u_f = torch.stack([torch.rand((S, halves.n_refl), generator=g,
-                                          device=dev) for g in gens], dim=1)
+            u_f = torch.stack([model.posterior.family.draw_noise(
+                g, (S, halves.n_refl), dev) for g in gens], dim=-2)
             loss, metrics = halves_elbo(model, params, halves, u_f,
                                         [b | (i << 32) for b in bases])
             grads = trainer.gradients(loss.sum(), leaves,

@@ -45,7 +45,8 @@ Phases, each printed on its own lines:
      the card against the same computation on the CPU (plain versions), at
      mc = 1 for the defaults, --image-layers 2, --mlp-dtype bfloat16,
      both, --mlp-width 128, --mlp-width 128 --mlp-dtype bfloat16,
-     --analytic-kl and the double-Wilson prior of two files (r trained), and
+     --analytic-kl, the double-Wilson prior of two files (r trained) and
+     the library-level parts (library_parts), and
      at mc = 2 through K4 for the flag sets of slices (a) and
      (b); then the card's fused ELBO against its unfused ELBO; then Laue at
      50k observations with the VMEM cap lowered so that K5 runs, card
@@ -109,7 +110,16 @@ Phases, each printed on its own lines:
      MTZ drawn at r = 0.9 from it, merged 100 steps with --separate-files
      --double-wilson-parents=None,0 --double-wilson-r=0.,0.9
      --optimize-double-wilson-r, rDW_1 inside (-1, 1), each file's merged
-     F against its true F, the child merged alone beside it;
+     F against its true F, the child merged alone beside it; then the
+     library-level parts (library_phase) at the default slice's full
+     width: RiceWoolfsonPosterior, a normal ReferencePrior on 60 % of the
+     reflections (a seeded noisy copy of the true F) and
+     NeuralNormalLikelihood(3, 6), 300 steps, the loss finite and falling,
+     K1 once a step each way, K2 7 times and K3 once a step, no K4 or K5
+     (the launches in the kernels line's library_launches), the posterior
+     mean's CC with the true F gated (LIBRARY_MIN_CC), its steps/s, device
+     time and busy share, and K1, K2 and K3 held at its shapes (the check
+     phase also holds this model card against CPU);
   6. the Laue slice (`careless-tpu poly` defaults) at 10,000,000
      observations, 500,000 reflections and 20,000 images on the harmonic-
      chain layout: the host set-up timed step by step, every kernel of the
@@ -117,7 +127,13 @@ Phases, each printed on its own lines:
      (K1 on the 10M metadata, K2 at each of its nine table and id pairs, K3
      at 10M, K5 at the chain plan's own backward permute; K2 at the image
      cotangent's random 10M permute is a row of the kernels line of its
-     own), then 100 steps with K5 launched once per step and K2 nine times.
+     own), then 100 steps with K5 launched once per step and K2 nine times;
+  7. after every host-time measurement, --save-data-manager and
+     --profile-dir (flags_phase): the cli phase's MTZ merged 20 steps by
+     `main(["mono", ..., "--save-data-manager", "--profile-dir=DIR"])`,
+     the pickle loaded on the card and on the CPU with Inputs bit for bit
+     the formatter's, the trace parsed and naming every port kernel the
+     run launched, the pickle's and the trace's sizes printed.
 The second-to-last line is the card's name and power limit; the last line is
 {"ok": true, "device": {...}}. Any failed check raises (exit code != 0), and
 without a CUDA device the script exits non-zero before printing a result.
@@ -174,7 +190,7 @@ LAUE_HOST_CALLS = 300
 # "xval" is a frozen-scaler mono step, serial or parallel
 GATHERS_PER_STEP = {"default": 7, "a": 14, "b": 14, "image_layers": 3,
                     "bf16": 7, "image_layers_bf16": 3, "laue": 9, "wide": 7,
-                    "xval": 4}
+                    "xval": 4, "library": 7}
 # K2 launches of the image scales' backward (the cotangent permute and
 # the segment sum's two lookups), which a frozen scaler does not run
 IMAGE_BACKWARD_GATHERS = 3
@@ -1664,12 +1680,14 @@ def grad_rel_err(g_a, g_b):
 
 
 def check_phase(torch, dev, seed, flags=None, label="default",
-                two_files=False):
+                two_files=False, library=False):
     """Loss and every parameter gradient of the port at a small size on
     the card (kernels) against the same computation on the CPU (plain
-    versions), at the same parameters, uniforms and noise (mc = 1), for
-    the CLI defaults with `flags` on top (on two_file_problem's two files
-    when two_files: the double-Wilson prior's)."""
+    versions), at the same parameters, reflection noise and scale noise
+    (mc = 1), for the CLI defaults with `flags` on top (on
+    two_file_problem's two files when two_files: the double-Wilson
+    prior's; with library, the library phase's parts, library_parts,
+    whose RiceWoolfson posterior takes three normals a reflection)."""
     from careless_tpu_torch.models.merging.variational import (
         flatten_params, map_params)
     from careless_tpu_torch.utils.params import (params_from_jax,
@@ -1680,11 +1698,15 @@ def check_phase(torch, dev, seed, flags=None, label="default",
     eps = rng.standard_normal(sizes[0]).astype(np.float32)
     results = []
     for device in ("cpu", dev):
-        model, params, _, inputs, _ = model_on(device, seed, *sizes,
-                                               flags=flags,
-                                               two_files=two_files)
+        model, params, trainer, inputs, f_true = model_on(
+            device, seed, *sizes, flags=flags, two_files=two_files)
+        if library:
+            model, params, _ = library_parts(model, params, trainer, f_true,
+                                             seed)
         if not results:
-            u_f = rng.random(inputs.plans.refl.table_size).astype(np.float32)
+            n_refl = inputs.plans.refl.table_size
+            u_f = (rng.standard_normal((3, n_refl)) if library
+                   else rng.random(n_refl)).astype(np.float32)
             # perturb the identity-initialised MLP so every layer matters
             start = map_params(lambda a: a + 0.05 * rng.standard_normal(
                 a.shape).astype(np.float32), params_to_numpy(params))
@@ -1705,7 +1727,9 @@ def check_phase(torch, dev, seed, flags=None, label="default",
     check(g_err < 1e-3, f"check ({label}): gradients on the card vs CPU: "
           f"rel err {g_err}")
     print(f"check ({label}, {type(model.scaler).__name__}, "
-          f"{type(model.prior).__name__}): loss "
+          f"{type(model.prior).__name__}, "
+          f"{type(model.posterior).__name__}, "
+          f"{type(model.likelihood).__name__}): loss "
           f"{l_dev:.6f} vs CPU {l_cpu:.6f} (rel {rel:.2e}); "
           f"max per-tensor grad rel err {g_err:.2e} over {len(g_dev)} "
           "tensors", flush=True)
@@ -3009,6 +3033,199 @@ def prior_phase(torch, dev, gen, seed, peak_flops, peak_bw):
     return held
 
 
+# the library phase: a ReferencePrior (kind normal) on this share of the
+# reflections, its loc the true F times (1 + LIBRARY_REF_NOISE N(0, 1))
+# and its scale LIBRARY_REF_SCALE; NeuralNormalLikelihood of
+# LIBRARY_NEURAL (layers, width), the JAX test's size
+LIBRARY_REF_FRACTION, LIBRARY_REF_NOISE, LIBRARY_REF_SCALE = 0.6, 0.1, 0.1
+LIBRARY_NEURAL = (3, 6)
+# the posterior mean's least CC with the true F after STEPS steps: the
+# prediction made before the first card run, from the port on the CPU at
+# this phase's sizes (tools/library_cc.py --cpu: 0.6403), less 0.05
+LIBRARY_MIN_CC = 0.59
+
+
+def library_parts(model, params, trainer, f_true, seed):
+    """The library-level model parts on a model built by model_on, on its
+    device: RiceWoolfsonPosterior (from the same Wilson moments as the
+    truncated normal, so params["posterior"] stays), a ReferencePrior of
+    kind normal on a seeded LIBRARY_REF_FRACTION of the reflections (the
+    unobserved ones' loc and scale filled with 1, finite), and
+    NeuralNormalLikelihood(*LIBRARY_NEURAL) with its weights drawn from a
+    CPU generator seeded with seed + 21 (the same on every device).
+    Returns (model, params, trainer)."""
+    import dataclasses
+
+    import torch
+
+    from careless_tpu_torch.models.likelihoods.mono import \
+        NeuralNormalLikelihood
+    from careless_tpu_torch.models.merging.surrogate import \
+        RiceWoolfsonPosterior
+    from careless_tpu_torch.models.merging.variational import map_params
+    from careless_tpu_torch.models.priors.empirical import ReferencePrior
+
+    dev = model.prior.centric.device
+    rng = np.random.default_rng(seed + 20)
+    n_refl = len(f_true)
+    observed = rng.random(n_refl) < LIBRARY_REF_FRACTION
+    loc = np.abs(f_true * (1.0 + LIBRARY_REF_NOISE * rng.normal(
+        size=n_refl))).astype(np.float32)
+    scale = np.full(n_refl, LIBRARY_REF_SCALE, np.float32)
+    loc[~observed], scale[~observed] = 1.0, 1.0
+    likelihood = NeuralNormalLikelihood(*LIBRARY_NEURAL)
+    gen = torch.Generator().manual_seed(seed + 21)
+    params = dict(params, likelihood=map_params(
+        lambda t: t.to(dev), likelihood.init("cpu", gen)))
+    model = dataclasses.replace(
+        model, posterior=RiceWoolfsonPosterior(centric=model.prior.centric),
+        prior=ReferencePrior(*(torch.as_tensor(a, device=dev)
+                               for a in (observed, loc, scale))),
+        likelihood=likelihood)
+    return model, params, dataclasses.replace(trainer, model=model)
+
+
+def library_phase(torch, dev, gen, seed, peak_flops, peak_bw):
+    """The library-level parts on the card at the default slice's full
+    width (N_OBS observations, N_REFL reflections, N_IMAGES images,
+    D_META metadata columns, the N_LAYERS-layer HybridImageScaler of
+    width D_META): RiceWoolfsonPosterior, a normal ReferencePrior and
+    NeuralNormalLikelihood (library_parts), STEPS full-batch Adam steps
+    (train_slice: the loss finite and falling, steps/s, device time and
+    busy share). Gates: K1-fwd and K1-bwd once a step, K2
+    GATHERS_PER_STEP["library"] a step, K3 once a step, no K4 (the
+    likelihood has no fused kind) and no K5; the posterior mean's CC with
+    the true F at least LIBRARY_MIN_CC; then K1, K2 and K3 held against
+    their plain versions at this phase's shapes (step_kernels). Returns
+    (launches, each held kernel's largest error)."""
+    t0 = time.perf_counter()
+    times = {}
+    model, params, trainer, inputs, f_true = model_on(
+        None, seed, N_OBS, N_REFL, N_IMAGES, D_META, N_LAYERS, times=times)
+    model, params, trainer = library_parts(model, params, trainer, f_true,
+                                           seed)
+    torch.cuda.synchronize()
+    launches, _, _, _, out = train_slice(
+        torch, dev, seed, model, params, trainer, inputs, f_true, STEPS,
+        CHUNK, "library", {"library": "RiceWoolfsonPosterior, "
+                           "ReferencePrior(normal), NeuralNormalLikelihood"
+                           f"{LIBRARY_NEURAL}"},
+        time.perf_counter() - t0, times)
+    check(not model.fused_kernel and not model._fused_eligible(inputs),
+          "library: the model took K4")
+    check_launches(launches, "library", {
+        **trunk_counts(STEPS, True, False),
+        "gather": GATHERS_PER_STEP["library"] * STEPS,
+        "philox_normal": STEPS, "fused_ll_fwd": 0, "fused_ll_bwd": 0,
+        "gather_stream": 0})
+    cc = out["posterior_mean_corr_f_true"]
+    check(cc >= LIBRARY_MIN_CC,
+          f"library: the posterior mean correlates {cc:.4f} with the true "
+          f"F, expected at least {LIBRARY_MIN_CC}")
+    held, _ = step_kernels(torch, dev, gen, inputs, "library", peak_flops,
+                           peak_bw, "library")
+    for key in ("steps_per_s", "ms_per_step", "device_ms_per_step",
+                "busy_share", "posterior_mean_corr_f_true", "peak_mem_gb"):
+        print(f"library {key}: {out[key]}", flush=True)
+    return launches, held
+
+
+FLAGS_STEPS = 20
+
+
+def flags_phase(torch, dev, seed):
+    """--save-data-manager and --profile-dir through the port's CLI, on the
+    card, after every host-time measurement (a profiler session slows
+    later PyTorch calls): the cli phase's MTZ merged FLAGS_STEPS steps by
+    main(["mono", ..., "--save-data-manager", "--profile-dir=DIR"]).
+    Gates: <out>_data_manager.pickle loads with DataManager.from_pickle on
+    the card and on the CPU, its Inputs bit for bit the formatter's on
+    the same file; DIR holds one trace that parses as JSON and names every
+    port kernel the run launched (kernels.PROFILED_KERNELS) at least once
+    (the card's profiler drops some records, so no count is gated). Prints
+    the pickle's and the trace's sizes, the trace's events and the run's
+    times."""
+    import glob
+    import os
+    import tempfile
+    from pathlib import Path
+
+    from careless_tpu_torch import kernels
+    from careless_tpu_torch.io.formatter import MonoFormatter
+    from careless_tpu_torch.io.manager import DataManager
+    from careless_tpu_torch.main import main as cli_main
+    from careless_tpu_torch.models.base import ROW_FIELDS
+    from careless_tpu_torch.parser import parser as cli_parser
+    from careless_tpu_torch.xtal import (DataSet, SpaceGroup, UnitCell,
+                                         write_mtz)
+
+    (cols, types_), _, _ = synthetic_mtz(
+        seed, CLI_OBS, CLI_IMAGES, CLI_CELL, CLI_SPACEGROUP, CLI_DMIN)
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        mtz, out = str(Path(tmp) / "unmerged.mtz"), str(Path(tmp) / "flags")
+        trace_dir = str(Path(tmp) / "trace")
+        write_mtz(DataSet(cols, cell=UnitCell(*CLI_CELL),
+                          spacegroup=SpaceGroup.from_name(CLI_SPACEGROUP),
+                          mtz_dtypes=types_), mtz)
+        argv = ["mono", CLI_KEYS, mtz, out, f"--iterations={FLAGS_STEPS}",
+                "--disable-progress-bar", f"--seed={seed}",
+                "--save-data-manager", f"--profile-dir={trace_dir}"]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        times = cli_main(argv)
+        torch.cuda.synchronize()
+        launches = dict(kernels.LAUNCHES)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        pickle_path = out + "_data_manager.pickle"
+        pickle_mb = os.path.getsize(pickle_path) / 1e6
+        t0 = time.perf_counter()
+        on_cpu = DataManager.from_pickle(pickle_path, "cpu")
+        load_s = time.perf_counter() - t0
+        on_card = DataManager.from_pickle(pickle_path)
+        args = cli_parser.parse_args(argv)
+        inputs, _ = MonoFormatter.from_parser(args).format_files(
+            [mtz], device="cpu")
+        for name, dm in (("the CPU", on_cpu), ("the card", on_card)):
+            check(dm.device.type == ("cpu" if name == "the CPU" else "cuda"),
+                  f"flags: the pickle loaded on {dm.device}, not {name}")
+            for f in ROW_FIELDS:
+                a, b = getattr(dm.inputs, f), getattr(inputs, f)
+                check((a is None and b is None) or (
+                    a is not None and b is not None
+                    and torch.equal(a.cpu(), b)),
+                    f"flags: the pickle's {f} on {name} is not the run's")
+        del on_cpu, on_card, inputs
+        traces = glob.glob(os.path.join(trace_dir, "*.pt.trace.json"))
+        check(len(traces) == 1, f"flags: {len(traces)} traces in "
+              f"{trace_dir}, expected one")
+        trace_mb = os.path.getsize(traces[0]) / 1e6
+        with open(traces[0]) as f:
+            events = json.load(f)["traceEvents"]
+    names = {e.get("name", "") for e in events}
+    named = {}
+    for symbols, kernel_names in kernels.PROFILED_KERNELS:
+        if not sum(launches[k] for k in kernel_names):
+            continue
+        named[symbols[0]] = sum(1 for n in names
+                                if any(sym in n for sym in symbols))
+    missing = [k for k, v in named.items() if not v]
+    check(not missing, f"flags: the trace names no {missing}")
+    result = dict(steps=FLAGS_STEPS, pickle_mb=pickle_mb,
+                  pickle_load_cpu_s=load_s, trace_mb=trace_mb,
+                  trace_events=len(events),
+                  trace_mb_per_step=trace_mb / FLAGS_STEPS,
+                  kernels_named=sorted(named),
+                  launches={k: v for k, v in launches.items() if v})
+    print("flags: " + json.dumps(result), flush=True)
+    print(f"flags pickle MB: {pickle_mb}; trace MB: {trace_mb}",
+          flush=True)
+    print_cli_times("flags (profiled)", times, peak_gb)
+    return result
+
+
 def trunk_counts(steps, head, bf16, wide=False):
     """The K1 launch counts of a slice that runs the (head, bf16)
     instantiation (of csrc/trunk_wide.cu when wide) once per step in each
@@ -3137,6 +3354,7 @@ def main():
         check_phase(torch, dev, args.seed, flags, label)
     check_phase(torch, dev, args.seed, DOUBLE_WILSON, "double_wilson",
                 two_files=True)
+    check_phase(torch, dev, args.seed, label="library", library=True)
     check_mc2_phase(torch, dev, args.seed)
     check_laue_phase(torch, dev, args.seed)
 
@@ -3179,6 +3397,8 @@ def main():
                               peak_bw))
     held_at["prior"] = prior_phase(torch, dev, gen, args.seed, peak_flops,
                                    peak_bw)
+    library_launches, held_at["library"] = library_phase(
+        torch, dev, gen, args.seed, peak_flops, peak_bw)
     held_at.update({label: phase(torch, dev, gen, args.seed, peak_flops,
                                  peak_bw)[1]
                     for label, phase in (("poly_cli", poly_cli_phase),
@@ -3196,6 +3416,11 @@ def main():
         rows[kname]["host_us_after_profiling"] = again[key]
     print("profiler: kernel records captured of the launches device_ms "
           "timed: " + json.dumps(CAPTURED), flush=True)
+    flags_phase(torch, dev, args.seed)
+    for k, v in {**trunk_counts(STEPS, True, False), "gather": 1,
+                 "philox_normal": 1}.items():
+        if v:
+            rows[k]["library_launches"] = library_launches[k]
 
     # launches: K1-K3 from the default slice, the other K1 instantiations
     # from the scaler slices, K4 from slice (a), K5 and K2's Laue row from

@@ -21,8 +21,16 @@ writes the scale file back bit for bit; a missing key or a wrong shape
 raises the JAX package's error. Also: the parsed mono namespace's defaults
 equal the JAX parser's; flags the port does not run raise
 NotImplementedError naming themselves; the history CSV is pandas' to_csv.
+--save-data-manager's pickle restores a manager whose Inputs (bit for
+bit), merged results and predictions (from the run's parameter files)
+equal the run's files; a manager holding a tensor refuses to pickle;
+--profile-dir writes a Chrome trace that parses and names the ELBO's
+operations.
 """
+import glob
+import json
 import os
+import pickle
 
 import jax
 import numpy as np
@@ -195,12 +203,85 @@ def test_mono_defaults_parse_as_the_jax_parser(runs):
 
 @pytest.mark.parametrize("flag", [
     "--run-eagerly", "--platform=cpu", "--rng-impl=rbg", "--jax-debug",
-    "--shard-axis=mc", "--num-devices=2", "--profile-dir=p",
-    "--save-data-manager"])
+    "--shard-axis=mc", "--num-devices=2"])
 def test_unported_flags_raise_naming_themselves(runs, flag):
     args = port_parser.parse_args(["mono", KEYS, runs[0], "out", flag])
     with pytest.raises(NotImplementedError, match=flag.split("=")[0]):
         run_careless(args, device="cpu")
+
+
+@pytest.fixture(scope="module")
+def flag_run(runs, tmp_path_factory):
+    """The port's run of `runs` with --save-data-manager and --profile-dir
+    (3 steps, the CPU)."""
+    d = tmp_path_factory.mktemp("flags")
+    argv = ["mono", KEYS, runs[0], str(d / "port"), *FLAGS, "--disable-gpu",
+            "--save-data-manager", f"--profile-dir={d / 'trace'}"]
+    port_main(argv)
+    return argv, str(d / "port"), str(d / "trace")
+
+
+def _restored(flag_run):
+    argv, out, _ = flag_run
+    dm = DataManager.from_pickle(out + "_data_manager.pickle", "cpu")
+    model, params, _ = dm.build_model()
+    params["scaler"] = load_params(out + "_scale", params["scaler"])
+    params["posterior"] = load_params(out + "_structure_factor",
+                                      params["posterior"])
+    return argv, out, dm, model, params
+
+
+@pytest.mark.parametrize("part", ["inputs", "results", "predictions"])
+def test_save_data_manager_restores_the_run(flag_run, part):
+    """DataManager.from_pickle(<out>_data_manager.pickle, "cpu"): its
+    Inputs are the formatter's bit for bit, and from the run's parameter
+    files its get_results and get_predictions give the run's merged and
+    prediction MTZs."""
+    argv, out, dm, model, params = _restored(flag_run)
+    assert dm.device == torch.device("cpu") and dm.parser.seed == 1234
+    if part == "inputs":
+        args = port_parser.parse_args(argv)
+        inputs, _ = MonoFormatter.from_parser(args).format_files(
+            args.reflection_files, device="cpu")
+        for f in ("refl_id", "image_id", "file_id", "metadata",
+                  "intensities", "uncertainties"):
+            a, b = getattr(dm.inputs, f), getattr(inputs, f)
+            assert a.dtype == b.dtype and torch.equal(a, b), f
+        assert dm.inputs.wavelength is None
+        return
+    if part == "results":
+        (got,) = dm.get_results(model.posterior.distribution(
+            params["posterior"]))
+        want = read_mtz(out + "_0.mtz")
+    else:
+        (got,) = dm.get_predictions(model, params)
+        want = read_mtz(out + "_predictions_0.mtz")
+    assert got.columns == want.columns and len(got) == len(want) > 100
+    for c in want.columns:
+        np.testing.assert_array_equal(np.asarray(got[c], want[c].dtype),
+                                      want[c], err_msg=c)
+
+
+def test_data_manager_with_a_tensor_refuses_to_pickle(flag_run, tmp_path):
+    _, _, dm, _, _ = _restored(flag_run)
+    dm.cache = torch.zeros(3)
+    path = tmp_path / "dm.pickle"
+    with pytest.raises(pickle.PicklingError, match="tensor"):
+        dm.to_pickle(str(path))
+    assert not path.exists()
+
+
+def test_profile_dir_writes_a_trace_of_the_elbo(flag_run):
+    """One Chrome/TensorBoard trace in the directory, JSON, whose events
+    name the ELBO's operations (the posterior's erfinv draw, the trunk's
+    products, the plain gathers' indexing, a backward)."""
+    (path,) = glob.glob(os.path.join(flag_run[2], "*.pt.trace.json"))
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    names = {e.get("name", "") for e in events}
+    for op in ("aten::erfinv", "aten::mm", "aten::index",
+               "autograd::engine::evaluate_function: ErfinvBackward0"):
+        assert op in names, op
 
 
 @pytest.mark.parametrize("part", PARTS)

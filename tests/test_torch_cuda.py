@@ -1171,3 +1171,42 @@ def test_xval_fused_k4_per_half_on_the_card(cuda):
         for key, values in h_serial.items():
             np.testing.assert_allclose(np.asarray(history[key])[:, k],
                                        values, rtol=1e-5, err_msg=key)
+
+
+def test_data_manager_pickled_on_the_card_loads_on_the_cpu(cuda, tmp_path):
+    """`main mono --save-data-manager` on the card writes a pickle of numpy
+    arrays: DataManager.from_pickle puts its Inputs on the CPU, equal bit
+    for bit to the formatter's there, and by default on the card."""
+    import chip_smoke
+    from careless_tpu_torch.io.formatter import MonoFormatter
+    from careless_tpu_torch.io.manager import DataManager
+    from careless_tpu_torch.main import main
+    from careless_tpu_torch.models.base import ROW_FIELDS
+    from careless_tpu_torch.parser import parser
+    from careless_tpu_torch.xtal import (DataSet, SpaceGroup, UnitCell,
+                                         write_mtz)
+
+    cell = (40.0, 40.0, 60.0, 90.0, 90.0, 120.0)
+    (cols, types_), _, _ = chip_smoke.synthetic_mtz(3, 4000, 40, cell,
+                                                    "P 63", 3.0)
+    mtz, out = str(tmp_path / "in.mtz"), str(tmp_path / "out")
+    write_mtz(DataSet(cols, cell=UnitCell(*cell),
+                      spacegroup=SpaceGroup.from_name("P 63"),
+                      mtz_dtypes=types_), mtz)
+    argv = ["mono", "dHKL,image_id,XDET", mtz, out, "--iterations=3",
+            "--mlp-layers=2", "--disable-progress-bar",
+            "--save-data-manager"]
+    main(argv)
+    dm = DataManager.from_pickle(out + "_data_manager.pickle", "cpu")
+    args = parser.parse_args(argv)
+    inputs, _ = MonoFormatter.from_parser(args).format_files(
+        args.reflection_files, device="cpu")
+    for f in ROW_FIELDS:
+        a, b = getattr(dm.inputs, f), getattr(inputs, f)
+        assert (a is None) == (b is None), f
+        if a is not None:
+            assert a.device.type == "cpu" and torch.equal(a, b), f
+    on_card = DataManager.from_pickle(out + "_data_manager.pickle")
+    assert on_card.device.type == "cuda"
+    assert on_card.inputs.refl_id.device.type == "cuda"
+    assert torch.equal(on_card.inputs.metadata.cpu(), inputs.metadata)

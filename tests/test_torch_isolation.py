@@ -78,6 +78,7 @@ print(json.dumps(sorted(sys.modules)))
                 "parser", "io.formatter", "io.asu", "xtal.mtz",
                 "xtal.dataset", "xtal.symmetry", "utils.checkpoint",
                 "utils.positional_encoding", "utils.laue", "xtal.stream",
-                "xtal.xds", "parallel.xval", "models.priors.double_wilson"):
+                "xtal.xds", "parallel.xval", "models.priors.double_wilson",
+                "models.priors.empirical", "models.merging.surrogate"):
         assert "careless_tpu_torch." + mod in loaded
     assert [m for m in loaded if forbidden(m)] == []
