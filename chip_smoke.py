@@ -106,6 +106,13 @@ Phases, each printed on its own lines:
      form: K1-fwd once a step for all four halves, K3 once per half, K2
      as one merge, no K1-bwd), the half path's K1-fwd, K2 and K3 held at
      the stacked 2M rows, each form's set-up, merging seconds and steps/s;
+     then the statistics tools (stats_phase): the same MTZ merged 100
+     steps with --anomalous, the parallel half merges and a test fraction
+     of 0.1, each careless_tpu_torch.stats tool run on its outputs (their
+     tables' rows, the overall CC1/2 gated by STATS_MIN_CCHALF,
+     completeness, rescale's factors, the filtered file), and
+     scripts/to_intensities --anomalous on the card against the CPU, each
+     tool's seconds on a `stats` line;
      and the double-Wilson prior (prior_phase): a parent MTZ and a child
      MTZ drawn at r = 0.9 from it, merged 100 steps with --separate-files
      --double-wilson-parents=None,0 --double-wilson-r=0.,0.9
@@ -139,6 +146,7 @@ The second-to-last line is the card's name and power limit; the last line is
 without a CUDA device the script exits non-zero before printing a result.
 """
 import argparse
+import contextlib
 import json
 import math
 import statistics
@@ -2670,13 +2678,8 @@ def resume_phase(torch, dev, gen, seed, peak_flops, peak_bw):
     check(float(merged["N"].astype(np.float64).sum()) == train.n_obs,
           "resume: N does not count the train rows")
     for name, (launches, times, steps, _) in runs.items():
-        passes = -(-steps // RESUME_VALIDATION)
-        check_launches(launches, f"resume {name}", {
-            **{k: (steps + passes + 4 if k == "trunk_fwd" else v)
-               for k, v in trunk_counts(steps, True, False).items()},
-            "gather": GATHERS_PER_STEP["default"] * steps + 2 * passes + 4,
-            "philox_normal": steps + passes, "fused_ll_fwd": 0,
-            "fused_ll_bwd": 0, "gather_stream": 0})
+        check_launches(launches, f"resume {name}", cli_counts(
+            steps, passes=-(-steps // RESUME_VALIDATION), predictions=2))
     result.update(
         steps=R, held_out_rows=test.n_obs, train_rows=train.n_obs,
         nll_val_first_last=[val[0], val[-1]],
@@ -2690,6 +2693,39 @@ def resume_phase(torch, dev, gen, seed, peak_flops, peak_bw):
         print_cli_times(f"resume {name} ({steps} steps)",
                         dict(times, steps=steps), peak_gb)
     return held
+
+@contextlib.contextmanager
+def counted_half_merges(torch, seen):
+    """Within it, careless_tpu_torch.main's half merges are counted apart
+    from the main run: when they start, seen["main"] takes
+    kernels.LAUNCHES (the main run's, from the caller's reset) and the
+    counts are set to 0; when they end, seen["xval"] takes theirs, and
+    seen["scaler_kept"] says whether the main run's scaler came out of
+    them bit for bit."""
+    import careless_tpu_torch.main as cli
+    from careless_tpu_torch import kernels
+    from careless_tpu_torch.models.merging.variational import flatten_params
+
+    crossvalidate = cli.run_half_dataset_crossvalidation
+
+    def counted(dm, trained, parser, device):
+        torch.cuda.synchronize()
+        seen["main"] = dict(kernels.LAUNCHES)
+        before = [t.clone() for _, t in flatten_params(trained["scaler"])]
+        kernels.reset_launches()
+        times = crossvalidate(dm, trained, parser, device)
+        torch.cuda.synchronize()
+        seen["xval"] = dict(kernels.LAUNCHES)
+        seen["scaler_kept"] = all(torch.equal(a, b) for a, (_, b) in zip(
+            before, flatten_params(trained["scaler"])))
+        return times
+
+    cli.run_half_dataset_crossvalidation = counted
+    try:
+        yield seen
+    finally:
+        cli.run_half_dataset_crossvalidation = crossvalidate
+
 
 # half-dataset crossvalidation on the cli cell's MTZ: steps of the main run
 # and of every half, and repeats (K = 2 x repeats halves)
@@ -2732,7 +2768,6 @@ def xval_phase(torch, dev, gen, seed, peak_flops, peak_bw):
     from careless_tpu_torch import kernels
     from careless_tpu_torch.io.formatter import MonoFormatter
     from careless_tpu_torch.io.manager import DataManager
-    from careless_tpu_torch.models.merging.variational import flatten_params
     from careless_tpu_torch.parallel.xval import stack_halves
     from careless_tpu_torch.parser import parser as cli_parser
     from careless_tpu_torch.xtal import (DataSet, SpaceGroup, UnitCell,
@@ -2741,7 +2776,6 @@ def xval_phase(torch, dev, gen, seed, peak_flops, peak_bw):
     S, K = XVAL_STEPS, 2 * XVAL_REPEATS
     (cols, types_), hkl_asu, f_true = synthetic_mtz(
         seed, CLI_OBS, CLI_IMAGES, CLI_CELL, CLI_SPACEGROUP, CLI_DMIN)
-    crossvalidate = cli.run_half_dataset_crossvalidation
     build = Path(__file__).resolve().parent / "build"
     build.mkdir(exist_ok=True)
     runs = {}
@@ -2757,31 +2791,14 @@ def xval_phase(torch, dev, gen, seed, peak_flops, peak_bw):
                 f"--half-dataset-repeats={XVAL_REPEATS}"]
         for mode in XVAL_MODES:
             seen = {}
-
-            def counted(dm, trained, parser, device):
-                torch.cuda.synchronize()
-                seen["main"] = dict(kernels.LAUNCHES)
-                before = [t.clone() for _, t in
-                          flatten_params(trained["scaler"])]
-                kernels.reset_launches()
-                times = crossvalidate(dm, trained, parser, device)
-                torch.cuda.synchronize()
-                seen["xval"] = dict(kernels.LAUNCHES)
-                seen["scaler_kept"] = all(torch.equal(a, b) for a, (_, b) in
-                                          zip(before, flatten_params(
-                                              trained["scaler"])))
-                return times
             out = str(Path(tmp) / mode)
-            cli.run_half_dataset_crossvalidation = counted
-            try:
+            with counted_half_merges(torch, seen):
                 torch.cuda.synchronize()
                 torch.cuda.reset_peak_memory_stats()
                 kernels.reset_launches()
                 times = cli.main(argv[:3] + [out] + argv[4:]
                                  + [f"--xval-mode={mode}"])
                 torch.cuda.synchronize()
-            finally:
-                cli.run_half_dataset_crossvalidation = crossvalidate
             _, _, loss, _ = read_cli_outputs(out)
             with np.load(out + "_scale.npz") as f:
                 scale = {k: f[k] for k in f.files}
@@ -2825,19 +2842,9 @@ def xval_phase(torch, dev, gen, seed, peak_flops, peak_bw):
                    .astype(np.float64).sum()) for r, h in tags]
         check(n == half_rows, f"xval {mode}: N sums to {n} by half, the "
               f"halves hold {half_rows} rows")
-        check_launches(seen["main"], f"xval {mode} main run", {
-            **{k: (S + 2 if k == "trunk_fwd" else v)
-               for k, v in trunk_counts(S, True, False).items()},
-            "gather": GATHERS_PER_STEP["default"] * S + 2,
-            "philox_normal": S, "fused_ll_fwd": 0, "fused_ll_bwd": 0,
-            "gather_stream": 0})
-        merges = K if mode == "serial" else 1
-        check_launches(seen["xval"], f"xval {mode} half merges", {
-            **{k: 0 for k in kernels.LAUNCHES if k.startswith("trunk")},
-            "trunk_fwd": merges * S,
-            "gather": GATHERS_PER_STEP["xval"] * merges * S,
-            "philox_normal": K * S, "fused_ll_fwd": 0, "fused_ll_bwd": 0,
-            "gather_stream": 0})
+        check_launches(seen["main"], f"xval {mode} main run", cli_counts(S))
+        check_launches(seen["xval"], f"xval {mode} half merges",
+                       half_merge_counts(S, K, K if mode == "serial" else 1))
         t = run["times"]
         result[mode] = dict(
             setup_s=t["xval_setup_s"], merging_s=t["xval_train_s"],
@@ -2877,6 +2884,277 @@ def xval_phase(torch, dev, gen, seed, peak_flops, peak_bw):
               f"{r['merging_s']}, steps/s {r['steps_per_s']} (half-steps/s "
               f"{r['half_steps_per_s']}), output s {r['output_s']}",
               flush=True)
+    return held
+
+
+# the stats phase: the cli phase's MTZ merged STATS_STEPS steps with
+# STATS_FLAGS (the parallel half merges), then the port's statistics tools
+# on its outputs; the overall pearson CC1/2 of each repeat (cchalf
+# --overall -b 1) must reach STATS_MIN_CCHALF: the port on the card
+# host's CPU gave 0.9405 and 0.9418 (stats_merge with --disable-gpu, seed
+# 0), the card 0.9407 and 0.9417
+STATS_STEPS = 100
+STATS_FLAGS = ("--anomalous", "--merge-half-datasets",
+               f"--half-dataset-repeats={XVAL_REPEATS}",
+               "--test-fraction=0.1", "--xval-mode=parallel")
+STATS_MIN_CCHALF = 0.92
+STATS_BINS, STATS_ISIGI_BINS, STATS_WILSON_B = 10, 20, 20.0
+
+
+def stats_merge(tmp, seed, flags=STATS_FLAGS):
+    """The cli phase's MTZ (synthetic_mtz, CLI_OBS observations) written to
+    tmp and merged by careless_tpu_torch.main.main(["mono", CLI_KEYS, ...,
+    "--iterations=STATS_STEPS", *flags]) on the card (--disable-gpu among
+    the flags: the CPU). Returns the input's path, the output base, the
+    CLI's times and its argv."""
+    from pathlib import Path
+
+    from careless_tpu_torch.main import main as cli_main
+    from careless_tpu_torch.xtal import (DataSet, SpaceGroup, UnitCell,
+                                         write_mtz)
+
+    (cols, types_), _, _ = synthetic_mtz(
+        seed, CLI_OBS, CLI_IMAGES, CLI_CELL, CLI_SPACEGROUP, CLI_DMIN)
+    mtz, out = str(Path(tmp) / "unmerged.mtz"), str(Path(tmp) / "merged")
+    write_mtz(DataSet(cols, cell=UnitCell(*CLI_CELL),
+                      spacegroup=SpaceGroup.from_name(CLI_SPACEGROUP),
+                      mtz_dtypes=types_), mtz)
+    del cols
+    argv = ["mono", CLI_KEYS, mtz, out, f"--iterations={STATS_STEPS}",
+            "--disable-progress-bar", f"--seed={seed}", *flags]
+    return mtz, out, cli_main(argv), argv
+
+
+def overall_cchalf(xval_mtz, out_csv):
+    """The pearson CC1/2 of each repeat over all reflections (cchalf
+    --overall -b 1): {repeat: CC}."""
+    from careless_tpu_torch.stats import cchalf
+
+    result = cchalf.run_analysis(cchalf.ArgumentParser().parse_args(
+        [xval_mtz, "--overall", "-b", "1", "-o", out_csv]))
+    return {int(r): float(c) for r, c in zip(result["repeat"],
+                                             result["CChalf"])}
+
+
+def stats_phase(torch, dev, gen, seed, peak_flops, peak_bw):
+    """The statistics tools and to_intensities on a merge made on the card:
+    stats_merge (the cli phase's MTZ, STATS_STEPS steps with --anomalous,
+    the parallel half merges and a test fraction of 0.1), then each tool of
+    careless_tpu_torch/stats through its run_analysis, writing CSVs into a
+    temporary directory: cchalf in each method and with --overall -b 1,
+    ccanom, rsplit, ccpred, image_cc and isigi on the prediction file,
+    completeness and rescale on the merged MTZ, prior_b on the input MTZ,
+    filter_by_image_cc at the median image CC; then
+    scripts/to_intensities --anomalous on the card and on the CPU. history
+    and the plots (-i, -s) need matplotlib, which the card's machine does
+    not have, so they are left out here; the CPU tests hold them.
+    Checks: the merge's launches, counted from 0 just before the CLI call
+    up to the half merges (cli_counts: its steps, a validation pass every
+    --validation-frequency steps, two prediction passes) and from 0 just
+    before the half merges to their end (half_merge_counts, one parallel
+    merge of 2 x repeats halves); the main run's scaler the same after the
+    half merges, bit for bit; each half's N (+ and -) summing to its rows
+    (the halves DataManager.split_data_by_image draws after the test
+    split, formatted here); each table has one row per file x bin (x
+    repeat or x test set) and image, all holding rows at this size; every
+    CC finite; the overall CC1/2 of each repeat at least
+    STATS_MIN_CCHALF; ccpred has Train and Test rows; completeness has its
+    overall row first and every value in [0, 1]; rescale's F ratio
+    exp(-B / 4d^2) within rtol 1e-6; the filtered file keeps some rows and
+    drops some; to_intensities' I on the card the CPU's bit for bit and
+    SigI within rtol 1e-5. Then the merge's kernels held against their
+    plain versions at its shapes (step_kernels): on the planned train rows
+    (the anomalous reflection table), on the planned held-out rows of the
+    validation passes, and on the stacked halves of the parallel merge
+    (K1 forward only, K3 at each half's rows). Prints one `stats` line
+    with each tool's seconds, the merge's set-up and steps/s. Returns the
+    held kernels' errors by copy ("stats_train", "stats_test",
+    "stats_xval")."""
+    import importlib
+    import tempfile
+    from pathlib import Path
+
+    from careless_tpu_torch import kernels
+    from careless_tpu_torch.io.formatter import MonoFormatter
+    from careless_tpu_torch.io.manager import DataManager
+    from careless_tpu_torch.parallel.xval import stack_halves
+    from careless_tpu_torch.parser import parser as cli_parser
+    from careless_tpu_torch.scripts import to_intensities
+    from careless_tpu_torch.xtal import read_mtz
+
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    seconds = {}
+
+    def tool(label, name, argv):
+        mod = importlib.import_module(f"careless_tpu_torch.stats.{name}")
+        t0 = time.perf_counter()
+        result = mod.run_analysis(mod.ArgumentParser().parse_args(argv))
+        seconds[label] = time.perf_counter() - t0
+        return result
+
+    seen = {}
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        with counted_half_merges(torch, seen):
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            mtz, out, times, argv = stats_merge(tmp, seed)
+            torch.cuda.synchronize()
+        xval, preds = out + "_xval_0.mtz", out + "_predictions_0.mtz"
+        merged = out + "_0.mtz"
+
+        def csv(label):
+            return ["-o", str(Path(tmp) / f"{label}.csv")]
+
+        R, B = XVAL_REPEATS, STATS_BINS
+        tables = {}
+        for method in ("pearson", "spearman", "weighted"):
+            tables[f"cchalf_{method}"] = tool(
+                f"cchalf_{method}", "cchalf",
+                [xval, "-m", method] + csv(f"cchalf_{method}"))
+        t0 = time.perf_counter()
+        cc_half = overall_cchalf(xval, str(Path(tmp) / "overall.csv"))
+        seconds["cchalf_overall"] = time.perf_counter() - t0
+        tables["ccanom"] = tool("ccanom", "ccanom", [xval] + csv("ccanom"))
+        tables["rsplit"] = tool("rsplit", "rsplit", [xval] + csv("rsplit"))
+        tables["ccpred"] = tool("ccpred", "ccpred", [preds] + csv("ccpred"))
+        images = tool("image_cc", "image_cc", [preds] + csv("image_cc"))
+        isigi = tool("isigi", "isigi", [preds] + csv("isigi"))
+        complete = tool("completeness", "completeness",
+                        [merged] + csv("completeness"))
+        rescaled = tool("rescale", "rescale",
+                        [merged, str(Path(tmp) / "rescaled.mtz"), "-b",
+                         str(STATS_WILSON_B)])
+        fit = tool("prior_b", "prior_b", [mtz])
+        cutoff = float(np.nanmedian(images["CCpred"]))
+        filtered = tool("filter_by_image_cc", "filter_by_image_cc",
+                        [mtz, preds, "-c", str(cutoff), "-o",
+                         str(Path(tmp) / "filtered")])
+        kept = len(read_mtz(filtered[0]))
+
+        args = to_intensities.ArgumentParser().parse_args(
+            ["--anomalous", merged, str(Path(tmp) / "intensities.mtz")])
+        t0 = time.perf_counter()
+        on_card = to_intensities.run(args)
+        seconds["to_intensities"] = time.perf_counter() - t0
+        on_cpu = to_intensities.run(args, device="cpu")
+        source = read_mtz(merged)
+        halved = read_mtz(xval)
+
+        # the rows main() trained on, validated on and split into halves
+        args = cli_parser.parse_args(argv)
+        inputs, rac = MonoFormatter.from_parser(args).format_files(
+            [mtz], device=dev)
+        dm = DataManager(inputs, rac, parser=args, device=dev)
+        del inputs
+        train, test = dm.split_data_by_refl(args.test_fraction)
+        halves = [h for _ in range(XVAL_REPEATS)
+                  for h in dm.split_data_by_image()]
+        half_rows = [h.n_obs for h in halves]
+        held = {}
+        for label, rows_ in (("train", train), ("test", test)):
+            planned = dm.planned_inputs(rows_).inputs
+            held[f"stats_{label}"], _ = step_kernels(
+                torch, dev, gen, planned, "default", peak_flops, peak_bw,
+                f"stats {label}")
+            del planned
+        stacked = stack_halves([dm.planned_rows(h).inputs for h in halves],
+                               dm.n_refl, dm.n_images)
+        held["stats_xval"] = step_kernels(
+            torch, dev, gen, stacked.inputs, "xval", peak_flops, peak_bw,
+            "stats xval parallel", frozen_scaler=True,
+            noise_calls=half_rows)[0]
+        n_train, n_test = train.n_obs, test.n_obs
+        del stacked, halves, train, test, dm
+
+    K = 2 * XVAL_REPEATS
+    check_launches(seen["main"], "stats main run", cli_counts(
+        STATS_STEPS, passes=-(-STATS_STEPS // args.validation_frequency),
+        predictions=2))
+    check_launches(seen["xval"], "stats half merges",
+                   half_merge_counts(STATS_STEPS, K, 1))
+    check(seen["scaler_kept"], "stats: the half merges changed the main "
+          "run's scaler")
+    tags = sorted(set(zip(halved["repeat"].tolist(),
+                          halved["half"].tolist())))
+    n = [float(sum(np.nansum(halved[c][(halved["repeat"] == r)
+                                       & (halved["half"] == h)]
+                             .astype(np.float64)) for c in ("N(+)", "N(-)")))
+         for r, h in tags]
+    check(len(tags) == K and n == half_rows, f"stats: N sums to {n} by "
+          f"half, the halves hold {half_rows} rows")
+    for label, t in tables.items():
+        keys = sorted(zip(t["bin"].tolist(), (t["test"] if "test" in t
+                                              else t["repeat"]).tolist()))
+        want = ([(b, s) for b in range(B) for s in ("Test", "Train")]
+                if "test" in t else [(b, r) for b in range(B)
+                                     for r in range(R)])
+        files = {preds if "test" in t else xval}
+        check(keys == want and set(t["file"].tolist()) == files,
+              f"stats: {label} rows {keys[:4]}... for {len(want)} groups")
+        value = t.columns[-1]
+        check(bool(np.isfinite(t[value]).all()),
+              f"stats: {label} has non-finite values: {t[value]}")
+    check(sorted(cc_half) == list(range(R)) and all(
+        math.isfinite(c) and c >= STATS_MIN_CCHALF for c in cc_half.values()),
+        f"stats: overall CC1/2 {cc_half}, expected at least "
+        f"{STATS_MIN_CCHALF}")
+    check(set(tables["ccpred"]["test"].tolist()) == {"Train", "Test"},
+          "stats: ccpred lacks Train or Test rows")
+    check(len(images) == CLI_IMAGES and bool(
+        np.isfinite(images["CCpred"]).all()) and np.array_equal(
+        images["BATCH"], np.arange(1, CLI_IMAGES + 1)),
+        f"stats: image_cc gave {len(images)} rows for {CLI_IMAGES} images")
+    check(len(isigi) == STATS_ISIGI_BINS
+          and bool(np.isfinite(isigi["I/sigI"]).all()),
+          f"stats: isigi gave {len(isigi)} rows")
+    values = np.concatenate([complete[c] for c in ("all", "anomalous")])
+    check(complete["Resolution Range (Å)"][0] == "overall"
+          and len(complete) == B + 1
+          and bool(np.all((values >= 0) & (values <= 1))),
+          f"stats: completeness {complete['all']}")
+    d = source.cell.compute_d(source.get_hkls()).astype(np.float32)
+    ratio = rescaled["F(+)"].astype(np.float64) / source["F(+)"]
+    ok = np.isfinite(ratio)
+    check(bool(np.allclose(ratio[ok], np.exp(
+        -STATS_WILSON_B / (4 * d[ok].astype(np.float64) ** 2)),
+        rtol=1e-6, atol=0)), "stats: rescale's F ratio is not "
+        "exp(-B / 4d^2)")
+    check(0 < kept < CLI_OBS, f"stats: filter_by_image_cc kept {kept} of "
+          f"{CLI_OBS} rows at cut-off {cutoff}")
+    check(math.isfinite(fit.slope), f"stats: prior_b's fit {fit}")
+    check(on_card.columns == on_cpu.columns, "stats: to_intensities' "
+          "columns differ between the card and the CPU")
+    sig_err = 0.0
+    for c in on_card.columns:
+        a, b = on_card[c], on_cpu[c]
+        same_nan = np.array_equal(np.isnan(a), np.isnan(b))
+        if c.startswith("SigI"):
+            ok = ~np.isnan(b)
+            rel = np.abs(a[ok] - b[ok]) / np.maximum(np.abs(b[ok]), 1e-30)
+            sig_err = max(sig_err, float(rel.max()))
+            check(same_nan and bool(np.allclose(a[ok], b[ok], rtol=1e-5,
+                                                atol=0)),
+                  f"stats: to_intensities {c} on the card differs from the "
+                  f"CPU's by {rel.max()} relative")
+        else:
+            check(same_nan and np.array_equal(a[~np.isnan(a)],
+                                              b[~np.isnan(b)]),
+                  f"stats: to_intensities {c} differs between the card and "
+                  "the CPU")
+    out = dict(
+        observations=CLI_OBS, steps=STATS_STEPS,
+        setup_s=times["setup_s"], steps_per_s=times["steps"]
+        / times["train_s"], xval_setup_s=times["xval_setup_s"],
+        xval_steps_per_s=STATS_STEPS / times["xval_train_s"],
+        cchalf_overall=cc_half, min_cchalf=STATS_MIN_CCHALF,
+        wilson_b=-2.0 * fit.slope, image_cc_cutoff=cutoff,
+        filtered_rows=kept, to_intensities_sigi_max_rel_diff=sig_err,
+        train_rows=n_train, held_out_rows=n_test, half_rows=half_rows,
+        launches={k: {n: v for n, v in seen[k].items() if v}
+                  for k in ("main", "xval")},
+        held_max_abs_err=held, tool_s=seconds)
+    print("stats: " + json.dumps(out), flush=True)
     return held
 
 
@@ -3245,6 +3523,33 @@ def check_launches(launches, label, want):
               f"times, expected {count if count is not None else '> 0'}")
 
 
+def cli_counts(steps, passes=0, predictions=1):
+    """The launches of a mono CLI run of the default model: its steps',
+    plus a K1-fwd, two K2 and a K3 for each validation pass, plus two
+    K1-fwd and two K2 for each prediction pass (two with a test fraction:
+    the train rows and the held-out rows)."""
+    return {**{k: (steps + passes + 2 * predictions if k == "trunk_fwd"
+                   else v) for k, v in trunk_counts(steps, True,
+                                                    False).items()},
+            "gather": GATHERS_PER_STEP["default"] * steps + 2 * passes
+            + 2 * predictions,
+            "philox_normal": steps + passes, "fused_ll_fwd": 0,
+            "fused_ll_bwd": 0, "gather_stream": 0}
+
+
+def half_merge_counts(steps, halves, merges):
+    """The launches of the CLI's half merges of `halves` halves in `merges`
+    merges (halves serial, 1 parallel): per merge and step a K1-fwd and
+    GATHERS_PER_STEP["xval"] K2, per half and step a K3; never K1-bwd (the
+    scaler is frozen), K4 or K5."""
+    from careless_tpu_torch import kernels
+    return {**{k: 0 for k in kernels.LAUNCHES if k.startswith("trunk")},
+            "trunk_fwd": merges * steps,
+            "gather": GATHERS_PER_STEP["xval"] * merges * steps,
+            "philox_normal": halves * steps, "fused_ll_fwd": 0,
+            "fused_ll_bwd": 0, "gather_stream": 0}
+
+
 def window_device_times(events, launched, steps):
     """(rows of (ms per step, launches per step, kernel), launches each
     kernel's records stand for, whether every port kernel that launched
@@ -3395,6 +3700,8 @@ def main():
     held_at = resume_phase(torch, dev, gen, args.seed, peak_flops, peak_bw)
     held_at.update(xval_phase(torch, dev, gen, args.seed, peak_flops,
                               peak_bw))
+    held_at.update(stats_phase(torch, dev, gen, args.seed, peak_flops,
+                               peak_bw))
     held_at["prior"] = prior_phase(torch, dev, gen, args.seed, peak_flops,
                                    peak_bw)
     library_launches, held_at["library"] = library_phase(

@@ -1,9 +1,11 @@
 """careless_tpu_torch, chip_smoke.py and the port's tools (tools/*.py, which
-run on the card beside it) import neither JAX, optax, pandas (which the
-card's machine does not have) nor the JAX package (careless_tpu itself or
-any careless_tpu.* module). Checked twice:
+run on the card beside it) import neither JAX, optax, pandas, seaborn
+(which imports pandas) nor the JAX package (careless_tpu itself or any
+careless_tpu.* module). Checked twice:
 statically over every import statement, and by importing every module in a
-fresh interpreter and inspecting sys.modules.
+fresh interpreter and inspecting sys.modules. Importing every module also
+loads no matplotlib, which the card's machine lacks: the statistics tools
+import it only to draw a plot that was asked for.
 
 Note "careless_tpu_torch".startswith("careless_tpu"): the JAX package is
 matched as the exact name or the prefix "careless_tpu.", never as a bare
@@ -22,7 +24,8 @@ PORT_FILES = sorted((ROOT / "careless_tpu_torch").rglob("*.py")) + [
 
 
 def forbidden(module: str) -> bool:
-    for name in ("jax", "jaxlib", "optax", "pandas", "careless_tpu"):
+    for name in ("jax", "jaxlib", "optax", "pandas", "seaborn",
+                 "careless_tpu"):
         if module == name or module.startswith(name + "."):
             return True
     return False
@@ -32,6 +35,7 @@ def test_forbidden_matches_modules_not_prefixes():
     assert forbidden("careless_tpu") and forbidden("careless_tpu.ops.x")
     assert forbidden("jax.numpy") and forbidden("optax")
     assert forbidden("pandas") and forbidden("pandas.core.frame")
+    assert forbidden("seaborn") and forbidden("seaborn.relational")
     assert not forbidden("careless_tpu_torch")
     assert not forbidden("careless_tpu_torch.ops") and not forbidden("jaxy")
 
@@ -79,6 +83,10 @@ print(json.dumps(sorted(sys.modules)))
                 "xtal.dataset", "xtal.symmetry", "utils.checkpoint",
                 "utils.positional_encoding", "utils.laue", "xtal.stream",
                 "xtal.xds", "parallel.xval", "models.priors.double_wilson",
-                "models.priors.empirical", "models.merging.surrogate"):
+                "models.priors.empirical", "models.merging.surrogate",
+                "stats._lib", "stats.cchalf", "stats.history",
+                "scripts.to_intensities", "scripts.plot_predictions"):
         assert "careless_tpu_torch." + mod in loaded
     assert [m for m in loaded if forbidden(m)] == []
+    assert [m for m in loaded if m == "matplotlib"
+            or m.startswith("matplotlib.")] == []
