@@ -2,11 +2,12 @@
 
 The same flags as careless_tpu/args/device_options.py, so that a command
 line of the JAX CLI parses here. The port reads --disable-gpu (the CPU),
---device-id (which card), --fused-kernel, --mlp-dtype, --profile-dir and
---seed. The flags that steer only JAX (--run-eagerly, --platform,
---rng-impl, --jax-debug, --shard-axis) and the unported --num-devices above
-1 parse, and a value other than the default makes careless_tpu_torch.main
-raise NotImplementedError naming the flag.
+--device-id (which card), --num-devices and --shard-axis (one process per
+device through torch.distributed), --fused-kernel, --mlp-dtype,
+--profile-dir and --seed. The flags that steer only JAX (--run-eagerly,
+--platform, --rng-impl, --jax-debug) parse, and a value other than the
+default makes careless_tpu_torch.main raise NotImplementedError naming the
+flag.
 """
 name = "Device Options"
 description = None
@@ -36,14 +37,19 @@ args_and_kwargs = (
         "dest": "device_id",
     }),
     (("--num-devices",), {
-        "help": "Shard observations data-parallel over this many devices. "
-                "Not ported yet: the port runs on one device (0 or 1).",
+        "help": "Train on this many devices, one process each: NCCL on "
+                "cards 0 .. N-1, or gloo ranks on the CPU with "
+                "--disable-gpu (under torchrun, each process is one "
+                "rank). Each rank holds its shard (--shard-axis); rank 0 "
+                "writes the outputs. 0 or 1: one device.",
         "type": int,
         "default": 0,
     }),
     (("--shard-axis",), {
-        "help": "JAX only: which axis --num-devices shards. The port "
-                "refuses 'mc'.",
+        "help": "What --num-devices shards: 'obs' (default) cuts the "
+                "observations into contiguous shards (Laue: at harmonic-"
+                "chain boundaries); 'mc' gives each device --mc-samples / "
+                "N of the Monte Carlo samples over every observation.",
         "type": str,
         "default": "obs",
         "choices": ["obs", "mc"],

@@ -25,9 +25,17 @@ training under torch.profiler (CPU, and CUDA on the card) and writes its
 Chrome/TensorBoard trace, `<host>_<pid>.<ns>.pt.trace.json`, into DIR
 (the JAX package writes an XLA trace there).
 
+`--num-devices N` (N > 1) trains on N devices, one process each
+(torch.multiprocessing's spawn; NCCL on cards 0 .. N - 1, gloo ranks on the
+CPU with --disable-gpu; under torchrun each process is one rank): every
+rank reads and formats the same files and keeps its shard of the rows
+(`--shard-axis obs`, parallel/shard.py) or of the Monte Carlo samples
+(`--shard-axis mc`), and rank 0 writes the outputs; the half merges go to
+the ranks as well (serial: each half sharded like the main merge;
+parallel: whole halves to each rank).
+
 Counterpart of careless_tpu/main.py's main, run_careless and
-run_half_dataset_crossvalidation. Options that are not ported yet
-(several devices, --shard-axis) and the flags that steer only JAX raise
+run_half_dataset_crossvalidation. The flags that steer only JAX raise
 NotImplementedError naming the flag when given a value other than the
 default, so a JAX command line parses here and never runs something else
 than it asks for.
@@ -38,6 +46,7 @@ import contextlib
 import csv
 import dataclasses
 import math
+import os
 import time
 from typing import Optional
 
@@ -45,8 +54,11 @@ import numpy as np
 import torch
 
 from .device import DeviceLike, resolve_device, seeded_generator
+from .parallel import distributed
+from .parallel.shard import (check_devices, sample_range, sample_shard,
+                             shard_inputs)
 from .parallel.xval import (SEED_STRIDE, half_params, make_half_keys,
-                            stack_halves, train_halves)
+                            train_halves_spread)
 from .xtal import concat_datasets, write_mtz
 
 # (flag, attribute, value that asks for what the port does not do)
@@ -55,8 +67,6 @@ _UNPORTED = (
     ("--platform", "platform", lambda v: v is not None),
     ("--rng-impl", "rng_impl", lambda v: v is not None),
     ("--jax-debug", "jax_debug", bool),
-    ("--shard-axis", "shard_axis", lambda v: v not in (None, "obs")),
-    ("--num-devices", "num_devices", lambda v: (v or 0) > 1),
 )
 
 
@@ -94,6 +104,70 @@ def cli_device(parser, device: DeviceLike = None) -> torch.device:
                          f"{count} device(s) available")
     torch.cuda.set_device(parser.device_id)
     return torch.device("cuda", parser.device_id)
+
+
+def sharded(parser) -> bool:
+    """Whether this run is one rank of a --num-devices run."""
+    return (parser.num_devices or 0) > 1 and distributed.is_initialized()
+
+
+def launch(parser) -> Optional[dict]:
+    """Run --num-devices N ranks of run_careless, one process each: NCCL
+    on cards 0 .. N - 1, or with --disable-gpu gloo on the CPU (as many
+    ranks as it has cores); under torchrun this process is one of them.
+    Refuses more devices than there are, and an --mc-samples that
+    --shard-axis=mc cannot divide, with the JAX package's messages.
+    Returns rank 0's timings."""
+    n = parser.num_devices
+    if "WORLD_SIZE" in os.environ:
+        backend = "gloo" if parser.disable_gpu else "nccl"
+        device = (torch.device("cpu") if parser.disable_gpu
+                  else torch.device("cuda", distributed.local_rank()))
+        if device.type == "cuda":
+            torch.cuda.set_device(device)
+        distributed.initialize(backend)
+        if distributed.world_size() != n:
+            raise ValueError(f"--num-devices {n} under a torchrun world of "
+                             f"{distributed.world_size()}")
+        return run_careless(parser, device)
+    if parser.disable_gpu:
+        backend, available = "gloo", os.cpu_count() or 1
+        devices = ["cpu"] * n
+    else:
+        if not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device is available; pass "
+                               "--disable-gpu to run on the CPU")
+        backend, available = "nccl", torch.cuda.device_count()
+        devices = [f"cuda:{r}" for r in range(n)]
+    check_devices(n, available)
+    if parser.shard_axis == "mc":
+        sample_range(parser.mc_samples or 1, 0, n)
+    if backend == "nccl":
+        from .kernels._build import library
+        library()   # built once here, not by every rank
+    return distributed.spawn(_rank_main, n, (parser,), backend, devices,
+                             max(1, torch.get_num_threads() // n))[0]
+
+
+def _rank_main(rank: int, world: int, device: torch.device, parser):
+    """One spawned rank of launch."""
+    return run_careless(parser, device)
+
+
+def training_rows(dm, inputs, model, parser, dev):
+    """(the rows `inputs` train on, with plans, and their Shard or None):
+    DataManager.planned_inputs in one process; in a --num-devices run this
+    rank's cut of planned_rows (--shard-axis obs) or all planned rows and
+    this rank's samples (mc)."""
+    if not sharded(parser):
+        return dm.planned_inputs(inputs).inputs, None
+    rank, world = distributed.rank(), distributed.world_size()
+    if parser.shard_axis == "mc":
+        planned = dm.planned_inputs(inputs).inputs
+        return planned, sample_shard(model.mc_samples, rank, world,
+                                     planned.n_obs)
+    return shard_inputs(dm.planned_rows(inputs).inputs, rank, world,
+                        dm.n_refl, dm.n_images, dev)
 
 
 def write_history(history: dict, path: str) -> None:
@@ -136,7 +210,8 @@ def profiled(profile_dir: Optional[str], dev: torch.device):
 
 def run_careless(parser, device: DeviceLike = None) -> Optional[dict]:
     """One merge from the parsed flags on `device` (None: --disable-gpu's
-    CPU or card --device-id). Returns the host seconds of its parts:
+    CPU or card --device-id; --num-devices N > 1: launch's N ranks, each
+    on its own). Returns the host seconds of its parts:
     set-up (setup_s, the sum of build_s, the kernels' build where the
     checkout has none yet; read_s, the reflection files; format_s, the
     formatter; model_s, the data manager, the test split, model and warm
@@ -145,7 +220,8 @@ def run_careless(parser, device: DeviceLike = None) -> Optional[dict]:
     run's earlier steps included), and output (output_s: results,
     predictions, writing); with --merge-half-datasets also the half
     merges' xval_setup_s (splits, models, row layout and plans), xval_train_s
-    (their training) and xval_output_s (results and writing)."""
+    (their training; in the parallel form also the stacked layout of the
+    halves) and xval_output_s (results and writing)."""
     if parser.type == "devices":
         print("#############################################")
         print("# PyTorch can access the following devices  #")
@@ -155,10 +231,16 @@ def run_careless(parser, device: DeviceLike = None) -> Optional[dict]:
         print(" - cpu")
         return None
     check_ported(parser)
+    if (parser.num_devices or 0) > 1 and not distributed.is_initialized():
+        return launch(parser)
+    if sharded(parser) and distributed.world_size() != parser.num_devices:
+        raise ValueError(f"--num-devices {parser.num_devices} in a process "
+                         f"group of {distributed.world_size()}")
+    writes = not sharded(parser) or distributed.rank() == 0
 
     from .io.formatter import LaueFormatter, MonoFormatter
     from .io.manager import DataManager
-    from .utils.checkpoint import load_params, save_params
+    from .utils.checkpoint import load_params
 
     dev = cli_device(parser, device)
     times = {}
@@ -196,7 +278,7 @@ def run_careless(parser, device: DeviceLike = None) -> Optional[dict]:
         params["posterior"] = load_params(parser.structure_factor_file,
                                           params["posterior"])
     lap("model_s")
-    planned = dm.planned_inputs(train).inputs
+    planned, shard = training_rows(dm, train, model, parser, dev)
     validation = None if test is None else dm.planned_inputs(test).inputs
     generator = seeded_generator(parser.seed, dev)
     lap("plans_s")
@@ -210,10 +292,38 @@ def run_careless(parser, device: DeviceLike = None) -> Optional[dict]:
             checkpoint_path=(base + "_checkpoint" if parser.checkpoint_every
                              else None),
             checkpoint_frequency=parser.checkpoint_every,
-            resume_from=parser.resume_from)
+            resume_from=parser.resume_from, shard=shard)
         _sync(dev)
     lap("train_s")
+    if writes:
+        write_outputs(dm, model, params, history, train, test, parser)
+    lap("output_s")
+    if parser.merge_half_datasets:
+        times.update(run_half_dataset_crossvalidation(dm, params, parser,
+                                                      dev))
 
+    if parser.embed and writes:
+        try:
+            from IPython import embed
+            embed(colors="Linux")
+        except ImportError:
+            pass
+    times["setup_s"] = sum(times[k] for k in ("build_s", "read_s",
+                                              "format_s", "model_s",
+                                              "plans_s"))
+    times["steps"] = len(next(iter(history.values()), []))
+    return times
+
+
+def write_outputs(dm, model, params: dict, history: dict, train, test,
+                  parser) -> None:
+    """The merge's files from the trained params, on one device from all
+    rows: the merged MTZs, the history, the parameters, the pickle with
+    --save-data-manager, and the predictions (the held-out rows last,
+    test = 1)."""
+    from .utils.checkpoint import save_params
+
+    base = parser.output_base
     posterior_dist = model.posterior.distribution(params["posterior"])
     for i, ds in enumerate(dm.get_results(posterior_dist, inputs=train)):
         write_mtz(ds, base + f"_{i}.mtz")
@@ -230,22 +340,6 @@ def run_careless(parser, device: DeviceLike = None) -> Optional[dict]:
                                             test_value=1)))
     for file_id, ds in enumerate(predictions):
         write_mtz(ds, base + f"_predictions_{file_id}.mtz")
-    lap("output_s")
-    if parser.merge_half_datasets:
-        times.update(run_half_dataset_crossvalidation(dm, params, parser,
-                                                      dev))
-
-    if parser.embed:
-        try:
-            from IPython import embed
-            embed(colors="Linux")
-        except ImportError:
-            pass
-    times["setup_s"] = sum(times[k] for k in ("build_s", "read_s",
-                                              "format_s", "model_s",
-                                              "plans_s"))
-    times["steps"] = len(next(iter(history.values()), []))
-    return times
 
 
 def run_half_dataset_crossvalidation(dm, trained_params: dict, parser,
@@ -256,7 +350,10 @@ def run_half_dataset_crossvalidation(dm, trained_params: dict, parser,
     generator seeded with seed + 7919 (2 repeat + half + 1), and write
     their results with int32 `repeat` and `half` columns (MTZ type I), in
     split order, to <out>_xval_<file>.mtz (careless_tpu/main.py:120-229).
-    Returns xval_setup_s, xval_train_s and xval_output_s."""
+    In a --num-devices run every rank takes part: the serial form trains
+    each half sharded as the main merge, the parallel form gives each rank
+    whole halves (train_halves_spread); rank 0 writes. Returns xval_setup_s,
+    xval_train_s and xval_output_s."""
     times = {"xval_setup_s": 0.0, "xval_train_s": 0.0, "xval_output_s": 0.0}
     t0 = time.perf_counter()
 
@@ -284,39 +381,45 @@ def run_half_dataset_crossvalidation(dm, trained_params: dict, parser,
             results[file_id].append(ds)
 
     steps, chunk = parser.iterations, parser.steps_per_compile
+    writes = not sharded(parser) or distributed.rank() == 0
     if parser.xval_mode == "serial":
         for repeat in range(parser.half_dataset_repeats):
             for half_id, half in enumerate(dm.split_data_by_image()):
                 model, params, trainer = frozen_scaler_model()
-                planned = dm.planned_inputs(half).inputs
+                planned, shard = training_rows(dm, half, model, parser, dev)
                 generator = seeded_generator(
                     parser.seed + SEED_STRIDE * (2 * repeat + half_id + 1),
                     dev)
                 lap("xval_setup_s")
                 params, _ = trainer.train(params, generator, planned, steps,
-                                          chunk_size=chunk, device=dev)
+                                          chunk_size=chunk, device=dev,
+                                          shard=shard)
                 lap("xval_train_s")
-                collect(model, params["posterior"], half, repeat, half_id)
+                if writes:
+                    collect(model, params["posterior"], half, repeat,
+                            half_id)
                 lap("xval_output_s")
     else:
         halves = []
         for _ in range(parser.half_dataset_repeats):
             halves.extend(dm.split_data_by_image())
         model, params, trainer = frozen_scaler_model()
-        stacked = stack_halves([dm.planned_rows(h).inputs for h in halves],
-                               dm.n_refl, dm.n_images)
+        planned = [dm.planned_rows(half).inputs for half in halves]
         lap("xval_setup_s")
-        trained, _ = train_halves(
-            trainer, params, make_half_keys(parser.seed,
-                                            parser.half_dataset_repeats),
-            stacked, steps, chunk_size=chunk, device=dev)
+        trained, _ = train_halves_spread(
+            trainer, params,
+            make_half_keys(parser.seed, parser.half_dataset_repeats),
+            planned, dm.n_refl, dm.n_images, steps, chunk_size=chunk,
+            device=dev)
         lap("xval_train_s")
-        for k, half in enumerate(halves):
-            collect(model, half_params(trained, k, trainer.freeze)[
-                "posterior"], half, *divmod(k, 2))
-    for file_id, parts in enumerate(results):
-        write_mtz(concat_datasets(parts),
-                  parser.output_base + f"_xval_{file_id}.mtz")
+        if writes:
+            for k, half in enumerate(halves):
+                collect(model, half_params(trained, k, trainer.freeze)[
+                    "posterior"], half, *divmod(k, 2))
+    if writes:
+        for file_id, parts in enumerate(results):
+            write_mtz(concat_datasets(parts),
+                      parser.output_base + f"_xval_{file_id}.mtz")
     lap("xval_output_s")
     return times
 

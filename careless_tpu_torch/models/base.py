@@ -6,9 +6,11 @@ observation and (N, d) metadata, on one explicit device. Laue data carries
 are indexed by harmonic group (the first n_groups entries hold the group
 values), not by row. Gather plans are derived data, built once on the host
 from the GLOBAL table sizes; select/to drop them, and so does replace() of
-any field they are built from. Not ported: the shard-padding mask and
-per-shard plans (multi-device), and the TPU's lane-packed metadata
-(PackedMeta): the trunk kernel reads (N, d) directly.
+any field they are built from. Multi-device training needs no
+shard-padding mask and no stacked per-shard plans: each rank holds an
+unpadded cut of the single-device layout and builds its own plans on it
+(parallel/shard.py). Not ported: the TPU's lane-packed metadata
+(PackedMeta), since the trunk kernel reads (N, d) directly.
 """
 from __future__ import annotations
 

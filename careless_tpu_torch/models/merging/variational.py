@@ -110,7 +110,7 @@ class VariationalMergingModel:
     def elbo(self, params: dict, inputs: Inputs,
              generator: Optional[torch.Generator] = None, seed: int = 0,
              u_f: Optional[torch.Tensor] = None,
-             eps: Optional[torch.Tensor] = None
+             eps: Optional[torch.Tensor] = None, shard=None
              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """Negative ELBO (the loss) and its metrics, an S-sample MC estimate.
 
@@ -121,26 +121,61 @@ class VariationalMergingModel:
         (when not given) from Philox with key `seed`, sample s at indices
         [s N, (s + 1) N). At S = 1 u_f and eps may leave out the sample axis. A
         fused-eligible model runs _elbo_fused, the same estimate through
-        K4 (variational.py:179-234)."""
+        K4 (variational.py:179-234).
+
+        `shard` (parallel/shard.Shard), when given, places these rows at
+        [row_offset, row_offset + N) of n_total and scores only the samples
+        in its range (the Monte Carlo axis): row i of sample s draws Philox
+        index s n_total + row_offset + i, the unsharded run's, and u_f
+        stays the whole (S, n_refl). Each rank's loss is then its
+        likelihood term, and rank 0's also the KL (the counterparts of
+        elbo_sharded and elbo_mc_sharded, :303-568, whose psum becomes the
+        Trainer's all_reduce of the gradients); metrics["ll"] is the rank's
+        likelihood sum, whose total over the ranks gives the metrics
+        (sharded_metrics). eps, when given, is the shard's own (S_r, N)."""
         if self._fused_eligible(inputs):
-            return self._elbo_fused(params, inputs, generator, seed, u_f, eps)
-        q, z_f, eps = self._samples(params, inputs, generator, u_f, eps)
-        S, n = z_f.shape[0], inputs.n_obs
+            return self._elbo_fused(params, inputs, generator, seed, u_f, eps,
+                                    shard)
+        q, z_f, eps = self._samples(params, inputs, generator, u_f, eps,
+                                    shard)
         scale_dist = self.scaler.apply(params["scaler"], inputs)
         if not isinstance(scale_dist, Normal):
             raise TypeError("the mono chain expects a Normal scale "
                             f"distribution, got {type(scale_dist).__name__}")
+        samples, row0, n_all = self._placement(inputs, shard)
         if eps is None:
-            eps = prng_normal(S * n, seed, 0, inputs.device).view(S, n)
+            eps = self._scale_noise(seed, samples, row0, inputs.n_obs, n_all,
+                                    inputs.device)
         likelihood = self.likelihood.build(params.get("likelihood", {}),
                                            inputs)
         ll_total = 0.0
-        for s in range(S):
-            z_scale = scale_dist.loc + scale_dist.scale * eps[s]
+        for j, s in enumerate(samples):
+            z_scale = scale_dist.loc + scale_dist.scale * eps[j]
             z_obs = plan_gather(z_f[s], inputs.refl_id, inputs.plans.refl)
             ll_total = ll_total + self._masked_ll_sum(
                 likelihood, z_scale * torch.square(z_obs))
-        return self._loss(q, z_f, ll_total, n, self._built_prior(params))
+        return self._loss(q, z_f, ll_total, n_all, self._built_prior(params),
+                          shard)
+
+    def _placement(self, inputs: Inputs, shard) -> Tuple[range, int, int]:
+        """(the samples this call scores, its first row's index in the
+        whole, the whole's rows)."""
+        if shard is None:
+            return range(self.mc_samples), 0, inputs.n_obs
+        lo, hi = shard.samples or (0, self.mc_samples)
+        return range(lo, hi), shard.row_offset, shard.n_total
+
+    @staticmethod
+    def _scale_noise(seed: int, samples: range, row0: int, n: int,
+                     n_all: int, device) -> torch.Tensor:
+        """(len(samples), n) Philox normals, sample s row i at index
+        s n_all + row0 + i: one K3 launch when the rows are the whole,
+        else one a sample."""
+        if n == n_all:
+            return prng_normal(len(samples) * n, seed, samples.start * n,
+                               device).view(len(samples), n)
+        return torch.stack([prng_normal(n, seed, s * n_all + row0, device)
+                            for s in samples])
 
     @staticmethod
     def _masked_ll_sum(likelihood, ipred: torch.Tensor) -> torch.Tensor:
@@ -155,12 +190,14 @@ class VariationalMergingModel:
     def _elbo_fused(self, params: dict, inputs: Inputs,
                     generator: Optional[torch.Generator] = None,
                     seed: int = 0, u_f: Optional[torch.Tensor] = None,
-                    eps: Optional[torch.Tensor] = None
+                    eps: Optional[torch.Tensor] = None, shard=None
                     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """elbo with the (N,) chain from eps to the likelihood sum in K4,
         once per sample; the MLP runs once (variational.py:236-300)."""
-        q, z_f, eps = self._samples(params, inputs, generator, u_f, eps)
-        n, plans = inputs.n_obs, inputs.plans
+        q, z_f, eps = self._samples(params, inputs, generator, u_f, eps,
+                                    shard)
+        plans = inputs.plans
+        samples, row0, n_all = self._placement(inputs, shard)
         if isinstance(self.scaler, HybridImageScaler):
             mlp_dist = self.scaler.mlp.apply(params["scaler"]["mlp"], inputs)
             image_scales = self.scaler.image.scales(params["scaler"]["image"])
@@ -173,20 +210,22 @@ class VariationalMergingModel:
         kind, dof = self._fused_likelihood_kind()
         ev11 = self._fused_ev11_scalars(kind, params.get("likelihood", {}))
         ll_total = 0.0
-        for s in range(z_f.shape[0]):
+        for j, s in enumerate(samples):
             ll_total = ll_total + fused_likelihood_sum(
                 mlp_dist.loc, mlp_dist.scale, image_scales, z_f[s],
                 inputs.refl_id, image_id, inputs.intensities,
-                inputs.uncertainties, seed=seed, offset=s * n,
-                noise=None if eps is None else eps[s],
+                inputs.uncertainties, seed=seed, offset=s * n_all + row0,
+                noise=None if eps is None else eps[j],
                 refl_plan=plans.refl, image_plan=image_plan, kind=kind,
                 dof=dof, ev11=ev11)
-        return self._loss(q, z_f, ll_total, n, self._built_prior(params))
+        return self._loss(q, z_f, ll_total, n_all, self._built_prior(params),
+                          shard)
 
-    def _samples(self, params, inputs, generator, u_f, eps):
-        """(q, z_f (S, n_refl), eps as (S, N) or None). The posterior
-        distribution owns the draw: u_f is its noise for the S samples,
-        drawn by its draw_noise when not given."""
+    def _samples(self, params, inputs, generator, u_f, eps, shard=None):
+        """(q, z_f (S, n_refl), eps as (S_r, N) or None: S_r the samples
+        this call scores). The posterior distribution owns the draw: u_f
+        is its noise for the S samples, drawn by its draw_noise when not
+        given."""
         if inputs.plans is None:
             raise ValueError("the ELBO needs gather plans (Inputs.with_plans)")
         S = self.mc_samples
@@ -197,27 +236,50 @@ class VariationalMergingModel:
                 raise ValueError("pass a torch.Generator or the noise u_f")
             u_f = q.draw_noise(generator, shape, q.loc.device)
         z_f = q.sample_from_noise(u_f.reshape(q.noise_shape(shape)))
-        return q, z_f, None if eps is None else eps.reshape(S, inputs.n_obs)
+        if eps is not None:
+            eps = eps.reshape(len(self._placement(inputs, shard)[0]),
+                              inputs.n_obs)
+        return q, z_f, eps
 
-    def _loss(self, q, z_f, ll_total, n_obs, prior):
+    def _loss(self, q, z_f, ll_total, n_obs, prior, shard=None):
         """(loss, metrics) from the likelihood summed over samples and
         observations (variational.py:220-234). z_f is (S, n_refl), or
         (S, K, n_refl) for K independent merges (parallel/xval.py), whose
-        ll_total and n_obs are then (K,) and whose metrics are (K,)."""
+        ll_total and n_obs are then (K,) and whose metrics are (K,). With a
+        shard, ll_total is this rank's part and n_obs the whole's rows; the
+        KL enters the loss on the rank that carries it alone."""
         S = z_f.shape[0]
         kl_sum, kl_mean = self._kl_terms(q, prior, z_f)
-        if self.kl_weight is None:
-            nll = -ll_total / S
-            kl = kl_sum
-            loss = nll + kl
-        else:
-            nll = -ll_total / (S * n_obs)
-            kl = kl_mean
-            loss = nll + self.kl_weight * kl
+        nll, kl = self._nll(ll_total, S, n_obs), (
+            kl_sum if self.kl_weight is None else kl_mean)
+        loss = (nll if shard is not None and not shard.carries_kl
+                else self._total(nll, kl))
         metrics = {"loss": loss, "NLL": nll, "F KLDiv": kl}
         if hasattr(prior, "metrics"):
             metrics.update(prior.metrics())
+        if shard is not None:
+            metrics["ll"] = ll_total
         return loss, metrics
+
+    def _nll(self, ll_total, S, n_obs):
+        if self.kl_weight is None:
+            return -ll_total / S
+        return -ll_total / (S * n_obs)
+
+    def _total(self, nll, kl):
+        return nll + kl if self.kl_weight is None else nll + self.kl_weight * kl
+
+    def sharded_metrics(self, metrics: dict, ll_total: torch.Tensor,
+                        n_obs: int) -> Dict[str, torch.Tensor]:
+        """A rank's elbo metrics with the NLL and loss of the whole: from
+        ll_total, the ranks' likelihood sums added up, and the whole's
+        n_obs rows (the KL and the prior's metrics are every rank's
+        own and equal). At one rank, the unsharded elbo's metrics bit for
+        bit."""
+        nll = self._nll(ll_total, self.mc_samples, n_obs)
+        out = {k: v for k, v in metrics.items() if k != "ll"}
+        out.update(loss=self._total(nll, metrics["F KLDiv"]), NLL=nll)
+        return out
 
     def _kl_terms(self, q, prior, z_f) -> Tuple[torch.Tensor, torch.Tensor]:
         """(sum over reflections of the per-reflection KL estimate, mean
@@ -353,17 +415,34 @@ class Trainer:
         clipnorm per leaf, clipvalue, global clipnorm. With `batched` every
         grad has a leading axis of K independent merges (parallel/xval.py)
         and each merge is treated on its own: K norms, K clips."""
+        flat, sizes = self.flat_grads(grads, frozen, batched)
+        return self.transform_flat(flat, sizes, grads, batched)
+
+    @staticmethod
+    def flat_grads(grads: List[torch.Tensor], frozen: List[bool],
+                   batched: bool = False) -> Tuple[torch.Tensor, List[int]]:
+        """(the gradients end to end, zeros for the frozen leaves; each
+        leaf's length): the buffer transform_flat works on, and the one a
+        sharded step sums over the ranks."""
         k = grads[0].shape[0] if batched else None
 
         def rows(t):
             return t.reshape(k, -1) if batched else t.reshape(-1)
+        sizes = [rows(g).shape[-1] for g in grads]
+        return torch.cat([rows(torch.zeros_like(g)) if f else rows(g)
+                          for g, f in zip(grads, frozen)], dim=-1), sizes
+
+    def transform_flat(self, flat: torch.Tensor, sizes: List[int],
+                       grads: List[torch.Tensor], batched: bool = False
+                       ) -> Tuple[List[torch.Tensor], torch.Tensor]:
+        """transform_grads after flat_grads: the norm, the non-finite
+        zeroing and the clips on the flat buffer, split back into the
+        shapes of `grads`."""
+        k = grads[0].shape[0] if batched else None
 
         def total(t):
             return (torch.sum(t, dim=-1, keepdim=True) if batched
                     else torch.sum(t))
-        sizes = [rows(g).shape[-1] for g in grads]
-        flat = torch.cat([rows(torch.zeros_like(g)) if f else rows(g)
-                          for g, f in zip(grads, frozen)], dim=-1)
         grad_norm = torch.sqrt(total(flat * flat))
         flat = torch.where(torch.isfinite(flat), flat, torch.zeros_like(flat))
         if self.clipnorm is not None:
@@ -405,10 +484,18 @@ class Trainer:
               validation_frequency: int = 10,
               checkpoint_path: Optional[str] = None,
               checkpoint_frequency: int = 0,
-              resume_from: Optional[str] = None
+              resume_from: Optional[str] = None,
+              shard=None
               ) -> Tuple[dict, Dict[str, list]]:
         """Run `steps` full-batch steps on `device` (None: the card);
         returns (params, history).
+
+        shard (parallel/shard.Shard): `inputs` are this rank's rows, or
+        all rows with the rank's samples, of a merge that every rank of
+        the process group trains at once (step_gradients); every
+        rank returns the same params and history, and rank 0 alone writes
+        the checkpoints, which every rank resumes from. At one rank the
+        run is the unsharded run bit for bit.
 
         `generator` (on the inputs' device) draws the reflection samples and
         one 32-bit base key; the scale noise of step i uses the Philox key
@@ -476,10 +563,11 @@ class Trainer:
 
         metric_keys = self.metric_keys
         history: Dict[str, list] = {k: [] for k in metric_keys}
+        n_train = inputs.n_obs if shard is None else shard.n_total
         if validation_data is not None:
             history["NLL_val"] = []
             chunk_size = validation_frequency
-            val_scale = inputs.n_obs / validation_data.n_obs
+            val_scale = n_train / validation_data.n_obs
         if resumed is not None:
             for k in history:
                 v = list(resumed.get(k, ()))[:start_step]
@@ -492,10 +580,9 @@ class Trainer:
                 history["NLL_val"].extend([val_scale * v] * n)
             rows = []
             for i in range(done, done + n):
-                loss, metrics = self.model.elbo(params, inputs, generator,
-                                                seed=base | (i << 32))
-                grads = self.gradients(loss, leaves, frozen)
-                grads, grad_norm = self.transform_grads(grads, frozen)
+                grads, grad_norm, metrics = self.step_gradients(
+                    params, leaves, frozen, inputs, generator,
+                    base | (i << 32), shard)
                 for p, g in zip(leaves, grads):
                     p.grad = g
                 opt.step()
@@ -517,11 +604,39 @@ class Trainer:
             if (checkpoint_path and checkpoint_frequency > 0
                     and (done - last_ckpt >= checkpoint_frequency
                          or done >= steps)):
-                save_state(checkpoint_path, params, opt, opt_prefix, done,
-                           history, RngState(generator.get_state(),
-                                             generator.device.type, base))
+                if shard is None or shard.rank == 0:
+                    save_state(checkpoint_path, params, opt, opt_prefix,
+                               done, history,
+                               RngState(generator.get_state(),
+                                        generator.device.type, base))
                 last_ckpt = done
         return map_params(lambda t: t.detach(), params), history
+
+    def step_gradients(self, params: dict, leaves: List[torch.Tensor],
+                       frozen: List[bool], inputs: Inputs,
+                       generator: torch.Generator, seed: int, shard=None
+                       ) -> Tuple[List[torch.Tensor], torch.Tensor, dict]:
+        """One step's (gradients after transform_grads, the global
+        gradient norm, metrics) at `params` (whose flattened leaves are
+        `leaves`), the noise from `generator` and the Philox key `seed`.
+        With a shard, the rank differentiates its own loss (its likelihood
+        term, and on rank 0 the KL) and one all_reduce (SUM) over the
+        ranks adds the flat gradients and the likelihood sums of every
+        rank; the norm, the zeroing and the clips then run on the same
+        values on every rank."""
+        loss, metrics = self.model.elbo(params, inputs, generator, seed=seed,
+                                        shard=shard)
+        grads = self.gradients(loss, leaves, frozen)
+        flat, sizes = self.flat_grads(grads, frozen)
+        if shard is not None:
+            from ...parallel.distributed import all_reduce_sum
+            buf = all_reduce_sum(torch.cat(
+                [flat, metrics["ll"].detach().reshape(1)]))
+            flat = buf[:-1]
+            metrics = self.model.sharded_metrics(metrics, buf[-1],
+                                                 shard.n_total)
+        grads, grad_norm = self.transform_flat(flat, sizes, grads)
+        return grads, grad_norm, metrics
 
     def validation_nll(self, params: dict, inputs: Inputs, base: int,
                        done: int) -> float:

@@ -41,6 +41,12 @@ Each half's sums are taken in its serial run's order, so the parallel
 form equals the serial form bit for bit, save where a clip's norm or the
 Ev11 scalars' gradient sums a half's terms in another grouping (f32
 rounding).
+
+Over several ranks (train_halves_spread) each rank trains K / W of the
+halves as one such merge and the ranks then exchange what they trained;
+no step needs a collective, since nothing sums across halves
+(careless_tpu/parallel/xval.py:130-139). When W does not divide K, rank 0
+trains them all, as the JAX package then shards nothing.
 """
 from __future__ import annotations
 
@@ -52,6 +58,7 @@ import numpy as np
 import torch
 
 from ..device import DeviceLike, resolve_device, seeded_generator
+from . import distributed
 from ..models.base import Inputs
 from ..models.merging.variational import flatten_params, map_params
 from ..models.scaling.image import HybridImageScaler
@@ -251,6 +258,80 @@ def train_halves(trainer, params: dict, seeds: Sequence[int],
               f"{bad} (NaN grads were zeroed; those halves may be "
               "degraded)")
     return map_params(lambda t: t.detach(), params), history
+
+
+def halves_of_rank(k: int) -> range:
+    """The halves this rank trains of k spread over the ranks: [r k / W,
+    (r + 1) k / W), or all k on rank 0 (none elsewhere) where W does not
+    divide k."""
+    world, rank = distributed.world_size(), distributed.rank()
+    if k % world == 0:
+        per = k // world
+        return range(rank * per, (rank + 1) * per)
+    return range(k) if rank == 0 else range(0)
+
+
+def gather_halves(trainer, params: dict, part,
+                  device: DeviceLike = None
+                  ) -> Tuple[dict, Dict[str, list]]:
+    """Every rank's train_halves result `part` (None where it trained no
+    half) put together in half order on every rank: the tree with a
+    leading axis of all the halves outside trainer.freeze (those subtrees
+    from `params`), on `device`, and each metric's history of a value per
+    half a step."""
+    dev = resolve_device(device)
+    if distributed.world_size() == 1:
+        return part
+    if part is not None:
+        tree, history = part
+        part = ({name: map_params(lambda t: t.cpu(), sub)
+                 for name, sub in tree.items()
+                 if name not in trainer.freeze}, history)
+    parts = [p for p in distributed.all_gather_object(part)
+             if p is not None]
+    out = {name: map_params(lambda t: t.detach().to(dev), sub)
+           for name, sub in params.items() if name in trainer.freeze}
+    for name in parts[0][0]:
+        leaves = [flatten_params(p[0][name]) for p in parts]
+        out[name] = _rebuild(parts[0][0][name], {
+            path: torch.cat([ls[i][1] for ls in leaves]).to(dev)
+            for i, (path, _) in enumerate(leaves[0])})
+    history = {key: [sum((p[1][key][i] for p in parts), [])
+                     for i in range(len(parts[0][1][key]))]
+               for key in parts[0][1]}
+    return out, history
+
+
+def train_halves_spread(trainer, params: dict, seeds: Sequence[int],
+                        halves: Sequence[Inputs], n_refl: int, n_images: int,
+                        steps: int, chunk_size: int = 100,
+                        device: DeviceLike = None
+                        ) -> Tuple[dict, Dict[str, list]]:
+    """train_halves of the planned rows `halves` (DataManager.planned_rows
+    of each half, in order) spread over the ranks of the process group
+    (one rank without one): each rank stacks and trains its
+    halves_of_rank, and every rank returns gather_halves' whole. Each half
+    trains as it does in one process, so the result is train_halves' of
+    all the halves from the same params."""
+    mine = halves_of_rank(len(halves))
+    part = None
+    if len(mine):
+        stacked = stack_halves([halves[k] for k in mine], n_refl, n_images)
+        part = train_halves(trainer, params, [seeds[k] for k in mine],
+                            stacked, steps, chunk_size, device)
+    return gather_halves(trainer, params, part, device)
+
+
+def _rebuild(tree, leaves: Dict[str, torch.Tensor]):
+    """`tree` with each leaf replaced by leaves[its flatten_params
+    path]."""
+    def walk(node, path):
+        if isinstance(node, dict):
+            return {k: walk(v, path + (str(k),)) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return [walk(v, path + (str(i),)) for i, v in enumerate(node)]
+        return leaves["/".join(path)]
+    return walk(tree, ())
 
 
 def half_params(params: dict, k: int, frozen: Sequence[str]) -> dict:

@@ -106,6 +106,19 @@ Phases, each printed on its own lines:
      form: K1-fwd once a step for all four halves, K3 once per half, K2
      as one merge, no K1-bwd), the half path's K1-fwd, K2 and K3 held at
      the stacked 2M rows, each form's set-up, merging seconds and steps/s;
+     then multi-device training (shard_phase): the default slice's 1M
+     observations on the observation axis, the same at --mc-samples=2
+     (K4) on the Monte Carlo axis and a 2M-row Laue problem whose chain
+     permute streams in each shard (K5), 100 steps each, unsharded; then
+     through the sharded Trainer at NCCL world size 1, bit for bit the
+     unsharded run, and in two gloo ranks spawned on this card, each
+     rank's step-0 loss and gradients against the unsharded run's, the
+     merged F's correlation with it, the ranks' parameters bit for bit
+     equal, each rank's launches and its kernels held at its shard's
+     shapes and offsets (hold_shard_kernels; shard_<run>_max_abs_err and
+     shard_<run>_launches in the kernels line), and --num-devices 2
+     refused on the one card; its times are gloo on one card, not NCCL
+     across cards;
      then the statistics tools (stats_phase): the same MTZ merged 100
      steps with --anomalous, the parallel half merges and a test fraction
      of 0.1, each careless_tpu_torch.stats tool run on its outputs (their
@@ -1619,10 +1632,12 @@ def synthetic_stream(seed, path, n_refl, n_crystals, cell, spacegroup, dmin):
 
 
 def model_on(device, seed, n_obs, n_refl, n_images, d_meta, n_layers,
-             flags=None, laue=False, times=None, two_files=False):
+             flags=None, laue=False, times=None, two_files=False,
+             plans=True):
     """The model of the CLI's defaults with `flags` on top, built by
     DataManager.build_model on `device` (None: the card), on rows sorted by
-    refl_id (mono) or in the harmonic-chain layout (Laue), with plans.
+    refl_id (mono) or in the harmonic-chain layout (Laue), with plans
+    (without them when not `plans`: the layout a shard is cut from).
     `times`, when given, receives the host seconds of each set-up step.
     two_files: the problem of two_file_problem (n_refl unused)."""
     from careless_tpu_torch.io.manager import DataManager
@@ -1652,7 +1667,8 @@ def model_on(device, seed, n_obs, n_refl, n_images, d_meta, n_layers,
     inputs = (dm.inputs.sorted_by_harmonic(dm.n_refl) if laue
               else dm.inputs.sorted_by_refl())
     lap("layout_s")
-    inputs = inputs.with_plans(dm.n_refl, dm.n_images)
+    if plans:
+        inputs = inputs.with_plans(dm.n_refl, dm.n_images)
     lap("plans_s")
     return model, params, trainer, inputs, f_true
 
@@ -2093,13 +2109,38 @@ def step_kernels(torch, dev, gen, inputs, slice_, peak_flops, peak_bw,
     permute (LAUE_PERM_PAIR; None when the scaler is frozen), on Laue the
     step's one K2 launch whose table is too large to stay in L2 beside its
     ids and output."""
+    n = inputs.n_obs
+    rows = trunk_rows(torch, gen, inputs.metadata, peak_flops, peak_bw,
+                      backward=not frozen_scaler)
+    pairs = step_pairs(inputs, slice_, label, frozen_scaler)
+    gathers = {k: gather_row(torch, gen, size, ids, k, peak_flops, peak_bw,
+                             calls=LAUE_HOST_CALLS)
+               for k, (size, ids) in pairs.items()}
+    normals = [philox_row(torch, dev, gen, n if c is None else c, 0,
+                          peak_flops, peak_bw) for c in noise_calls]
+    rows["philox_normal"] = max(normals, key=lambda r: r["max_abs_err"])
+    print(f"{label} kernels at {n} observations: " + json.dumps(
+        {**rows, "gather": gathers,
+         "philox_normal_calls": normals}), flush=True)
+    held = {k: v["max_abs_err"] for k, v in rows.items()}
+    held["gather"] = max(v["max_abs_err"] for v in gathers.values())
+    if frozen_scaler:
+        return held, None
+    return held, dict(gathers[LAUE_PERM_PAIR], launch_site=(
+        f"{LAUE_PERM_PAIR}: one of the {label} step's "
+        f"{GATHERS_PER_STEP[slice_]} K2 launches; launches counts all K2 "
+        f"launches of the {label} run"))
+
+
+def step_pairs(inputs, slice_, label, frozen_scaler=False):
+    """The (table size, ids) of each K2 launch of a training step on the
+    planned `inputs` (step_kernels' pairs), by name; checks that there are
+    GATHERS_PER_STEP[slice_] of them."""
     import careless_tpu_torch.ops.plan_gather as pg
 
     n, plans = inputs.n_obs, inputs.plans
     refl, image = plans.refl, plans.image
     n_refl, n_images = refl.table_size, image.table_size
-    rows = trunk_rows(torch, gen, inputs.metadata, peak_flops, peak_bw,
-                      backward=not frozen_scaler)
     chain = isinstance(refl, pg.ChainGatherPlan)
     inner = refl.inner if chain else refl
     pairs = {}
@@ -2130,23 +2171,7 @@ def step_kernels(torch, dev, gen, inputs, slice_, peak_flops, peak_bw,
           "step has no image cotangent permute")
     check(len(pairs) == GATHERS_PER_STEP[slice_], f"{label}: {len(pairs)} "
           f"K2 pairs a step, expected {GATHERS_PER_STEP[slice_]}")
-    gathers = {k: gather_row(torch, gen, size, ids, k, peak_flops, peak_bw,
-                             calls=LAUE_HOST_CALLS)
-               for k, (size, ids) in pairs.items()}
-    normals = [philox_row(torch, dev, gen, n if c is None else c, 0,
-                          peak_flops, peak_bw) for c in noise_calls]
-    rows["philox_normal"] = max(normals, key=lambda r: r["max_abs_err"])
-    print(f"{label} kernels at {n} observations: " + json.dumps(
-        {**rows, "gather": gathers,
-         "philox_normal_calls": normals}), flush=True)
-    held = {k: v["max_abs_err"] for k, v in rows.items()}
-    held["gather"] = max(v["max_abs_err"] for v in gathers.values())
-    if frozen_scaler:
-        return held, None
-    return held, dict(gathers[LAUE_PERM_PAIR], launch_site=(
-        f"{LAUE_PERM_PAIR}: one of the {label} step's "
-        f"{GATHERS_PER_STEP[slice_]} K2 launches; launches counts all K2 "
-        f"launches of the {label} run"))
+    return pairs
 
 
 def scaler_slices_phase(torch, dev, seed, steps=STEPS_SCALER):
@@ -2885,6 +2910,469 @@ def xval_phase(torch, dev, gen, seed, peak_flops, peak_bw):
               f"{r['half_steps_per_s']}), output s {r['output_s']}",
               flush=True)
     return held
+
+
+# the shard phase: the default slice's problem trained SHARD_STEPS steps
+# through the sharded Trainer (parallel/shard.py) at one NCCL rank, then at
+# two gloo ranks on one card on the observation axis, on the Monte Carlo
+# axis at --mc-samples=2, and on a Laue problem of SHARD_LAUE_OBS rows whose
+# chain permute streams in each shard (the table cap lowered to
+# SHARD_LAUE_CAP rows of 128); every run against the same run unsharded
+SHARD_STEPS, SHARD_CHUNK = 100, 50
+SHARD_WORLD = 2
+SHARD_LAUE_OBS, SHARD_LAUE_REFL, SHARD_LAUE_IMAGES = 2_000_000, 100_000, 4_000
+SHARD_LAUE_CAP = 4096
+# the step-0 key and generator seed of the gradient check (step_zero)
+SHARD_KEY = 12345 | (7 << 32)
+# the merged F of each two-rank run after SHARD_STEPS steps against the
+# unsharded run's, least correlation: the ranks sum the same f32 terms in
+# another order, so the runs part by rounding only
+SHARD_MIN_CORR = 0.9999
+
+
+def shard_config(seed, card=True, mono=None, laue=None, steps=SHARD_STEPS,
+                 chunk=SHARD_CHUNK, mc_flags=None, laue_cap=SHARD_LAUE_CAP):
+    """What shard_rank and shard_reference run: the problem sizes (n_obs,
+    n_refl, n_images, d_meta, n_layers) of the mono runs and the Laue
+    run, the steps, the flags of the mc run, and whether to hold the
+    kernels (the card)."""
+    return dict(
+        seed=seed, card=card, steps=steps, chunk=chunk, laue_cap=laue_cap,
+        mono=mono or (N_OBS, N_REFL, N_IMAGES, D_META, N_LAYERS),
+        laue=laue or (SHARD_LAUE_OBS, SHARD_LAUE_REFL, SHARD_LAUE_IMAGES,
+                      D_META, N_LAYERS),
+        mc_flags=mc_flags or SLICE_A)
+
+
+def shard_runs(cfg):
+    """(label, problem sizes, flags, laue, axis) of each run."""
+    return (("obs", cfg["mono"], {}, False, "obs"),
+            ("mc", cfg["mono"], cfg["mc_flags"], False, "mc"),
+            ("laue", cfg["laue"], {}, True, "obs"))
+
+
+@contextlib.contextmanager
+def table_cap(rows):
+    """ops/plan_gather.MAX_TABLE_ROWS lowered to `rows` within (None:
+    left as it is)."""
+    import careless_tpu_torch.ops.plan_gather as pg
+
+    cap = pg.MAX_TABLE_ROWS
+    if rows is not None:
+        pg.MAX_TABLE_ROWS = rows
+    try:
+        yield
+    finally:
+        pg.MAX_TABLE_ROWS = cap
+
+
+def step_zero(torch, trainer, params, inputs, seed, shard=None):
+    """(loss, every gradient on the CPU) of Trainer.step_gradients at
+    `params`, the generator seeded with `seed` and the key SHARD_KEY: the
+    sharded step's gradients after the all_reduce, or the unsharded
+    step's."""
+    from careless_tpu_torch.device import seeded_generator
+    from careless_tpu_torch.models.merging.variational import (
+        flatten_params, map_params)
+
+    p = map_params(lambda t: t.detach().clone().requires_grad_(True), params)
+    leaves = [t for _, t in flatten_params(p)]
+    grads, _, metrics = trainer.step_gradients(
+        p, leaves, [False] * len(leaves), inputs,
+        seeded_generator(seed, inputs.device), SHARD_KEY, shard)
+    return metrics["loss"].item(), [g.detach().cpu() for g in grads]
+
+
+def shard_run(torch, device, cfg, run, rank=0, world=None):
+    """One of shard_runs trained cfg["steps"] steps on `device`: unsharded
+    (world None) or as rank `rank` of `world` in the default process
+    group. Returns its step-0 loss and gradients (step_zero), trained
+    parameters (numpy, flatten_params order), history, ms a step, the
+    launches of its training and its rows; on the card also the kernels
+    held at its shapes (hold_shard_kernels) and, sharded, the time of an
+    all_reduce of its flat gradient buffer."""
+    from careless_tpu_torch import kernels
+    from careless_tpu_torch.device import seeded_generator
+    from careless_tpu_torch.models.merging.variational import flatten_params
+    from careless_tpu_torch.parallel.shard import sample_shard, shard_inputs
+
+    label, sizes, flags, laue, axis = run
+    seed = cfg["seed"]
+    with table_cap(cfg["laue_cap"] if laue else None):
+        t0 = time.perf_counter()
+        model, params, trainer, layout, f_true = model_on(
+            device, seed, *sizes, flags=flags, laue=laue, plans=False)
+        n_refl, n_images = len(f_true), sizes[2]
+        shard = None
+        if world is None or axis == "mc":
+            inputs = layout.with_plans(n_refl, n_images)
+            if world is not None:
+                shard = sample_shard(model.mc_samples, rank, world,
+                                     inputs.n_obs)
+        else:
+            inputs, shard = shard_inputs(layout, rank, world, n_refl,
+                                         n_images)
+        del layout
+        setup_s = time.perf_counter() - t0
+        out = dict(label=label, n_local=inputs.n_obs, setup_s=setup_s,
+                   row_offset=0 if shard is None else shard.row_offset,
+                   samples=None if shard is None else shard.samples,
+                   fused_kernel=model.fused_kernel)
+        out["loss0"], out["grads0"] = step_zero(torch, trainer, params,
+                                                inputs, seed, shard)
+        sync = (torch.cuda.synchronize if device.type == "cuda"
+                else (lambda: None))
+        if cfg["card"]:
+            trainer.train(params, seeded_generator(seed + 100, device),
+                          inputs, 5, chunk_size=5, device=device, shard=shard)
+        sync()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        trained, history = trainer.train(
+            params, seeded_generator(seed, device), inputs, cfg["steps"],
+            chunk_size=cfg["chunk"], device=device, shard=shard)
+        sync()
+        out["ms_per_step"] = 1e3 * (time.perf_counter() - t0) / cfg["steps"]
+        out["launches"] = dict(kernels.LAUNCHES)
+        out["history"] = history
+        out["params"] = [t.cpu().numpy() for _, t in flatten_params(trained)]
+        out["f_mean"] = model.posterior.distribution(
+            trained["posterior"]).mean().cpu().numpy()
+        out["corr_f_true"] = float(np.corrcoef(out["f_mean"], f_true)[0, 1])
+        if cfg["card"]:
+            gen = torch.Generator(device=device)
+            gen.manual_seed(seed + 7 + rank)
+            out["held"] = hold_shard_kernels(torch, device, gen, inputs,
+                                             model, shard, label)
+            if shard is not None:
+                out["all_reduce_ms"] = all_reduce_ms(
+                    torch, sum(p.size for p in out["params"]) + 1, device)
+    return out
+
+
+def all_reduce_ms(torch, n, device, reps=50):
+    """Milliseconds of one all_reduce (SUM) of an (n,) f32 buffer on
+    `device` over the default group, the mean of `reps` after 5."""
+    from careless_tpu_torch.parallel.distributed import all_reduce_sum
+
+    buf = torch.ones(n, device=device)
+    for _ in range(5):
+        all_reduce_sum(buf)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        all_reduce_sum(buf)
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / reps
+
+
+def shard_rank(rank, world, device, cfg):
+    """A rank of the shard phase (distributed.spawn's target): each of
+    shard_runs as rank `rank` of `world`; returns their shard_run
+    results."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return [shard_run(torch, device, cfg, run, rank, world)
+            for run in shard_runs(cfg)]
+
+
+def shard_reference(torch, device, cfg):
+    """Each of shard_runs unsharded on `device` (shard_run)."""
+    return [shard_run(torch, device, cfg, run) for run in shard_runs(cfg)]
+
+
+def halves_case(device, seed, n_obs, n_refl, n_images, d_meta, n_layers,
+                repeats=XVAL_REPEATS):
+    """The parallel crossvalidation of build_problem's mono problem as the
+    CLI sets it up: (the trainer with the scaler frozen, the initial
+    params, each half's generator seed, each half's planned rows, n_refl,
+    n_images), the 2 x repeats halves drawn by
+    DataManager.split_data_by_image for the seed."""
+    import dataclasses
+
+    from careless_tpu_torch.io.manager import DataManager
+    from careless_tpu_torch.models.base import Inputs
+    from careless_tpu_torch.parallel.xval import make_half_keys
+
+    arrays, asu, _ = build_problem(seed, n_obs, n_refl, n_images, d_meta)
+    parser = types.SimpleNamespace(**{**MONO_DEFAULTS, "seed": seed,
+                                      "mlp_layers": n_layers})
+    dm = DataManager(Inputs.from_arrays(*arrays, device=device), asu, parser,
+                     device=device)
+    _, params, trainer = dm.build_model()
+    halves = [h for _ in range(repeats) for h in dm.split_data_by_image()]
+    return (dataclasses.replace(trainer, freeze=("scaler",)), params,
+            make_half_keys(seed, repeats),
+            [dm.planned_rows(h).inputs for h in halves], dm.n_refl,
+            dm.n_images)
+
+
+def halves_rank(rank, world, device, seed, sizes, steps):
+    """A rank of train_halves_spread on halves_case(device, seed, *sizes)
+    (distributed.spawn's target): the whole trained tree as numpy, in
+    flatten_params order, and the history."""
+    from careless_tpu_torch.models.merging.variational import flatten_params
+    from careless_tpu_torch.parallel.xval import train_halves_spread
+
+    trainer, params, seeds, rows, n_refl, n_images = halves_case(
+        device, seed, *sizes)
+    trained, history = train_halves_spread(trainer, params, seeds, rows,
+                                           n_refl, n_images, steps,
+                                           chunk_size=steps, device=device)
+    return [t.cpu().numpy() for _, t in flatten_params(trained)], history
+
+
+def hold_shard_kernels(torch, dev, gen, inputs, model, shard, label):
+    """Each kernel a step on this rank's `inputs` launches, held against its
+    plain version at its shapes, untimed: K1 both ways on the inputs'
+    metadata (a random trunk of the model's depth, 1e-4 of the output scale
+    and of each gradient's largest entry), K2 at each of the step's
+    (table, ids) pairs (bit for bit), K3 at each of this rank's sample
+    offsets s n_total + row_offset (words bit for bit, normals within
+    2e-5), K4 both ways at those offsets where the model is fused (the sum
+    within 1e-5 of the sum of |ll|, each gradient within 1e-5 of its
+    tensor's largest entry), and K5 at the chain plan's streamed backward
+    permute (bit for bit). Returns each kernel's largest error by
+    kernels.LAUNCHES name."""
+    from careless_tpu_torch import kernels
+    from careless_tpu_torch.ops.fused_elbo import (
+        plain_fused_likelihood_grads, plain_fused_likelihood_sum,
+        plain_prng_normal, pointwise_ll)
+    from careless_tpu_torch.ops.fused_mlp import (fused_mlp_trunk_head,
+                                                  plain_trunk_head)
+    from careless_tpu_torch.ops.table_gather import (plain_gather,
+                                                     plain_windowed_gather)
+
+    n = inputs.n_obs
+    x = inputs.metadata
+    layers, out = random_trunk(torch, gen, x.shape[1], x.shape[1], N_LAYERS,
+                               dev)
+    leaves = [t for layer in layers for t in (layer["w"], layer["b"])] + [
+        out["w"], out["b"]]
+    cts = [torch.randn(n, generator=gen, device=dev) for _ in range(2)]
+    results = []
+    for fn in (fused_mlp_trunk_head, plain_trunk_head):
+        ys = fn(x, layers, out, 0.01)
+        results.append((ys, torch.autograd.grad(ys, leaves, cts)))
+    (ys_k, g_k), (ys_p, g_p) = results
+    scale = max(max(y.abs().max().item() for y in ys_p), 1.0)
+    held = {"trunk_fwd": max((a - b).abs().max().item()
+                             for a, b in zip(ys_k, ys_p)),
+            "trunk_bwd": max(((a - b).abs().max()
+                              / b.abs().max().clamp_min(1e-30)).item()
+                             for a, b in zip(g_k, g_p))}
+    check(held["trunk_fwd"] <= 1e-4 * scale and held["trunk_bwd"] <= 1e-4,
+          f"shard {label}: K1 at {n} rows differs from plain: {held}")
+    del results, ys_k, ys_p, g_k, g_p
+    slice_ = "laue" if inputs.is_laue else "default"
+    held["gather"] = 0.0
+    for name, (size, ids) in step_pairs(inputs, slice_,
+                                        f"shard {label}").items():
+        table = torch.randn(size, generator=gen, device=dev)
+        check(torch.equal(kernels.gather(table, ids),
+                          plain_gather(table, ids)),
+              f"shard {label}: K2 ({name}) differs from plain")
+    samples, row0, n_all = model._placement(inputs, shard)
+    offsets = [s * n_all + row0 for s in samples]
+    seed = 0x0FEDCBA987654321
+    held["philox_normal"] = 0.0
+    for off in offsets:
+        e_k, bits_k = kernels.philox_normal(n, seed, off, dev, with_bits=True)
+        e_p, bits_p = plain_prng_normal(n, seed, off, dev, with_bits=True)
+        check(torch.equal(bits_k, bits_p), f"shard {label}: K3 words at "
+              f"offset {off} differ from plain")
+        held["philox_normal"] = max(held["philox_normal"],
+                                    (e_k - e_p).abs().max().item())
+    check(held["philox_normal"] <= 2e-5, f"shard {label}: K3 normals "
+          f"differ from plain: {held['philox_normal']}")
+    if model.fused_kernel:
+        args = k4_inputs(torch, gen, n, dev)
+        ev = torch.tensor([1.0, 0.0, 0.0], device=dev)
+        ct = torch.tensor(0.75, device=dev)
+        held["fused_ll_fwd"] = held["fused_ll_bwd"] = 0.0
+        for off in offsets:
+            cfg = dict(kind="normal", dof=0.0, t_const=0.0, seed=seed,
+                       offset=off)
+            eps = plain_prng_normal(n, seed, off, dev)
+            got = kernels.fused_ll_fwd(*args, None, None, ev, **cfg)
+            want = plain_fused_likelihood_sum(*args, None, ev, eps,
+                                              kind="normal", dof=0.0)
+            ipred = (args[2] * args[0] + args[2].abs() * args[1] * eps) \
+                * args[3] * args[3]
+            l1 = pointwise_ll("normal", 0.0, ev, args[4], args[5],
+                              ipred).abs().sum().item()
+            e = abs(got.item() - want.item())
+            check(e <= 1e-5 * l1, f"shard {label}: K4-fwd at offset {off}: "
+                  f"{got.item()} vs plain {want.item()}")
+            held["fused_ll_fwd"] = max(held["fused_ll_fwd"], e)
+            got = kernels.fused_ll_bwd(*args, None, None, ev, ct, **cfg)
+            ref = plain_fused_likelihood_grads(*args, None, ev, eps, ct,
+                                               kind="normal", dof=0.0)
+            for g, r in zip(got[:4], ref[:4]):
+                e = ((g - r).abs().max() / r.abs().max()).item()
+                check(e <= 1e-5, f"shard {label}: K4-bwd at offset {off}: "
+                      f"rel err {e}")
+                held["fused_ll_bwd"] = max(held["fused_ll_bwd"], e)
+    pp = getattr(getattr(inputs.plans.refl, "inner", None), "perm_plan",
+                 None)
+    if pp is not None and pp.stream:
+        xs = torch.randn(n, generator=gen, device=dev)
+        got = kernels.gather_stream(xs, pp.ids2d, pp.bases, pp.window,
+                                    pp.block_rows)
+        check(torch.equal(got, plain_windowed_gather(
+            xs, pp.ids2d, pp.bases, pp.window, pp.block_rows)),
+            f"shard {label}: K5 differs from plain")
+        held["gather_stream"] = 0.0
+    return held
+
+
+def shard_launches(steps, laue, fused):
+    """The launches of a rank's shard run of `steps` steps, one sample a
+    rank: K1 once a step each way, K2 GATHERS_PER_STEP a step, K3 (unfused)
+    or K4 each way (fused) once a step, K5 once a step on Laue."""
+    return {**trunk_counts(steps, True, False),
+            "gather": GATHERS_PER_STEP["laue" if laue else "default"] * steps,
+            "philox_normal": 0 if fused else steps,
+            "fused_ll_fwd": steps if fused else 0,
+            "fused_ll_bwd": steps if fused else 0,
+            "gather_stream": steps if laue else 0}
+
+
+def shard_phase(torch, dev, seed):
+    """Multi-device training (parallel/shard.py, Trainer.train's shard) on
+    the one card. Each of shard_runs (the default slice's 1M observations
+    on the observation axis; the same at --mc-samples=2, where K4 runs, on
+    the Monte Carlo axis, one sample a rank; Laue at SHARD_LAUE_OBS rows
+    with the table cap lowered so that each shard's chain permute streams
+    through K5) first unsharded (shard_reference). Then NCCL at world size
+    1, in this process, on the observation run: its history and
+    parameters bit for bit the unsharded run's. Then two gloo ranks
+    spawned on this card (distributed.spawn, shard_rank): each run's
+    step-0 loss within 1e-5 relative of the unsharded run's and its
+    gradients within 1e-4 (grad_rel_err), after SHARD_STEPS steps the
+    merged F's correlation with the unsharded run's at least
+    SHARD_MIN_CORR, the two ranks' parameters and histories bit for bit
+    equal, every loss finite and each rank's launches those of
+    shard_launches; each rank holds the kernels at its shapes
+    (hold_shard_kernels). Then --num-devices 2 refused on this one card
+    with the device-count message. Times are gloo on one card: two ranks
+    share its SMs and NCCL across cards is not measured. Returns the
+    kernels' largest errors by run, as shard_<run>, and rank 0's launches
+    by run."""
+    import tempfile
+    from pathlib import Path
+
+    import torch.distributed as dist
+
+    import careless_tpu_torch.main as cli
+    from careless_tpu_torch.parallel import distributed
+    from careless_tpu_torch.parser import parser as cli_parser
+
+    cfg = shard_config(seed)
+    t_phase = time.perf_counter()
+    refs = shard_reference(torch, dev, cfg)
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    result = {"runs": {}}
+
+    # NCCL at world size 1: the observation run, bit for bit the unsharded
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        distributed.initialize("nccl", "file://" + str(Path(tmp) / "store"),
+                               0, 1)
+        try:
+            check(dist.get_backend() == "nccl", "the group is not NCCL")
+            one = shard_run(torch, dev, cfg, shard_runs(cfg)[0], 0, 1)
+        finally:
+            dist.destroy_process_group()
+    ref = refs[0]
+    check(one["history"] == ref["history"] and all(
+        np.array_equal(a, b) for a, b in zip(one["params"], ref["params"])),
+        "shard: NCCL at world size 1 is not the unsharded run bit for bit")
+    check(one["loss0"] == ref["loss0"] and all(
+        torch.equal(a, b) for a, b in zip(one["grads0"], ref["grads0"])),
+        "shard: NCCL world 1's step-0 gradients are not the unsharded ones")
+    result["nccl_world1"] = dict(
+        steps_per_s=1e3 / one["ms_per_step"],
+        unsharded_steps_per_s=1e3 / ref["ms_per_step"],
+        all_reduce_ms=one["all_reduce_ms"], bitwise=True)
+
+    t0 = time.perf_counter()
+    ranks = distributed.spawn(shard_rank, SHARD_WORLD, (cfg,), "gloo",
+                              ["cuda:0"] * SHARD_WORLD, threads=2,
+                              store_dir=str(build))
+    spawn_s = time.perf_counter() - t0
+    held = {}
+    for i, (run, ref) in enumerate(zip(shard_runs(cfg), refs)):
+        label, _, _, laue, axis = run
+        mine = [r[i] for r in ranks]
+        a, b = mine[0], mine[1]
+        check(a["history"] == b["history"] and all(
+            np.array_equal(x, y) for x, y in zip(a["params"], b["params"])),
+            f"shard {label}: the two ranks' parameters differ")
+        loss = np.asarray(a["history"]["loss"])
+        check(len(loss) == cfg["steps"] and bool(np.all(np.isfinite(loss))),
+              f"shard {label}: loss not finite over {len(loss)} steps")
+        rel = abs(a["loss0"] - ref["loss0"]) / abs(ref["loss0"])
+        check(rel < 1e-5, f"shard {label}: step-0 loss {a['loss0']} vs "
+              f"unsharded {ref['loss0']}")
+        check(a["loss0"] == b["loss0"], f"shard {label}: the ranks' step-0 "
+              "losses differ")
+        g_err = grad_rel_err(a["grads0"], ref["grads0"])
+        check(g_err < 1e-4, f"shard {label}: step-0 gradients vs unsharded: "
+              f"rel err {g_err}")
+        corr = float(np.corrcoef(a["f_mean"], ref["f_mean"])[0, 1])
+        check(corr >= SHARD_MIN_CORR, f"shard {label}: merged F corr with "
+              f"the unsharded run {corr} < {SHARD_MIN_CORR}")
+        fused = a["fused_kernel"]
+        check(fused == (axis == "mc"), f"shard {label}: fused {fused}")
+        for r, m in enumerate(mine):
+            check_launches(m["launches"], f"shard {label} rank {r}",
+                           shard_launches(cfg["steps"], laue, fused))
+        held[f"shard_{label}"] = {
+            k: max(m["held"].get(k, 0.0) for m in mine)
+            for k in set().union(*(m["held"] for m in mine))}
+        result["runs"][label] = dict(
+            axis=axis, rows=[m["n_local"] for m in mine],
+            row_offsets=[m["row_offset"] for m in mine],
+            samples=[m["samples"] for m in mine], fused_kernel=fused,
+            loss0_rel_err=rel, grad_rel_err=g_err, corr_f_unsharded=corr,
+            corr_f_true=a["corr_f_true"],
+            unsharded_corr_f_true=ref["corr_f_true"],
+            gloo_one_card_ms_per_step=[m["ms_per_step"] for m in mine],
+            unsharded_ms_per_step=ref["ms_per_step"],
+            gloo_one_card_all_reduce_ms=[m["all_reduce_ms"] for m in mine],
+            buffer_floats=sum(p.size for p in a["params"]) + 1,
+            setup_s=[m["setup_s"] for m in mine],
+            unsharded_setup_s=ref["setup_s"],
+            launches_per_step={k: v / cfg["steps"]
+                               for k, v in a["launches"].items() if v})
+
+    # more devices than the card has: refused before any rank starts or
+    # any file is read (an empty file stands in for the reflections)
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        (Path(tmp) / "in.mtz").touch()
+        args = cli_parser.parse_args(["mono", "dHKL,image_id",
+                                      str(Path(tmp) / "in.mtz"),
+                                      str(Path(tmp) / "out"),
+                                      "--num-devices", "2"])
+        try:
+            cli.run_careless(args)
+        except ValueError as e:
+            refusal = str(e)
+        else:
+            refusal = None
+    want = f"requested 2 devices but only {torch.cuda.device_count()} " \
+        "available"
+    check(refusal == want, f"shard: --num-devices 2 on one card gave "
+          f"{refusal!r}, not {want!r}")
+    result.update(refusal=refusal, spawn_s=spawn_s,
+                  phase_s=time.perf_counter() - t_phase,
+                  gloo_timing="gloo on one card: two ranks share its SMs; "
+                  "not NCCL across cards")
+    print("shard: " + json.dumps(result), flush=True)
+    return held, {f"shard_{r['label']}": r["launches"] for r in ranks[0]}
 
 
 # the stats phase: the cli phase's MTZ merged STATS_STEPS steps with
@@ -3700,6 +4188,8 @@ def main():
     held_at = resume_phase(torch, dev, gen, args.seed, peak_flops, peak_bw)
     held_at.update(xval_phase(torch, dev, gen, args.seed, peak_flops,
                               peak_bw))
+    shard_held, shard_counts = shard_phase(torch, dev, args.seed)
+    held_at.update(shard_held)
     held_at.update(stats_phase(torch, dev, gen, args.seed, peak_flops,
                                peak_bw))
     held_at["prior"] = prior_phase(torch, dev, gen, args.seed, peak_flops,
@@ -3717,6 +4207,8 @@ def main():
     for label, held in held_at.items():
         for k, err in held.items():
             rows[k][f"{label}_max_abs_err"] = err
+            if label in shard_counts:
+                rows[k][f"{label}_launches"] = shard_counts[label][k]
     again = launch_phase(torch, dev, gen, steps=False)
     rows["gather"]["launch_path_host_us_after_profiling"] = again
     for kname, key in K4_HOST.items():

@@ -234,8 +234,9 @@ class _Poisoned:
     def metric_names(self):
         return self.model.metric_names
 
-    def elbo(self, params, inputs, generator, seed=0):
-        loss, metrics = self.model.elbo(params, inputs, generator, seed=seed)
+    def elbo(self, params, inputs, generator, seed=0, shard=None):
+        loss, metrics = self.model.elbo(params, inputs, generator, seed=seed,
+                                        shard=shard)
         if seed >> 32 >= self.bad:
             loss = loss * float("nan")
             metrics = {**metrics, "loss": loss}

@@ -202,8 +202,7 @@ def test_mono_defaults_parse_as_the_jax_parser(runs):
 
 
 @pytest.mark.parametrize("flag", [
-    "--run-eagerly", "--platform=cpu", "--rng-impl=rbg", "--jax-debug",
-    "--shard-axis=mc", "--num-devices=2"])
+    "--run-eagerly", "--platform=cpu", "--rng-impl=rbg", "--jax-debug"])
 def test_unported_flags_raise_naming_themselves(runs, flag):
     args = port_parser.parse_args(["mono", KEYS, runs[0], "out", flag])
     with pytest.raises(NotImplementedError, match=flag.split("=")[0]):

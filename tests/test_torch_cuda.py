@@ -21,6 +21,9 @@ sums at rtol 1e-4; at chip_smoke's K4 recipe and seed 0, where the
 Student-t dloc exceeds that by rounding alone, per observation within the
 rounding of ipred (chip_smoke.studentt_check says why); K4 with its own
 Philox equals K4 fed K3's normals bit for bit, and repeats bit for bit.
+Multi-device training on the one card: a shard's K3 and K4 draws at its
+unaligned offsets are the unsharded draw's slice bit for bit, and a
+sharded run at NCCL world size 1 is the unsharded run bit for bit.
 """
 import numpy as np
 import pytest
@@ -1246,3 +1249,66 @@ def test_to_intensities_on_the_card_equals_the_cpu(cuda, tmp_path):
                                            rtol=1e-5, err_msg=c)
             else:
                 np.testing.assert_array_equal(card[c], cpu[c], err_msg=c)
+
+
+@pytest.mark.parametrize("row0,n,n_all,samples", [
+    (0, 100_003, 300_001, (0, 1)), (100_003, 100_001, 300_001, (0, 1)),
+    (200_004, 99_997, 300_001, (1, 3)), (0, 300_001, 300_001, (1, 2))])
+def test_shard_noise_on_the_card_is_the_unsharded_slice(cuda, row0, n, n_all,
+                                                        samples):
+    """A shard's scale noise (rows row0 .. row0 + n of n_all, its samples),
+    at offsets s n_all + row0 that are mostly not multiples of 4: K3's draw
+    for the shard is the unsharded draw's slice bit for bit, and K4's own
+    draw there equals K4 fed that slice, both ways, bit for bit."""
+    from careless_tpu_torch.models.merging.variational import \
+        VariationalMergingModel
+
+    seed = 0x0FEDCBA987654321
+    full = kernels.philox_normal(3 * n_all, seed, 0, cuda).view(3, n_all)
+    got = VariationalMergingModel._scale_noise(seed, range(*samples), row0,
+                                               n, n_all, cuda)
+    assert torch.equal(got, full[samples[0]:samples[1], row0:row0 + n])
+    ins, _, ev, _ = _k4_inputs(n, cuda, 5)
+    args = list(ins.values())
+    ct = torch.tensor(1.0, device=cuda)
+    for j, s in enumerate(range(*samples)):
+        cfg = dict(kind="normal", dof=0.0, t_const=0.0, seed=seed,
+                   offset=s * n_all + row0)
+        assert torch.equal(kernels.fused_ll_fwd(*args, None, None, ev, **cfg),
+                           kernels.fused_ll_fwd(*args, None, got[j], ev,
+                                                **cfg))
+        own = kernels.fused_ll_bwd(*args, None, None, ev, ct, **cfg)
+        fed = kernels.fused_ll_bwd(*args, None, got[j], ev, ct, **cfg)
+        assert all(a is b or torch.equal(a, b) for a, b in zip(own, fed))
+
+
+@pytest.mark.parametrize("laue", [False, True], ids=["mono", "laue"])
+def test_nccl_world_one_is_the_unsharded_run(cuda, tmp_path, laue):
+    """A sharded run at world size 1 over NCCL (one rank holding every row)
+    gives the unsharded run's history and parameters bit for bit."""
+    import torch.distributed as dist
+
+    import chip_smoke
+    from careless_tpu_torch.device import seeded_generator
+    from careless_tpu_torch.models.merging.variational import flatten_params
+    from careless_tpu_torch.parallel import distributed
+    from careless_tpu_torch.parallel.shard import shard_inputs
+
+    model, params, trainer, layout, f_true = chip_smoke.model_on(
+        cuda, 0, 20_000, 500, 40, 6, 4, laue=laue, plans=False)
+    n_refl, n_images = len(f_true), 40
+    ref = trainer.train(params, seeded_generator(0, cuda),
+                        layout.with_plans(n_refl, n_images), 4, chunk_size=2,
+                        device=cuda)
+    distributed.initialize("nccl", f"file://{tmp_path / 'store'}", 0, 1)
+    try:
+        assert dist.get_backend() == "nccl"
+        inputs, shard = shard_inputs(layout, 0, 1, n_refl, n_images)
+        one = trainer.train(params, seeded_generator(0, cuda), inputs, 4,
+                            chunk_size=2, device=cuda, shard=shard)
+    finally:
+        dist.destroy_process_group()
+    assert one[1] == ref[1]
+    for (name, a), (_, b) in zip(flatten_params(one[0]),
+                                 flatten_params(ref[0])):
+        assert torch.equal(a, b), name

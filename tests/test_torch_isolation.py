@@ -82,7 +82,8 @@ print(json.dumps(sorted(sys.modules)))
                 "parser", "io.formatter", "io.asu", "xtal.mtz",
                 "xtal.dataset", "xtal.symmetry", "utils.checkpoint",
                 "utils.positional_encoding", "utils.laue", "xtal.stream",
-                "xtal.xds", "parallel.xval", "models.priors.double_wilson",
+                "xtal.xds", "parallel.xval", "parallel.shard",
+                "parallel.distributed", "models.priors.double_wilson",
                 "models.priors.empirical", "models.merging.surrogate",
                 "stats._lib", "stats.cchalf", "stats.history",
                 "scripts.to_intensities", "scripts.plot_predictions"):
