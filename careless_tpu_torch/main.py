@@ -213,7 +213,8 @@ def run_careless(parser, device: DeviceLike = None) -> Optional[dict]:
     CPU or card --device-id; --num-devices N > 1: launch's N ranks, each
     on its own). Returns the host seconds of its parts:
     set-up (setup_s, the sum of build_s, the kernels' build where the
-    checkout has none yet; read_s, the reflection files; format_s, the
+    checkout has none yet, and the stream parser's for .stream files;
+    read_s, the reflection files; format_s, the
     formatter; model_s, the data manager, the test split, model and warm
     start; plans_s, the row layout and gather plans, Laue's harmonic-chain
     layout included), training (train_s), the history's rows (`steps`, a resumed
@@ -221,7 +222,9 @@ def run_careless(parser, device: DeviceLike = None) -> Optional[dict]:
     predictions, writing); with --merge-half-datasets also the half
     merges' xval_setup_s (splits, models, row layout and plans), xval_train_s
     (their training; in the parallel form also the stacked layout of the
-    halves) and xval_output_s (results and writing)."""
+    halves) and xval_output_s (results and writing). From .stream files,
+    read_parser also names the parser that read them, "native" or
+    "python"."""
     if parser.type == "devices":
         print("#############################################")
         print("# PyTorch can access the following devices  #")
@@ -241,6 +244,7 @@ def run_careless(parser, device: DeviceLike = None) -> Optional[dict]:
     from .io.formatter import LaueFormatter, MonoFormatter
     from .io.manager import DataManager
     from .utils.checkpoint import load_params
+    from .xtal import _native, stream
 
     dev = cli_device(parser, device)
     times = {}
@@ -256,11 +260,22 @@ def run_careless(parser, device: DeviceLike = None) -> Optional[dict]:
     if dev.type == "cuda":
         from .kernels._build import library
         library()   # built at the checkout's first run: set-up, not training
+    if any(f.endswith(".stream") for f in parser.reflection_files):
+        # the stream parser likewise; without a compiler read_crystfel
+        # reads with the Python parser and says so
+        with contextlib.suppress(_native.NoCompiler):
+            _native.library()
     lap("build_s")
     formatter = (LaueFormatter if parser.type == "poly"
                  else MonoFormatter).from_parser(parser)
+    stream.last_parser = None
     datasets = formatter.read_files(parser.reflection_files)
     lap("read_s")
+    if stream.last_parser is not None:
+        # a string beside the float parts: setup_s sums those by name
+        times["read_parser"] = stream.last_parser
+        print(f"Read the stream files with the {stream.last_parser} parser "
+              f"in {times['read_s']} s")
     inputs, rac = formatter(datasets, device=dev)
     del datasets
     lap("format_s")

@@ -1,7 +1,8 @@
 """Convert CrystFEL stream file to an mtz for processing in careless-tpu.
 
-The port's scripts/stream2mtz, through the port's pure-Python reader
-(careless_tpu_torch/xtal/stream.py):
+The port's scripts/stream2mtz, through the port's read_crystfel
+(careless_tpu_torch/xtal/stream.py: the native parser, built at its first
+use):
 
     python -m careless_tpu_torch.scripts.stream2mtz x.stream -g "P 43 21 2"
 """

@@ -1,9 +1,15 @@
 """CrystFEL .stream reader.
 
-Counterpart of the pure-Python reader of careless_tpu/xtal/stream.py
-(`_read_crystfel_python` and `_assemble`); the native parser built from
-cpp/ is not used. One row per measured reflection, with the stream
-metadata columns of careless' mono formatter:
+Counterpart of careless_tpu/xtal/stream.py. read_crystfel parses with the
+native C++ parser (xtal/_native.py, this package's cpp/stream_parser.cc,
+built at its first use) and takes the pure-Python reader,
+`_read_crystfel_python`, only where no host C++ compiler exists, saying
+so; `last_parser` names the parser of the last read ("native" or
+"python"). The two parsers are the JAX package's two, each as it is: they
+part on streams the Python reader reads otherwise (the C++ keeps the first
+unit-cell block and carries a crystal's astar/bstar/cstar over to the next
+that lacks them, for example). One row per measured reflection, with the
+stream metadata columns of careless' mono formatter:
 
   H K L I SigI BATCH  s1x s1y s1z  ewald_offset angular_ewald_offset XDET
   YDET Wavelength
@@ -14,17 +20,19 @@ none. Geometry: each crystal's reciprocal basis A* (the astar, bstar, cstar
 rows, nm^-1 -> 1/Angstrom) gives the scattering vector svec = hkl @ A*;
 with the beam along +z, s0 = (0, 0, 1/lambda) and s1 = svec + s0. The Ewald
 offset is e = |s1| - 1/lambda (1/Angstrom) and the angular offset
-degrees(arcsin(e / |s1|)). Every value is computed in float64 as the JAX
-package computes it, then stored in float32, so the columns equal its pure-
-Python reader's bit for bit.
+degrees(arcsin(e / |s1|)). Either parser computes every value in float64 as
+the JAX package's parser of its kind does, then stores it in float32, so
+the columns equal that parser's bit for bit.
 """
 from __future__ import annotations
 
 import re
+import warnings
 from typing import Optional
 
 import numpy as np
 
+from . import _native
 from .cell import UnitCell
 from .dataset import DataSet
 
@@ -40,8 +48,25 @@ def _parse_vec(line: str) -> np.ndarray:
     return np.array([float(parts[0]), float(parts[1]), float(parts[2])])
 
 
+# the parser of the last read_crystfel: "native" or "python"
+last_parser: Optional[str] = None
+
+
 def read_crystfel(path: str, spacegroup=None) -> DataSet:
-    """The indexed reflections of every crystal in a CrystFEL stream."""
+    """The indexed reflections of every crystal in a CrystFEL stream, by
+    the native parser, or by the Python reader where no compiler exists."""
+    global last_parser
+    try:
+        arrays, cell_params = _native.parse_stream(path)
+    except _native.NoCompiler as e:
+        warnings.warn(f"{e}; reading {path} with the Python parser")
+        last_parser = "python"
+        return _read_crystfel_python(path, spacegroup)
+    last_parser = "native"
+    return _assemble(arrays, cell_params, spacegroup)
+
+
+def _read_crystfel_python(path: str, spacegroup=None) -> DataSet:
     header_cell = [None] * 6
     rows_h = []
     rows_i = []

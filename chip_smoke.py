@@ -87,7 +87,8 @@ Phases, each printed on its own lines:
      seeded CrystFEL stream of 500,000 reflections on 2,500 crystals
      through `main(["mono", ...])`, 300 steps, the path's K1, K2 and K3
      held at its shapes, its merged F against the true F, with the stream's parse
-     seconds (stream_cli_phase); each with
+     seconds and the native parser that read it, held against the Python
+     reader on a 50,000-reflection stream (stream_cli_phase); each with
      set-up by part, steps/s, output seconds and peak GB; between the mono
      and poly merges, checkpoints and the held-out test fraction
      (resume_phase): three mono merges of the CLI phase's MTZ with
@@ -1552,6 +1553,12 @@ STREAM_MIN_CC = 0.5
 STREAM_CELL, STREAM_SPACEGROUP, STREAM_DMIN = \
     (79.1, 79.1, 38.4, 90.0, 90.0, 90.0), "P 43 21 2", 2.0
 STREAM_KEYS = "BATCH,s1x,s1y,s1z,ewald_offset"
+# the native parser held against the Python reader on a stream of this many
+# reflections and crystals (the Python reader takes about a second on it)
+STREAM_CHECK_REFL, STREAM_CHECK_CRYSTALS = 50_000, 250
+# the geometry columns' largest difference, in ulps of f32, between the two
+# parsers: -march=native may contract the C++'s products into FMAs
+STREAM_GEOMETRY_ULPS = 1
 
 
 def synthetic_stream(seed, path, n_refl, n_crystals, cell, spacegroup, dmin):
@@ -2481,16 +2488,22 @@ def stream_cli_phase(torch, dev, gen, seed, peak_flops, peak_bw):
     2.0 A, written under build/), then careless_tpu_torch.main.main(
     ["mono", STREAM_KEYS, file, out, "--spacegroups=P 43 21 2",
     "--iterations=300"]) in this process: the stream read by the port's
-    pure-Python reader, d = w = 5 (the five stream metadata keys), 20
-    layers. Checks: the five files; one prediction row per reflection; N
-    sums to them; the merged F's correlation with the true F at least
-    STREAM_MIN_CC; the loss finite and falling; K1 once a step each way
+    native parser (xtal/_native.py, built at its first use, in build_s),
+    d = w = 5 (the five stream metadata keys), 20 layers. Checks: the CLI
+    reports the native parser; the five files; one prediction row per
+    reflection; N sums to them; the merged F's correlation with the true
+    F at least STREAM_MIN_CC; the loss finite and falling; K1 once a step each way
     (plus the prediction pass's two K1-fwd), K2 GATHERS_PER_STEP["default"]
     a step (plus two), K3 once a step, no K4 or K5. Then the kernels of
     the path, held against their plain versions at its shapes
     (step_kernels on the planned inputs that the same formatter and data
-    manager calls give). Prints the read (parse) seconds among the set-up
-    parts. Returns the launches and each held kernel's largest error."""
+    manager calls give). Then the native parser held against the Python
+    reader (_read_crystfel_python) on a seeded stream of STREAM_CHECK_REFL
+    reflections: the integer and intensity columns equal, the geometry
+    within STREAM_GEOMETRY_ULPS ulps of f32, the cell equal. Prints the
+    parser and the read seconds on the phase's line, both parse times of
+    the check, and the read among the set-up parts. Returns the launches
+    and each held kernel's largest error."""
     import tempfile
     from pathlib import Path
 
@@ -2532,6 +2545,10 @@ def stream_cli_phase(torch, dev, gen, seed, peak_flops, peak_bw):
         held, _ = step_kernels(torch, dev, gen, planned, "default",
                                peak_flops, peak_bw, "stream cli")
         del planned
+        parsers = parser_check(seed, str(Path(tmp) / "check.stream"))
+    check(times.get("read_parser") == "native", f"stream cli: the stream "
+          f"was read by the {times.get('read_parser')} parser, not the "
+          "native one")
     check(len(preds) == STREAM_REFL, f"stream cli: {len(preds)} prediction "
           f"rows for {STREAM_REFL} reflections")
     n_sum = float(merged["N"].astype(np.float64).sum())
@@ -2551,13 +2568,64 @@ def stream_cli_phase(torch, dev, gen, seed, peak_flops, peak_bw):
     result = dict(reflections_in=STREAM_REFL, crystals=STREAM_CRYSTALS,
                   merged_reflections=len(merged), cc_true_f=cc,
                   stream_written_s=made, read_s=times["read_s"],
+                  read_parser=times["read_parser"],
                   loss_first_last=[loss[0], loss[-1]],
                   npz_keys={k: len(v) for k, v in npz.items()},
                   launches={k: v for k, v in launches.items() if v},
                   held_max_abs_err=held)
     print("stream cli: " + json.dumps(result), flush=True)
+    print("stream cli parsers: " + json.dumps(parsers), flush=True)
     print_cli_times("stream cli", times, peak_gb)
     return launches, held
+
+
+def f32_ulps(a, b):
+    """The largest distance between two f32 arrays in units in the last
+    place (+0 and -0 at distance 0)."""
+    def key(x):
+        i = np.ascontiguousarray(x, np.float32).view(np.int32)
+        i = i.astype(np.int64)
+        return np.where(i < 0, -(2 ** 31) - i, i)
+    return int(np.abs(key(a) - key(b)).max(initial=0))
+
+
+def parser_check(seed, path):
+    """The port's read_crystfel (the native parser) against its Python
+    reader on a seeded stream of STREAM_CHECK_REFL reflections written to
+    `path`: the integer and intensity columns equal, the geometry columns
+    within STREAM_GEOMETRY_ULPS ulps, the cell equal. Returns both parse
+    times and the geometry's largest ulp distance."""
+    from careless_tpu_torch.xtal import stream as port_stream
+
+    synthetic_stream(seed + 1, path, STREAM_CHECK_REFL,
+                     STREAM_CHECK_CRYSTALS, STREAM_CELL, STREAM_SPACEGROUP,
+                     STREAM_DMIN)
+    t0 = time.perf_counter()
+    native = port_stream.read_crystfel(path)
+    t1 = time.perf_counter()
+    python = port_stream._read_crystfel_python(path)
+    t2 = time.perf_counter()
+    check(port_stream.last_parser == "native", "stream parsers: "
+          f"read_crystfel took the {port_stream.last_parser} parser")
+    check(native.columns == python.columns and len(native) == len(python)
+          == STREAM_CHECK_REFL, f"stream parsers: {len(native)} and "
+          f"{len(python)} rows of {STREAM_CHECK_REFL}, columns "
+          f"{native.columns} and {python.columns}")
+    geometry = ("s1x", "s1y", "s1z", "ewald_offset", "angular_ewald_offset",
+                "Wavelength")
+    for c in native.columns:
+        if c not in geometry:
+            check(native[c].dtype == python[c].dtype
+                  and np.array_equal(native[c], python[c]),
+                  f"stream parsers: column {c} differs")
+    ulps = max(f32_ulps(native[c], python[c]) for c in geometry)
+    check(ulps <= STREAM_GEOMETRY_ULPS, f"stream parsers: the geometry "
+          f"differs by {ulps} ulps, more than {STREAM_GEOMETRY_ULPS}")
+    check(native.cell.parameters == python.cell.parameters,
+          f"stream parsers: cells {native.cell.parameters} and "
+          f"{python.cell.parameters}")
+    return dict(reflections=STREAM_CHECK_REFL, native_parse_s=t1 - t0,
+                python_parse_s=t2 - t1, geometry_max_ulps=ulps)
 
 
 # the resume phase: B trains RESUME_STEPS steps and writes a checkpoint;

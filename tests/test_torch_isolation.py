@@ -82,7 +82,7 @@ print(json.dumps(sorted(sys.modules)))
                 "parser", "io.formatter", "io.asu", "xtal.mtz",
                 "xtal.dataset", "xtal.symmetry", "utils.checkpoint",
                 "utils.positional_encoding", "utils.laue", "xtal.stream",
-                "xtal.xds", "parallel.xval", "parallel.shard",
+                "xtal._native", "xtal.xds", "parallel.xval", "parallel.shard",
                 "parallel.distributed", "models.priors.double_wilson",
                 "models.priors.empirical", "models.merging.surrogate",
                 "stats._lib", "stats.cchalf", "stats.history",

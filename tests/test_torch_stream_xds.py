@@ -4,13 +4,15 @@ package's, on the CPU, from seeded files: a stream of 12 crystals written
 by chip_smoke.synthetic_stream, and INTEGRATE.HKL / XDS_ASCII.HKL files
 written here with XDS' header and number formats.
 
-The stream: the port's read_crystfel equals the JAX package's pure-Python
-reader bit for bit (columns, dtypes, cell, MTZ types); against the JAX
-package's read_crystfel, which takes its native parser where
-careless_tpu/xtal/_native_lib.so is built (it computes the geometry in C's
-double arithmetic, then rounds to f32), the integer and intensity columns
-equal exactly and the geometry columns within 1 ulp of f32. MonoFormatter
-from the stream gives Inputs equal to the JAX package's. XDS: both file
+The stream: the port's pure-Python reader equals the JAX package's bit for
+bit (columns, dtypes, cell, MTZ types). The port's read_crystfel equals the
+JAX package's bit for bit where both take their native parser (the JAX
+library compiled from cpp/stream_parser.cc into a temporary directory, as
+tests/test_torch_native_stream.py does); where the JAX library cannot be
+built and the JAX reader is its Python one, the integer and intensity
+columns equal exactly and the geometry columns within 1 ulp of f32 (C's
+double arithmetic against numpy's). MonoFormatter from the stream gives
+Inputs equal to the JAX package's. XDS: both file
 types read column for column equal (names, order, dtypes, values, cell,
 space group, MTZ types), and xds2mtz's MTZ equals the JAX one byte for
 byte, with the header's cell and space group and with both overridden.
@@ -27,6 +29,7 @@ from careless_tpu_torch.io.formatter import MonoFormatter as PortMono
 from careless_tpu_torch.parser import parser as port_parser
 from careless_tpu_torch.xtal import stream as tstream
 from careless_tpu_torch.xtal import xds as txds
+from tests.test_torch_native_stream import jax_native_library
 
 CELL = (79.1, 79.1, 38.4, 90.0, 90.0, 90.0)
 SPACEGROUP = "P 43 21 2"
@@ -40,6 +43,13 @@ def stream_file(tmp_path_factory):
     chip_smoke.synthetic_stream(4, str(path), 2400, 12, CELL, SPACEGROUP,
                                 2.5)
     return str(path)
+
+
+@pytest.fixture(scope="module")
+def jax_native(tmp_path_factory):
+    """Whether the JAX package's read_crystfel takes its native parser."""
+    with jax_native_library(tmp_path_factory.mktemp("jax_native")) as built:
+        yield built
 
 
 def _same_dataset(got, want):
@@ -60,21 +70,22 @@ def _same_dataset(got, want):
 
 
 def test_read_crystfel_matches_the_jax_python_reader(stream_file):
-    got = tstream.read_crystfel(stream_file)
+    got = tstream._read_crystfel_python(stream_file)
     _same_dataset(got, jstream._read_crystfel_python(stream_file))
     assert len(got) == 2400 and got["BATCH"].max() == 11
     assert got.cell.parameters == pytest.approx(CELL)
     assert np.abs(got["ewald_offset"]).max() < 0.05
 
 
-def test_read_crystfel_matches_the_jax_reader(stream_file):
+def test_read_crystfel_matches_the_jax_reader(stream_file, jax_native):
     got = tstream.read_crystfel(stream_file)
+    both_native = jax_native and tstream.last_parser == "native"
     want = jstream.read_crystfel(stream_file)
     assert got.columns == list(want.columns)
     for c in got.columns:
         w = want[c].to_numpy()
         assert got[c].dtype == w.dtype, c
-        if c in GEOMETRY:
+        if c in GEOMETRY and not both_native:
             np.testing.assert_array_max_ulp(got[c], w, maxulp=1)
         else:
             assert np.array_equal(got[c], w), c
