@@ -88,7 +88,14 @@ Phases, each printed on its own lines:
      through `main(["mono", ...])`, 300 steps, the path's K1, K2 and K3
      held at its shapes, its merged F against the true F, with the stream's parse
      seconds and the native parser that read it, held against the Python
-     reader on a 50,000-reflection stream (stream_cli_phase); each with
+     reader on a 50,000-reflection stream (stream_cli_phase); then a
+     merge of DIALS stills: a seeded table of 1,000,000 reflections on
+     5,000 stills (P 1 21 1 to 1.8 A, like MbCO myoglobin) converted by
+     the port's scripts/stills2mtz under a stand-in for DIALS
+     (dials_stand_in; it reads .npz tables, not DIALS's files), merged
+     300 steps through `main(["mono", ...])` with eight metadata keys,
+     its merged F against the true F and its K1, K2 and K3 launches and
+     held errors at its shapes (stills_phase); each with
      set-up by part, steps/s, output seconds and peak GB; between the mono
      and poly merges, checkpoints and the held-out test fraction
      (resume_phase): three mono merges of the CLI phase's MTZ with
@@ -1638,6 +1645,156 @@ def synthetic_stream(seed, path, n_refl, n_crystals, cell, spacegroup, dmin):
     return hkl_asu, f_true
 
 
+# the modules a DIALS installation provides that stills2mtz imports
+DIALS_MODULES = ("dials", "dials.array_family", "dials.array_family.flex",
+                 "dxtbx", "dxtbx.model", "dxtbx.model.experiment_list")
+
+
+@contextlib.contextmanager
+def dials_stand_in():
+    """A stand-in for DIALS, not DIALS: within it, sys.modules holds
+    DIALS_MODULES with exactly the six calls both stills2mtz scripts make
+    (flex.reflection_table.from_file, a column's as_numpy_array and
+    as_vec3_double, `key in table`, and ExperimentListFactory.from_json_file
+    (path)[0].crystal's get_unit_cell().parameters() and get_space_group()
+    .type().universal_hermann_mauguin_symbol()). Its "refl" file is an .npz
+    of the table's columns by DIALS's names, its "expt" file a JSON object
+    {"cell": [six parameters], "space_group": symbol}, as synthetic_stills
+    writes them; DIALS's own .refl (msgpack) and .expt files it cannot read.
+    On exit the modules that were there before (none, without DIALS) are
+    put back."""
+    class Column:
+        def __init__(self, values):
+            self._values = values
+
+        def as_numpy_array(self):
+            return self._values.copy()
+
+        def as_vec3_double(self):
+            return Column(self._values.astype(np.float64))
+
+    class ReflectionTable:
+        def __init__(self, cols):
+            self._cols = cols
+
+        @classmethod
+        def from_file(cls, path):
+            with np.load(path) as z:
+                return cls({k: z[k] for k in z.files})
+
+        def __getitem__(self, key):
+            return Column(self._cols[key])
+
+        def __contains__(self, key):
+            return key in self._cols
+
+    class ExperimentListFactory:
+        @staticmethod
+        def from_json_file(path):
+            with open(path) as f:
+                expt = json.load(f)
+            ns = types.SimpleNamespace
+            symbol = ns(universal_hermann_mauguin_symbol=lambda: expt[
+                "space_group"])
+            crystal = ns(get_unit_cell=lambda: ns(
+                parameters=lambda: tuple(expt["cell"])),
+                get_space_group=lambda: ns(type=lambda: symbol))
+            return [ns(crystal=crystal)]
+
+    made = {name: types.ModuleType(name) for name in DIALS_MODULES}
+    made["dials.array_family.flex"].reflection_table = ReflectionTable
+    made["dxtbx.model.experiment_list"].ExperimentListFactory = \
+        ExperimentListFactory
+    for name, mod in made.items():
+        if "." in name:
+            parent, child = name.rsplit(".", 1)
+            setattr(made[parent], child, mod)
+    before = {name: sys.modules.get(name) for name in DIALS_MODULES}
+    sys.modules.update(made)
+    try:
+        yield
+    finally:
+        for name, mod in before.items():
+            if mod is None:
+                sys.modules.pop(name, None)
+            else:
+                sys.modules[name] = mod
+
+
+# the optional columns of a DIALS stills table that stills2mtz reads
+STILLS_COLUMNS = ("cartesian_fixed_obs", "cartesian_fixed", "Rh")
+# the stills phase: a time-resolved SFX data set like MbCO myoglobin
+# (P 1 21 1 to 1.8 A, ~12k reflections in the ASU), 1,000,000 reflections
+# on 5,000 stills, every optional column, merged 300 steps with the eight
+# metadata keys below (d = w = 8 at 20 layers; BATCH, the one B column, is
+# the image key)
+STILLS_REFL, STILLS_STILLS, STILLS_STEPS = 1_000_000, 5_000, 300
+STILLS_CELL, STILLS_SPACEGROUP, STILLS_DMIN = \
+    (64.5, 30.6, 34.9, 90.0, 105.5, 90.0), "P 1 21 1", 1.8
+STILLS_KEYS = ("dHKL,BATCH,ewald_offset,xobs,yobs,cartesian_delta_x,"
+               "cartesian_delta_y,cartesian_delta_z")
+# the merged F's least correlation with the true F after those 300 steps
+# (the same phase on the CPU, seed 0: 0.8562 at 100k reflections on 500
+# stills, 0.8808 at 300k on 1,500)
+STILLS_MIN_CC = 0.85
+
+
+def synthetic_stills(seed, refl, expt, n_refl, n_stills, cell, spacegroup,
+                     dmin, columns=STILLS_COLUMNS, negative=8):
+    """Write a DIALS-like stills table and experiment list, made with numpy
+    from the seed, in dials_stand_in's formats (`refl`: .npz, `expt`:
+    JSON): n_refl / n_stills reflections a still (DIALS's int32 `id`,
+    0 .. n_stills - 1), each a reflection of the ASU to dmin sent to a
+    random symmetry equivalent with either Friedel sign (int32
+    miller_index); intensity.sum.value I = s F^2 + SIGI N(0, 1) with
+    F ~ sqrt(Exp(1)), s = exp(0.3 N(0, 1)) per still, SIGI = 0.05 + 0.05 s
+    F^2, and intensity.sum.variance SIGI^2, negated on `negative` seeded
+    rows; xyzcal.px and xyzobs.px.value pixel positions (x, y on a
+    2,000-pixel detector, z 0; obs = cal + N(0, 0.5) in x and y); and,
+    those of STILLS_COLUMNS that `columns` names, Rh (Ewald offsets,
+    N(0, 0.002) per A), cartesian_fixed (random unit vectors) and
+    cartesian_fixed_obs (the same, moved by N(0, 0.001) and renormalised).
+    Returns (the ASU's Miller indices, their true F)."""
+    from careless_tpu_torch.xtal import SpaceGroup, UnitCell
+
+    rng = np.random.default_rng(seed)
+    sg = SpaceGroup.from_name(spacegroup)
+    hkl_asu = sg.generate_reciprocal_asu(UnitCell(*cell), dmin)
+    f_true = np.sqrt(rng.exponential(1.0, len(hkl_asu)))
+    still = np.repeat(np.arange(n_stills, dtype=np.int32),
+                      -(-n_refl // n_stills))[:n_refl]
+    pick = rng.integers(0, len(hkl_asu), n_refl)
+    rots = np.stack([op.rot_array for op in sg.ops])
+    op = rng.integers(0, len(rots), n_refl)
+    sign = np.where(rng.random(n_refl) < 0.5, -1, 1)
+    hkl = np.einsum("ni,nij->nj", hkl_asu[pick], rots[op]) * sign[:, None]
+    i_true = np.exp(0.3 * rng.normal(size=n_stills))[still] \
+        * f_true[pick] ** 2
+    sig = 0.05 + 0.05 * i_true
+    variance = sig ** 2
+    variance[rng.choice(n_refl, negative, replace=False)] *= -1
+    cal = np.zeros((n_refl, 3))
+    cal[:, :2] = rng.uniform(0, 2000, (n_refl, 2))
+    obs = cal.copy()
+    obs[:, :2] += rng.normal(0, 0.5, (n_refl, 2))
+    table = {"miller_index": hkl.astype(np.int32), "id": still,
+             "intensity.sum.value": i_true + sig * rng.normal(size=n_refl),
+             "intensity.sum.variance": variance, "xyzcal.px": cal,
+             "xyzobs.px.value": obs}
+    fixed = rng.normal(size=(n_refl, 3))
+    fixed /= np.linalg.norm(fixed, axis=1, keepdims=True)
+    moved = fixed + rng.normal(0, 0.001, (n_refl, 3))
+    moved /= np.linalg.norm(moved, axis=1, keepdims=True)
+    optional = {"cartesian_fixed_obs": moved, "cartesian_fixed": fixed,
+                "Rh": rng.normal(0, 0.002, n_refl)}
+    table.update({k: optional[k] for k in columns})
+    with open(refl, "wb") as f:
+        np.savez(f, **table)
+    with open(expt, "w") as f:
+        json.dump({"cell": list(cell), "space_group": spacegroup}, f)
+    return hkl_asu, f_true
+
+
 def model_on(device, seed, n_obs, n_refl, n_images, d_meta, n_layers,
              flags=None, laue=False, times=None, two_files=False,
              plans=True):
@@ -2489,15 +2646,11 @@ def stream_cli_phase(torch, dev, gen, seed, peak_flops, peak_bw):
     ["mono", STREAM_KEYS, file, out, "--spacegroups=P 43 21 2",
     "--iterations=300"]) in this process: the stream read by the port's
     native parser (xtal/_native.py, built at its first use, in build_s),
-    d = w = 5 (the five stream metadata keys), 20 layers. Checks: the CLI
-    reports the native parser; the five files; one prediction row per
-    reflection; N sums to them; the merged F's correlation with the true
-    F at least STREAM_MIN_CC; the loss finite and falling; K1 once a step each way
-    (plus the prediction pass's two K1-fwd), K2 GATHERS_PER_STEP["default"]
-    a step (plus two), K3 once a step, no K4 or K5. Then the kernels of
-    the path, held against their plain versions at its shapes
-    (step_kernels on the planned inputs that the same formatter and data
-    manager calls give). Then the native parser held against the Python
+    d = w = 5 (the five stream metadata keys), 20 layers, with
+    mono_cli_merge's checks (one prediction row per reflection, the merged
+    F's correlation with the true F at least STREAM_MIN_CC, the launches)
+    and its kernels held at the path's shapes; and the CLI reports the
+    native parser. Then the native parser held against the Python
     reader (_read_crystfel_python) on a seeded stream of STREAM_CHECK_REFL
     reflections: the integer and intensity columns equal, the geometry
     within STREAM_GEOMETRY_ULPS ulps of f32, the cell equal. Prints the
@@ -2506,12 +2659,6 @@ def stream_cli_phase(torch, dev, gen, seed, peak_flops, peak_bw):
     and each held kernel's largest error."""
     import tempfile
     from pathlib import Path
-
-    from careless_tpu_torch import kernels
-    from careless_tpu_torch.io.formatter import MonoFormatter
-    from careless_tpu_torch.io.manager import DataManager
-    from careless_tpu_torch.main import main as cli_main
-    from careless_tpu_torch.parser import parser as cli_parser
 
     build = Path(__file__).resolve().parent / "build"
     build.mkdir(exist_ok=True)
@@ -2526,57 +2673,77 @@ def stream_cli_phase(torch, dev, gen, seed, peak_flops, peak_bw):
                 f"--spacegroups={STREAM_SPACEGROUP}",
                 f"--iterations={STREAM_STEPS}", "--disable-progress-bar",
                 f"--seed={seed}"]
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        kernels.reset_launches()
-        times = cli_main(argv)
-        torch.cuda.synchronize()
-        launches = dict(kernels.LAUNCHES)
-        peak_gb = torch.cuda.max_memory_allocated() / 1e9
-        merged, preds, loss, npz = read_cli_outputs(out)
-
-        # the kernels at this path's shapes, on the inputs main() trains on
-        args = cli_parser.parse_args(argv)
-        inputs, rac = MonoFormatter.from_parser(args).format_files(
-            [stream], device=dev)
-        planned = DataManager(inputs, rac, parser=args,
-                              device=dev).planned_inputs().inputs
-        del inputs
-        held, _ = step_kernels(torch, dev, gen, planned, "default",
-                               peak_flops, peak_bw, "stream cli")
-        del planned
+        times, launches, peak_gb, merge = mono_cli_merge(
+            torch, dev, gen, argv, STREAM_STEPS, "stream cli", STREAM_REFL,
+            hkl_asu, f_true, STREAM_MIN_CC, peak_flops, peak_bw)
         parsers = parser_check(seed, str(Path(tmp) / "check.stream"))
     check(times.get("read_parser") == "native", f"stream cli: the stream "
           f"was read by the {times.get('read_parser')} parser, not the "
           "native one")
-    check(len(preds) == STREAM_REFL, f"stream cli: {len(preds)} prediction "
-          f"rows for {STREAM_REFL} reflections")
-    n_sum = float(merged["N"].astype(np.float64).sum())
-    check(n_sum == STREAM_REFL, f"stream cli: N sums to {n_sum}")
-    cc = cc_true_f("stream cli", merged, hkl_asu, f_true)
-    check(cc >= STREAM_MIN_CC, f"stream cli: merged F correlates {cc:.4f} "
-          f"with the true F, expected at least {STREAM_MIN_CC}")
-    check(len(loss) == STREAM_STEPS and all(map(math.isfinite, loss))
-          and loss[-1] < loss[0], f"stream cli: loss not finite and "
-          f"falling: {loss[:2]} ... {loss[-2:]}")
-    check_launches(launches, "stream cli", {
-        **{k: (STREAM_STEPS + 2 if k == "trunk_fwd" else v)
-           for k, v in trunk_counts(STREAM_STEPS, True, False).items()},
-        "gather": GATHERS_PER_STEP["default"] * STREAM_STEPS + 2,
-        "philox_normal": STREAM_STEPS, "fused_ll_fwd": 0, "fused_ll_bwd": 0,
-        "gather_stream": 0})
     result = dict(reflections_in=STREAM_REFL, crystals=STREAM_CRYSTALS,
-                  merged_reflections=len(merged), cc_true_f=cc,
                   stream_written_s=made, read_s=times["read_s"],
-                  read_parser=times["read_parser"],
-                  loss_first_last=[loss[0], loss[-1]],
-                  npz_keys={k: len(v) for k, v in npz.items()},
-                  launches={k: v for k, v in launches.items() if v},
-                  held_max_abs_err=held)
+                  read_parser=times["read_parser"], **merge)
     print("stream cli: " + json.dumps(result), flush=True)
     print("stream cli parsers: " + json.dumps(parsers), flush=True)
     print_cli_times("stream cli", times, peak_gb)
-    return launches, held
+    return launches, merge["held_max_abs_err"]
+
+
+def mono_cli_merge(torch, dev, gen, argv, steps, label, n_rows, hkl_asu,
+                   f_true, min_cc, peak_flops, peak_bw):
+    """The mono merge `argv` (["mono", keys, file, out, ...] with
+    --iterations=`steps`) through the port's CLI on the card, in this
+    process, the launches counted from 0 just before main(); then the
+    path's kernels held against their plain versions at its shapes
+    (step_kernels on the planned inputs that the same formatter and data
+    manager calls give). Checks: the five files; one prediction row per
+    input row (n_rows); N sums to them; the merged F's correlation with
+    the true F at least min_cc; the loss finite and falling; the launches
+    of cli_counts(steps): K1 once a step each way (plus the prediction
+    pass's two K1-fwd), K2 GATHERS_PER_STEP["default"] a step (plus two),
+    K3 once a step, no K4 or K5. Returns (the CLI's times, the launches,
+    peak GB, the merge's fields of the phase's line)."""
+    from careless_tpu_torch import kernels
+    from careless_tpu_torch.io.formatter import MonoFormatter
+    from careless_tpu_torch.io.manager import DataManager
+    from careless_tpu_torch.main import main as cli_main
+    from careless_tpu_torch.parser import parser as cli_parser
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    times = cli_main(argv)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    merged, preds, loss, npz = read_cli_outputs(argv[3])
+
+    args = cli_parser.parse_args(argv)
+    inputs, rac = MonoFormatter.from_parser(args).format_files(
+        [argv[2]], device=dev)
+    planned = DataManager(inputs, rac, parser=args,
+                          device=dev).planned_inputs().inputs
+    del inputs
+    held, _ = step_kernels(torch, dev, gen, planned, "default", peak_flops,
+                           peak_bw, label)
+    del planned
+    check(len(preds) == n_rows, f"{label}: {len(preds)} prediction rows "
+          f"for {n_rows} reflections")
+    n_sum = float(merged["N"].astype(np.float64).sum())
+    check(n_sum == n_rows, f"{label}: N sums to {n_sum}")
+    cc = cc_true_f(label, merged, hkl_asu, f_true)
+    check(cc >= min_cc, f"{label}: merged F correlates {cc:.4f} with the "
+          f"true F, expected at least {min_cc}")
+    check(len(loss) == steps and all(map(math.isfinite, loss))
+          and loss[-1] < loss[0], f"{label}: loss not finite and falling: "
+          f"{loss[:2]} ... {loss[-2:]}")
+    check_launches(launches, label, cli_counts(steps))
+    return times, launches, peak_gb, dict(
+        merged_reflections=len(merged), cc_true_f=cc,
+        loss_first_last=[loss[0], loss[-1]],
+        npz_keys={k: len(v) for k, v in npz.items()},
+        launches={k: v for k, v in launches.items() if v},
+        held_max_abs_err=held)
 
 
 def f32_ulps(a, b):
@@ -2626,6 +2793,65 @@ def parser_check(seed, path):
           f"{python.cell.parameters}")
     return dict(reflections=STREAM_CHECK_REFL, native_parse_s=t1 - t0,
                 python_parse_s=t2 - t1, geometry_max_ulps=ulps)
+
+
+def stills_phase(torch, dev, gen, seed, peak_flops, peak_bw):
+    """A serial-crystallography merge of DIALS stills through the port's
+    stills2mtz and CLI, on the card: a seeded stills table and experiment
+    list (synthetic_stills: STILLS_REFL reflections on STILLS_STILLS stills
+    in P 1 21 1 to 1.8 A, every optional column, no negative variance,
+    written under build/) converted by careless_tpu_torch.scripts.stills2mtz
+    under dials_stand_in (a stand-in for DIALS, not DIALS: the table's
+    columns as an .npz), then careless_tpu_torch.main.main(["mono",
+    STILLS_KEYS, mtz, out, "--spacegroups=P 1 21 1", "--iterations=300"])
+    in this process (d = w = 8, 20 layers). Checks: the converted file's
+    rows and columns, SigI finite; then mono_cli_merge's (one prediction
+    row per reflection, the merged F's correlation with the true F at
+    least STILLS_MIN_CC, the launches), with the path's kernels held
+    against their plain versions at its shapes. Prints the
+    conversion's seconds and the card on the phase's line, set-up by part,
+    steps/s, output seconds and peak GB. Returns the launches and each
+    held kernel's largest error."""
+    import tempfile
+    from pathlib import Path
+
+    from careless_tpu_torch.scripts import stills2mtz
+
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        refl, expt, mtz, out = (str(Path(tmp) / n) for n in (
+            "stills.refl", "stills.expt", "stills.mtz", "sfx"))
+        t0 = time.perf_counter()
+        hkl_asu, f_true = synthetic_stills(
+            seed, refl, expt, STILLS_REFL, STILLS_STILLS, STILLS_CELL,
+            STILLS_SPACEGROUP, STILLS_DMIN, negative=0)
+        made = time.perf_counter() - t0
+        with dials_stand_in():
+            t0 = time.perf_counter()
+            converted = stills2mtz.run(stills2mtz.ArgumentParser().parse_args(
+                [refl, expt, "-o", mtz]))
+            convert_s = time.perf_counter() - t0
+        check(len(converted) == STILLS_REFL and len(converted.columns) == 20
+              and set(STILLS_KEYS.split(",")[1:]) <= set(converted.columns)
+              and np.isfinite(converted["SigI"]).all(), "stills: the "
+              f"converted file has {len(converted)} rows and columns "
+              f"{converted.columns}, or a SigI not finite")
+        del converted
+        argv = ["mono", STILLS_KEYS, mtz, out,
+                f"--spacegroups={STILLS_SPACEGROUP}",
+                f"--iterations={STILLS_STEPS}", "--disable-progress-bar",
+                f"--seed={seed}"]
+        times, launches, peak_gb, merge = mono_cli_merge(
+            torch, dev, gen, argv, STILLS_STEPS, "stills", STILLS_REFL,
+            hkl_asu, f_true, STILLS_MIN_CC, peak_flops, peak_bw)
+    result = dict(card=card_line(), reflections_in=STILLS_REFL,
+                  stills=STILLS_STILLS, stills_written_s=made,
+                  convert_s=convert_s, **merge)
+    print("stills (the conversion under a DIALS stand-in): "
+          + json.dumps(result), flush=True)
+    print_cli_times("stills", times, peak_gb)
+    return launches, merge["held_max_abs_err"]
 
 
 # the resume phase: B trains RESUME_STEPS steps and writes a checkpoint;
@@ -4267,7 +4493,8 @@ def main():
     held_at.update({label: phase(torch, dev, gen, args.seed, peak_flops,
                                  peak_bw)[1]
                     for label, phase in (("poly_cli", poly_cli_phase),
-                                         ("stream_cli", stream_cli_phase))})
+                                         ("stream_cli", stream_cli_phase),
+                                         ("stills", stills_phase))})
 
     rows["gather_stream"], launches_laue, held_at["laue"], \
         rows[LAUE_PERM_ROW] = laue_phase(torch, dev, gen, args.seed,

@@ -19,7 +19,8 @@ set (scripts/ is not changed); the port's module runs on the same files:
     without --positive: the rows in the same HKL order, values within
     rtol 1e-6;
   - plot_predictions' table against the script's `data` global;
-  - stills2mtz's refusal without DIALS.
+  - stills2mtz's refusal without DIALS (its conversion, under a stand-in
+    for DIALS, is held in tests/test_torch_stills.py).
 """
 import os
 import runpy
