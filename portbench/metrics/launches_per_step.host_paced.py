@@ -1,0 +1,7 @@
+"""`launches_per_step` in the cells whose step the host paces, where it moves
+`steps_per_s.host_paced`."""
+from portbench.spec import reader
+
+
+def read(run):
+    return reader("launches_per_step")(run)
