@@ -23,7 +23,10 @@ writes `<out>_data_manager.pickle` (DataManager.from_pickle reads it, on
 the card or the CPU); `--profile-dir=DIR` records the main merge's
 training under torch.profiler (CPU, and CUDA on the card) and writes its
 Chrome/TensorBoard trace, `<host>_<pid>.<ns>.pt.trace.json`, into DIR
-(the JAX package writes an XLA trace there).
+(the JAX package writes an XLA trace there); in Perfetto the training
+loop's spans (utils/spans.py: careless.chunk, careless.step and in each
+step careless.elbo, careless.backward and careless.update) mark on the
+host thread's track which part of a step enqueued each kernel.
 
 `--num-devices N` (N > 1) trains on N devices, one process each
 (torch.multiprocessing's spawn; NCCL on cards 0 .. N - 1, gloo ranks on the

@@ -37,6 +37,7 @@ from ...device import DeviceLike, resolve_device, same_device
 from ...ops.distributions import Normal
 from ...ops.fused_elbo import fused_likelihood_sum, prng_normal
 from ...ops.plan_gather import plan_gather
+from ...utils.spans import span
 from ..base import Inputs
 from ..likelihoods import mono
 from ..scaling.image import HybridImageScaler
@@ -136,26 +137,30 @@ class VariationalMergingModel:
         if self._fused_eligible(inputs):
             return self._elbo_fused(params, inputs, generator, seed, u_f, eps,
                                     shard)
-        q, z_f, eps = self._samples(params, inputs, generator, u_f, eps,
-                                    shard)
-        scale_dist = self.scaler.apply(params["scaler"], inputs)
+        with span("careless.surrogate"):
+            q, z_f, eps = self._samples(params, inputs, generator, u_f, eps,
+                                        shard)
+        with span("careless.scaler"):
+            scale_dist = self.scaler.apply(params["scaler"], inputs)
         if not isinstance(scale_dist, Normal):
             raise TypeError("the mono chain expects a Normal scale "
                             f"distribution, got {type(scale_dist).__name__}")
         samples, row0, n_all = self._placement(inputs, shard)
-        if eps is None:
-            eps = self._scale_noise(seed, samples, row0, inputs.n_obs, n_all,
-                                    inputs.device)
-        likelihood = self.likelihood.build(params.get("likelihood", {}),
-                                           inputs)
-        ll_total = 0.0
-        for j, s in enumerate(samples):
-            z_scale = scale_dist.loc + scale_dist.scale * eps[j]
-            z_obs = plan_gather(z_f[s], inputs.refl_id, inputs.plans.refl)
-            ll_total = ll_total + self._masked_ll_sum(
-                likelihood, z_scale * torch.square(z_obs))
-        return self._loss(q, z_f, ll_total, n_all, self._built_prior(params),
-                          shard)
+        with span("careless.likelihood"):
+            if eps is None:
+                eps = self._scale_noise(seed, samples, row0, inputs.n_obs,
+                                        n_all, inputs.device)
+            likelihood = self.likelihood.build(params.get("likelihood", {}),
+                                               inputs)
+            ll_total = 0.0
+            for j, s in enumerate(samples):
+                z_scale = scale_dist.loc + scale_dist.scale * eps[j]
+                z_obs = plan_gather(z_f[s], inputs.refl_id, inputs.plans.refl)
+                ll_total = ll_total + self._masked_ll_sum(
+                    likelihood, z_scale * torch.square(z_obs))
+        with span("careless.kl"):
+            return self._loss(q, z_f, ll_total, n_all,
+                              self._built_prior(params), shard)
 
     def _placement(self, inputs: Inputs, shard) -> Tuple[range, int, int]:
         """(the samples this call scores, its first row's index in the
@@ -194,32 +199,39 @@ class VariationalMergingModel:
                     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """elbo with the (N,) chain from eps to the likelihood sum in K4,
         once per sample; the MLP runs once (variational.py:236-300)."""
-        q, z_f, eps = self._samples(params, inputs, generator, u_f, eps,
-                                    shard)
+        with span("careless.surrogate"):
+            q, z_f, eps = self._samples(params, inputs, generator, u_f, eps,
+                                        shard)
         plans = inputs.plans
         samples, row0, n_all = self._placement(inputs, shard)
-        if isinstance(self.scaler, HybridImageScaler):
-            mlp_dist = self.scaler.mlp.apply(params["scaler"]["mlp"], inputs)
-            image_scales = self.scaler.image.scales(params["scaler"]["image"])
-            image_id = inputs.image_id
-        else:
-            mlp_dist = self.scaler.apply(params["scaler"], inputs)
-            image_scales = torch.ones(1, device=inputs.device)
-            image_id = torch.zeros_like(inputs.refl_id)
-        image_plan = plans.image if image_scales.shape[0] > 1 else None
-        kind, dof = self._fused_likelihood_kind()
-        ev11 = self._fused_ev11_scalars(kind, params.get("likelihood", {}))
-        ll_total = 0.0
-        for j, s in enumerate(samples):
-            ll_total = ll_total + fused_likelihood_sum(
-                mlp_dist.loc, mlp_dist.scale, image_scales, z_f[s],
-                inputs.refl_id, image_id, inputs.intensities,
-                inputs.uncertainties, seed=seed, offset=s * n_all + row0,
-                noise=None if eps is None else eps[j],
-                refl_plan=plans.refl, image_plan=image_plan, kind=kind,
-                dof=dof, ev11=ev11)
-        return self._loss(q, z_f, ll_total, n_all, self._built_prior(params),
-                          shard)
+        with span("careless.scaler"):
+            if isinstance(self.scaler, HybridImageScaler):
+                mlp_dist = self.scaler.mlp.apply(params["scaler"]["mlp"],
+                                                 inputs)
+                image_scales = self.scaler.image.scales(
+                    params["scaler"]["image"])
+                image_id = inputs.image_id
+            else:
+                mlp_dist = self.scaler.apply(params["scaler"], inputs)
+                image_scales = torch.ones(1, device=inputs.device)
+                image_id = torch.zeros_like(inputs.refl_id)
+        with span("careless.likelihood"):
+            image_plan = plans.image if image_scales.shape[0] > 1 else None
+            kind, dof = self._fused_likelihood_kind()
+            ev11 = self._fused_ev11_scalars(kind,
+                                            params.get("likelihood", {}))
+            ll_total = 0.0
+            for j, s in enumerate(samples):
+                ll_total = ll_total + fused_likelihood_sum(
+                    mlp_dist.loc, mlp_dist.scale, image_scales, z_f[s],
+                    inputs.refl_id, image_id, inputs.intensities,
+                    inputs.uncertainties, seed=seed, offset=s * n_all + row0,
+                    noise=None if eps is None else eps[j],
+                    refl_plan=plans.refl, image_plan=image_plan, kind=kind,
+                    dof=dof, ev11=ev11)
+        with span("careless.kl"):
+            return self._loss(q, z_f, ll_total, n_all,
+                              self._built_prior(params), shard)
 
     def _samples(self, params, inputs, generator, u_f, eps, shard=None):
         """(q, z_f (S, n_refl), eps as (S_r, N) or None: S_r the samples
@@ -469,8 +481,9 @@ class Trainer:
         those alone; zeros for the frozen ones and for leaves the loss does
         not reach."""
         live = [t for t, f in zip(leaves, frozen) if not f]
-        got = iter(torch.autograd.grad(loss, live, allow_unused=True)
-                   if live else ())
+        with span("careless.backward"):
+            got = iter(torch.autograd.grad(loss, live, allow_unused=True)
+                       if live else ())
         out = []
         for t, f in zip(leaves, frozen):
             g = None if f else next(got)
@@ -520,7 +533,12 @@ class Trainer:
         it, the generator and base key), so that a run resumed from its own
         checkpoint repeats the uninterrupted run bit for bit. The history
         is aligned to this run's metrics and start step as the JAX package
-        aligns it (:791-802)."""
+        aligns it (:791-802).
+
+        While a torch.profiler session records, the loop's parts are
+        utils/spans.py's careless.* spans: each chunk, its validation,
+        steps, sync and checkpoint, and in each step the ELBO's parts,
+        the backward and the update."""
         from ...utils.checkpoint import (RngState, adam_prefix, load_state,
                                          save_state)
         dev = resolve_device(device)
@@ -575,41 +593,51 @@ class Trainer:
         done = last_ckpt = start_step
         while done < steps:
             n = min(chunk_size, steps - done)
-            if validation_data is not None:
-                v = self.validation_nll(params, validation_data, base, done)
-                history["NLL_val"].extend([val_scale * v] * n)
-            rows = []
-            for i in range(done, done + n):
-                grads, grad_norm, metrics = self.step_gradients(
-                    params, leaves, frozen, inputs, generator,
-                    base | (i << 32), shard)
-                for p, g in zip(leaves, grads):
-                    p.grad = g
-                opt.step()
-                metrics["Grad Norm"] = grad_norm
-                rows.append(torch.stack(
-                    [metrics[k].detach().reshape(()) for k in metric_keys]))
-            chunk = torch.stack(rows).cpu()   # the one host sync per chunk
-            for j, k in enumerate(metric_keys):
-                history[k].extend(chunk[:, j].tolist())
-            done += n
-            bad = ~torch.isfinite(chunk[:, metric_keys.index("Grad Norm")])
-            if bad.any():
-                print("Encountered numerical issues, terminating "
-                      "optimization early!")
-                n_keep = done - n + int(torch.nonzero(bad)[0]) + 1
-                for k in history:
-                    history[k] = history[k][:n_keep]
-                break   # the last healthy checkpoint stays the resume point
-            if (checkpoint_path and checkpoint_frequency > 0
-                    and (done - last_ckpt >= checkpoint_frequency
-                         or done >= steps)):
-                if shard is None or shard.rank == 0:
-                    save_state(checkpoint_path, params, opt, opt_prefix,
-                               done, history,
-                               RngState(generator.get_state(),
-                                        generator.device.type, base))
-                last_ckpt = done
+            with span("careless.chunk", done):
+                if validation_data is not None:
+                    with span("careless.validation"):
+                        v = self.validation_nll(params, validation_data, base,
+                                                done)
+                    history["NLL_val"].extend([val_scale * v] * n)
+                rows = []
+                for i in range(done, done + n):
+                    with span("careless.step", i):
+                        grads, grad_norm, metrics = self.step_gradients(
+                            params, leaves, frozen, inputs, generator,
+                            base | (i << 32), shard)
+                        with span("careless.update"):
+                            for p, g in zip(leaves, grads):
+                                p.grad = g
+                            with span("careless.adam"):
+                                opt.step()
+                        metrics["Grad Norm"] = grad_norm
+                        rows.append(torch.stack(
+                            [metrics[k].detach().reshape(())
+                             for k in metric_keys]))
+                with span("careless.sync"):
+                    chunk = torch.stack(rows).cpu()   # the one host sync
+                    for j, k in enumerate(metric_keys):
+                        history[k].extend(chunk[:, j].tolist())
+                done += n
+                bad = ~torch.isfinite(chunk[:, metric_keys.index("Grad Norm")])
+                if bad.any():
+                    print("Encountered numerical issues, terminating "
+                          "optimization early!")
+                    n_keep = done - n + int(torch.nonzero(bad)[0]) + 1
+                    for k in history:
+                        history[k] = history[k][:n_keep]
+                    # the last healthy checkpoint stays the resume point
+                    break
+                if (checkpoint_path and checkpoint_frequency > 0
+                        and (done - last_ckpt >= checkpoint_frequency
+                             or done >= steps)):
+                    if shard is None or shard.rank == 0:
+                        with span("careless.checkpoint"):
+                            save_state(checkpoint_path, params, opt,
+                                       opt_prefix, done, history,
+                                       RngState(generator.get_state(),
+                                                generator.device.type, base))
+                    last_ckpt = done
         return map_params(lambda t: t.detach(), params), history
 
     def step_gradients(self, params: dict, leaves: List[torch.Tensor],
@@ -624,18 +652,21 @@ class Trainer:
         ranks adds the flat gradients and the likelihood sums of every
         rank; the norm, the zeroing and the clips then run on the same
         values on every rank."""
-        loss, metrics = self.model.elbo(params, inputs, generator, seed=seed,
-                                        shard=shard)
+        with span("careless.elbo"):
+            loss, metrics = self.model.elbo(params, inputs, generator,
+                                            seed=seed, shard=shard)
         grads = self.gradients(loss, leaves, frozen)
-        flat, sizes = self.flat_grads(grads, frozen)
-        if shard is not None:
-            from ...parallel.distributed import all_reduce_sum
-            buf = all_reduce_sum(torch.cat(
-                [flat, metrics["ll"].detach().reshape(1)]))
-            flat = buf[:-1]
-            metrics = self.model.sharded_metrics(metrics, buf[-1],
-                                                 shard.n_total)
-        grads, grad_norm = self.transform_flat(flat, sizes, grads)
+        with span("careless.update"):
+            flat, sizes = self.flat_grads(grads, frozen)
+            if shard is not None:
+                from ...parallel.distributed import all_reduce_sum
+                with span("careless.all_reduce"):
+                    buf = all_reduce_sum(torch.cat(
+                        [flat, metrics["ll"].detach().reshape(1)]))
+                flat = buf[:-1]
+                metrics = self.model.sharded_metrics(metrics, buf[-1],
+                                                     shard.n_total)
+            grads, grad_norm = self.transform_flat(flat, sizes, grads)
         return grads, grad_norm, metrics
 
     def validation_nll(self, params: dict, inputs: Inputs, base: int,

@@ -64,6 +64,7 @@ from ..models.merging.variational import flatten_params, map_params
 from ..models.scaling.image import HybridImageScaler
 from ..ops.fused_elbo import fused_likelihood_sum_gathered, prng_normal
 from ..ops.plan_gather import ChainGatherPlan, block_plan, plan_gather
+from ..utils.spans import span
 
 # the serial loop's seed stride (careless_tpu/main.py:198)
 SEED_STRIDE = 7919
@@ -209,7 +210,9 @@ def train_halves(trainer, params: dict, seeds: Sequence[int],
     steps: (the trained tree, in which every leaf outside trainer.freeze
     has a leading axis of K; each metric's history, a list of K values a
     step). The halves whose gradient norm was ever non-finite are
-    reported. Metrics cross to the host once per chunk."""
+    reported. Metrics cross to the host once per chunk. Under
+    torch.profiler it takes Trainer.train's chunk, step, elbo, backward,
+    update, adam and sync spans (utils/spans.py)."""
     dev = resolve_device(device)
     model, K, S = trainer.model, halves.k, trainer.model.mc_samples
     if len(seeds) != K:
@@ -233,24 +236,33 @@ def train_halves(trainer, params: dict, seeds: Sequence[int],
     done = 0
     while done < steps:
         n = min(chunk_size, steps - done)
-        rows = []
-        for i in range(done, done + n):
-            u_f = torch.stack([model.posterior.family.draw_noise(
-                g, (S, halves.n_refl), dev) for g in gens], dim=-2)
-            loss, metrics = halves_elbo(model, params, halves, u_f,
-                                        [b | (i << 32) for b in bases])
-            grads = trainer.gradients(loss.sum(), leaves,
-                                      [False] * len(leaves))
-            grads, metrics["Grad Norm"] = trainer.transform_grads(
-                grads, [False] * len(leaves), batched=True)
-            for p, g in zip(leaves, grads):
-                p.grad = g
-            opt.step()
-            rows.append(torch.stack([metrics[k].detach() for k in keys]))
-        chunk = torch.stack(rows).cpu()   # (n, metrics, K): one host sync
-        for j, k in enumerate(keys):
-            history[k].extend(chunk[:, j].tolist())
-        done += n
+        with span("careless.chunk", done):
+            rows = []
+            for i in range(done, done + n):
+                with span("careless.step", i):
+                    with span("careless.elbo"):
+                        u_f = torch.stack([model.posterior.family.draw_noise(
+                            g, (S, halves.n_refl), dev) for g in gens],
+                            dim=-2)
+                        loss, metrics = halves_elbo(
+                            model, params, halves, u_f,
+                            [b | (i << 32) for b in bases])
+                    grads = trainer.gradients(loss.sum(), leaves,
+                                              [False] * len(leaves))
+                    with span("careless.update"):
+                        grads, metrics["Grad Norm"] = trainer.transform_grads(
+                            grads, [False] * len(leaves), batched=True)
+                        for p, g in zip(leaves, grads):
+                            p.grad = g
+                        with span("careless.adam"):
+                            opt.step()
+                    rows.append(torch.stack([metrics[k].detach()
+                                             for k in keys]))
+            with span("careless.sync"):
+                chunk = torch.stack(rows).cpu()   # (n, metrics, K): one sync
+                for j, k in enumerate(keys):
+                    history[k].extend(chunk[:, j].tolist())
+            done += n
     norms = np.asarray(history["Grad Norm"]).reshape(-1, K)
     bad = np.flatnonzero(~np.isfinite(norms).all(axis=0)).tolist()
     if bad:

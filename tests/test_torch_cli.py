@@ -273,7 +273,9 @@ def test_data_manager_with_a_tensor_refuses_to_pickle(flag_run, tmp_path):
 def test_profile_dir_writes_a_trace_of_the_elbo(flag_run):
     """One Chrome/TensorBoard trace in the directory, JSON, whose events
     name the ELBO's operations (the posterior's erfinv draw, the trunk's
-    products, the plain gathers' indexing, a backward)."""
+    products, the plain gathers' indexing, a backward) and the training
+    loop's spans (utils/spans.py), a careless.step and a careless.backward
+    range each step."""
     (path,) = glob.glob(os.path.join(flag_run[2], "*.pt.trace.json"))
     with open(path) as f:
         events = json.load(f)["traceEvents"]
@@ -281,6 +283,10 @@ def test_profile_dir_writes_a_trace_of_the_elbo(flag_run):
     for op in ("aten::erfinv", "aten::mm", "aten::index",
                "autograd::engine::evaluate_function: ErfinvBackward0"):
         assert op in names, op
+    ranges = [e["name"] for e in events if e.get("cat") == "user_annotation"]
+    # FLAGS' 3 iterations
+    assert ranges.count("careless.step") == ranges.count(
+        "careless.backward") == 3
 
 
 @pytest.mark.parametrize("part", PARTS)
